@@ -1,0 +1,25 @@
+"""go_avalanche_tpu_torch — the PyTorch / CUDA port of go_avalanche_tpu.
+
+A second package beside the JAX reference, mirroring its module names:
+
+  config           the port's own AvalancheConfig (same fields, defaults)
+  prng             threefry-2x32, bit-exact with jax.random
+  ops/             bitops, voterecord, sampling, adversary, exchange, and
+                   megakernel (the hand-written Hopper kernel in csrc/)
+  models/          the dense avalanche round
+  convert          state carried to and from the reference's numpy leaves
+
+Entry points run on the CUDA device unless the caller passes
+``device="cpu"``; on CPU tensors every kernel wrapper runs its plain
+PyTorch version.  Nothing here imports JAX or go_avalanche_tpu.
+"""
+
+from go_avalanche_tpu_torch.config import (
+    AdversaryStrategy,
+    AvalancheConfig,
+    DEFAULT_CONFIG,
+    VoteMode,
+)
+
+__all__ = ["AdversaryStrategy", "AvalancheConfig", "DEFAULT_CONFIG",
+           "VoteMode"]

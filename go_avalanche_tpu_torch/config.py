@@ -1,0 +1,294 @@
+"""Protocol and simulation configuration of the PyTorch port.
+
+The port's own copy of `go_avalanche_tpu.config`: the same field names,
+the same defaults and the same validation for everything this package
+runs, so one kwargs dict builds both configs.  Every field the port does
+not implement yet is still declared (with its reference default) and
+raises `NotImplementedError` at construction when set to anything else,
+naming the ROADMAP.md Queue 1 item that brings it — a silently ignored
+knob would mislabel the run.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import enum
+import math
+from typing import Optional, Tuple
+
+
+class VoteMode(enum.Enum):
+    """How one round turns k sampled peer preferences into votes.
+
+    SEQUENTIAL — each peer's vote goes through the 8-vote sliding window
+    one at a time, in sample order (`processor.go:94-117`).
+    MAJORITY — the k preferences reduce to one conclusive yes/no chit per
+    round when >= alpha*k agree, else a neutral vote.
+    """
+
+    SEQUENTIAL = "sequential"
+    MAJORITY = "majority"
+
+
+class AdversaryStrategy(enum.Enum):
+    """What a byzantine peer answers when it lies (`ops/adversary.py`).
+
+    FLIP — the opposite of its true preference.  EQUIVOCATE — a fresh
+    coin per (querier, draw, target).  OPPOSE_MAJORITY — the current
+    global minority color.
+    """
+
+    FLIP = "flip"
+    EQUIVOCATE = "equivocate"
+    OPPOSE_MAJORITY = "oppose_majority"
+
+
+ADVERSARY_POLICIES = ("off", "split_vote", "withhold_near_quorum",
+                      "stake_eclipse", "timing")
+
+
+@dataclasses.dataclass(frozen=True)
+class AvalancheConfig:
+    """All protocol constants of the reference plus simulator knobs.
+
+    Field meanings are those of `go_avalanche_tpu.config.AvalancheConfig`;
+    `_UNPORTED` lists the fields this package rejects at non-default
+    values.
+    """
+
+    # --- protocol constants (reference parity) ---
+    finalization_score: int = 128
+    time_step_s: float = 0.010
+    max_element_poll: int = 4096
+    request_timeout_s: float = 60.0
+    window: int = 8
+    quorum: int = 7
+
+    # --- simulator knobs ---
+    k: int = 8
+    alpha: float = 0.8
+    vote_mode: VoteMode = VoteMode.SEQUENTIAL
+    sample_with_replacement: bool = True
+    exclude_self: bool = True
+    weighted_sampling: bool = False
+    n_clusters: int = 1
+    cluster_locality: float = 0.8
+    gossip: bool = True
+    fused_exchange: bool = True
+    ingest_engine: str = "u8"
+    round_engine: str = "phased"
+    fused_sharded_gossip: bool = False
+    strict_validation: bool = False
+    latency_mode: str = "none"
+    latency_rounds: int = 0
+    partition_spec: Optional[Tuple[int, int, float]] = None
+    fault_script: Optional[Tuple[Tuple, ...]] = None
+    rtt_matrix: Optional[Tuple[Tuple[int, ...], ...]] = None
+    inflight_engine: str = "walk"
+    metrics_every: int = 0
+    trace_every: int = 0
+    stream_retire_cap: Optional[int] = None
+
+    # --- live-traffic service mode ---
+    arrival_mode: str = "off"
+    arrival_rate: float = 0.0
+    arrival_period: int = 0
+    arrival_burst_factor: float = 1.0
+    arrival_duty: float = 0.5
+    arrival_depth: float = 0.0
+    arrival_backpressure: Optional[Tuple[float, float]] = None
+    arrival_cluster_weights: Optional[Tuple[float, ...]] = None
+    arrival_latency_buckets: int = 512
+
+    # --- stake subsystem ---
+    stake_mode: str = "off"
+    stake_zipf_s: float = 1.0
+    stake_weights: Optional[Tuple[float, ...]] = None
+    registry_nodes: int = 0
+    active_nodes: int = 0
+    node_churn_rate: float = 0.0
+
+    # --- fault / adversary model ---
+    byzantine_fraction: float = 0.0
+    flip_probability: float = 1.0
+    adversary_strategy: AdversaryStrategy = AdversaryStrategy.FLIP
+    adversary_policy: str = "off"
+    adversary_margin: int = 1
+    drop_probability: float = 0.0
+    churn_probability: float = 0.0
+    skip_absent_votes: bool = False
+
+    def async_queries(self) -> bool:
+        """True when the reference would turn its in-flight query engine
+        on: a latency distribution, or any fault event other than a churn
+        burst (partitions, outages and spikes, fixed or stochastic)."""
+        events = tuple(self.fault_script or ())
+        return (self.latency_mode != "none"
+                or self.partition_spec is not None
+                or any(ev[0] != "churn_burst" for ev in events))
+
+    def timeout_rounds(self) -> int:
+        """First round-age at which an outstanding query expires (the
+        reference's floor + 1 spelling)."""
+        return int(math.floor(self.request_timeout_s / self.time_step_s
+                              + 1e-9)) + 1
+
+    def __post_init__(self) -> None:
+        if not (0 < self.window <= 8):
+            raise ValueError("window must be in (0, 8]: packed into uint8")
+        if not (0 < self.quorum <= self.window):
+            raise ValueError("quorum must be in (0, window]")
+        if self.finalization_score <= 0 or self.finalization_score > 0x7FFF:
+            raise ValueError("finalization_score must fit in 15 bits "
+                             "(confidence counter is uint16 >> 1)")
+        if self.k <= 0:
+            raise ValueError("k must be positive")
+        if self.skip_absent_votes and self.vote_mode is not VoteMode.SEQUENTIAL:
+            raise ValueError(
+                "skip_absent_votes applies to the SEQUENTIAL vote mode only")
+        if not (0.5 < self.alpha <= 1.0):
+            raise ValueError("alpha must be in (0.5, 1.0]")
+        if self.ingest_engine not in ("u8", "swar32"):
+            raise ValueError(
+                f"ingest_engine must be 'u8' or 'swar32', "
+                f"got {self.ingest_engine!r}")
+        if self.inflight_engine not in ("walk", "walk_earlyout",
+                                        "coalesced"):
+            raise ValueError(
+                f"inflight_engine must be 'walk', 'walk_earlyout' or "
+                f"'coalesced', got {self.inflight_engine!r}")
+        if self.latency_mode not in ("none", "fixed", "geometric",
+                                     "weighted", "rtt"):
+            raise ValueError(
+                f"latency_mode must be 'none', 'fixed', 'geometric', "
+                f"'weighted' or 'rtt', got {self.latency_mode!r}")
+        self._validate_adversary()
+        self._validate_round_engine()
+        self._reject_unported()
+
+    def _validate_adversary(self) -> None:
+        """The reference's inert-knob rules for the adversary fields."""
+        if not (0.0 <= self.byzantine_fraction <= 1.0):
+            raise ValueError(
+                f"byzantine_fraction must be in [0, 1], got "
+                f"{self.byzantine_fraction!r}")
+        if not (0.0 <= self.flip_probability <= 1.0):
+            raise ValueError(
+                f"flip_probability must be in [0, 1], got "
+                f"{self.flip_probability!r}")
+        if self.adversary_policy not in ADVERSARY_POLICIES:
+            raise ValueError(
+                f"adversary_policy must be one of "
+                f"{', '.join(ADVERSARY_POLICIES)}, got "
+                f"{self.adversary_policy!r}")
+        if self.byzantine_fraction == 0.0:
+            inert = []
+            if self.adversary_strategy is not AdversaryStrategy.FLIP:
+                inert.append(
+                    f"adversary_strategy={self.adversary_strategy.value}")
+            if self.flip_probability != 1.0:
+                inert.append(f"flip_probability={self.flip_probability!r}")
+            if self.adversary_policy != "off":
+                inert.append(f"adversary_policy={self.adversary_policy}")
+            if self.adversary_margin != 1:
+                inert.append(f"adversary_margin={self.adversary_margin}")
+            if inert:
+                raise ValueError(
+                    f"{', '.join(inert)} set while byzantine_fraction "
+                    f"== 0: with no byzantine nodes every adversary knob "
+                    f"is inert and would mislabel the run as attacked")
+
+    def _validate_round_engine(self) -> None:
+        """The whole-round megakernel covers the sync SEQUENTIAL round
+        only; the same rejections, with the same exception types, as the
+        reference's `_validate_round_engine`."""
+        if self.round_engine not in ("phased", "megakernel"):
+            raise ValueError(
+                f"round_engine must be 'phased' or 'megakernel', "
+                f"got {self.round_engine!r}")
+        if self.round_engine == "phased":
+            return
+        if self.vote_mode is not VoteMode.SEQUENTIAL:
+            raise ValueError(
+                "round_engine 'megakernel' fuses the SEQUENTIAL "
+                "window-ingest round; the MAJORITY reduction has no "
+                "windowed ingest to fuse")
+        if self.async_queries():
+            raise ValueError(
+                "round_engine 'megakernel' covers the synchronous round "
+                "only: the in-flight ring delivers votes ACROSS rounds, "
+                "outside the one fused kernel")
+        if self.inflight_engine != "walk":
+            raise ValueError(
+                f"inflight_engine {self.inflight_engine!r} set with "
+                f"round_engine 'megakernel': the kernel covers the sync "
+                f"round, so the delivery-engine knob is inert")
+        if self.skip_absent_votes:
+            raise ValueError(
+                "round_engine 'megakernel' does not implement the "
+                "skip_absent_votes lane gating — use round_engine "
+                "'phased'")
+        if (self.byzantine_fraction > 0.0 and self.adversary_strategy
+                is AdversaryStrategy.EQUIVOCATE):
+            raise ValueError(
+                "round_engine 'megakernel' cannot reproduce the "
+                "EQUIVOCATE strategy's per-draw keyed coin stream inside "
+                "the kernel — run equivocation on round_engine 'phased'")
+        if self.adversary_policy != "off":
+            raise ValueError(
+                f"adversary_policy {self.adversary_policy!r} set with "
+                f"round_engine 'megakernel': the adaptive-adversary "
+                f"transforms run between the phases the kernel fuses")
+
+    def _reject_unported(self) -> None:
+        for name, item in _UNPORTED.items():
+            default = _FIELD_DEFAULTS[name]
+            if getattr(self, name) != default:
+                raise NotImplementedError(
+                    f"{name}={getattr(self, name)!r}: the PyTorch port does "
+                    f"not implement this yet (ROADMAP.md Queue 1, {item}); "
+                    f"leave it at {default!r}")
+
+
+# Fields the port declares but does not run yet -> the ROADMAP.md
+# Queue 1 item that ports them.
+_UNPORTED = {
+    "ingest_engine": "item 3, register_packed_votes_swar",
+    "sample_with_replacement": "item 8, sample_peers_distinct",
+    "weighted_sampling": "item 8, weighted sampling",
+    "n_clusters": "item 8, clustered topology",
+    "cluster_locality": "item 8, clustered topology",
+    "stake_mode": "item 8, stake",
+    "stake_zipf_s": "item 8, stake",
+    "stake_weights": "item 8, stake",
+    "latency_mode": "item 10, async ring",
+    "latency_rounds": "item 10, async ring",
+    "partition_spec": "item 10, fault script",
+    "fault_script": "item 10, fault script",
+    "rtt_matrix": "item 10, async ring",
+    "inflight_engine": "item 10, async ring",
+    "adversary_policy": "item 11, adaptive adversary",
+    "adversary_margin": "item 11, adaptive adversary",
+    "stream_retire_cap": "item 12, streaming schedulers",
+    "arrival_mode": "item 12, traffic",
+    "arrival_rate": "item 12, traffic",
+    "arrival_period": "item 12, traffic",
+    "arrival_burst_factor": "item 12, traffic",
+    "arrival_duty": "item 12, traffic",
+    "arrival_depth": "item 12, traffic",
+    "arrival_backpressure": "item 12, traffic",
+    "arrival_cluster_weights": "item 12, traffic",
+    "arrival_latency_buckets": "item 12, traffic",
+    "registry_nodes": "item 12, node_stream registry",
+    "active_nodes": "item 12, node_stream registry",
+    "node_churn_rate": "item 12, node_stream registry",
+    "metrics_every": "item 14, metrics tap",
+    "trace_every": "item 14, trace plane",
+    "fused_sharded_gossip": "item 15, sharded drivers",
+    "strict_validation": "item 16, host Processor",
+}
+
+_FIELD_DEFAULTS = {f.name: f.default
+                   for f in dataclasses.fields(AvalancheConfig)}
+
+DEFAULT_CONFIG = AvalancheConfig()

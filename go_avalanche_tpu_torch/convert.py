@@ -1,0 +1,71 @@
+"""Carry a simulator state between the JAX reference and the port.
+
+`state_from_numpy` takes the reference state's leaves read as numpy
+arrays — an `AvalancheSimState`-shaped NamedTuple or a mapping with the
+same field names, records nested the same way, and the key as its two
+uint32 words (`jax.random.key_data`) — and builds the port's state on a
+device.  `state_to_numpy` goes back to the reference dtypes: uint8 vote
+planes, uint16 confidence, bool masks, int32 ranks and stamps, float32
+weights, and the key as two uint32 words.  Nothing here imports JAX.
+"""
+
+from __future__ import annotations
+
+from typing import Any, Mapping
+
+import numpy as np
+import torch
+
+from go_avalanche_tpu_torch.models.avalanche import (AvalancheSimState,
+                                                     to_device)
+from go_avalanche_tpu_torch.ops.voterecord import VoteRecordState
+
+_DTYPES = {
+    "added": torch.bool, "valid": torch.bool, "score_rank": torch.int32,
+    "poll_order": torch.int32, "poll_order_inv": torch.int32,
+    "byzantine": torch.bool, "alive": torch.bool,
+    "latency_weight": torch.float32, "finalized_at": torch.int32,
+    "round": torch.int32,
+}
+
+
+def _field(tree: Any, name: str):
+    return tree[name] if isinstance(tree, Mapping) else getattr(tree, name)
+
+
+def _tensor(x, dtype: torch.dtype) -> torch.Tensor:
+    return torch.from_numpy(np.array(x)).to(dtype)
+
+
+def state_from_numpy(tree: Any, device="cuda") -> AvalancheSimState:
+    """The port's state on `device` from the reference state's numpy
+    leaves."""
+    rec = _field(tree, "records")
+    confidence = np.asarray(_field(rec, "confidence"), np.uint16)
+    records = VoteRecordState(
+        votes=_tensor(_field(rec, "votes"), torch.uint8),
+        consider=_tensor(_field(rec, "consider"), torch.uint8),
+        confidence=torch.from_numpy(confidence.view(np.int16).copy()),
+    )
+    leaves = {name: (None if _field(tree, name) is None
+                     else _tensor(_field(tree, name), dtype))
+              for name, dtype in _DTYPES.items()}
+    key = torch.from_numpy(
+        np.asarray(_field(tree, "key"), np.uint32).astype(np.int64))
+    return to_device(AvalancheSimState(records=records, key=key, **leaves),
+                     device)
+
+
+def state_to_numpy(state: AvalancheSimState) -> AvalancheSimState:
+    """The state's leaves as numpy arrays in the reference dtypes (the
+    same NamedTuple structure, so leaves compare field by field)."""
+    def np_(x):
+        return None if x is None else x.detach().cpu().numpy()
+
+    rec = state.records
+    return AvalancheSimState(
+        records=VoteRecordState(np_(rec.votes), np_(rec.consider),
+                                np_(rec.confidence).view(np.uint16)),
+        **{name: np_(getattr(state, name)) for name in _DTYPES},
+        key=np_(state.key).astype(np.uint32),
+    )

@@ -1,0 +1,253 @@
+"""The vote-record state machine (`vote.go:24-98`), element-wise on tensors.
+
+The PyTorch counterpart of `go_avalanche_tpu/ops/voterecord.py`, with the
+same state encoding:
+
+  votes      : uint8  sliding window of the last `window` votes, bit0 =
+               newest; bit set = that vote was a yes
+  consider   : uint8  sliding window of non-neutral-ness
+  confidence : the reference's uint16 word — bit 0 = current preference,
+               bits 1..15 = the confidence counter
+
+Confidence storage: torch has no arithmetic on uint16, so the state
+keeps the uint16 BIT PATTERN in an int16 tensor (2 bytes per record,
+like the reference; the megakernel reads and writes it as uint16).
+Values >= 0x8000 (the counter saturates at 0x7FFF, shifted left with the
+preference bit) read negative in int16, so every function here widens
+with `widen_confidence` (int32, ``& 0xFFFF``) before any shift or
+compare, and narrows back with `narrow_confidence` when storing.
+`convert.py` hands the reference uint16 arrays in and out.
+"""
+
+from __future__ import annotations
+
+from typing import NamedTuple, Optional, Tuple
+
+import torch
+
+from go_avalanche_tpu_torch.config import AvalancheConfig, DEFAULT_CONFIG
+from go_avalanche_tpu_torch.ops.bitops import popcount8
+
+
+class VoteRecordState(NamedTuple):
+    """SoA vote-record state; each leaf has the same shape."""
+
+    votes: torch.Tensor       # uint8
+    consider: torch.Tensor    # uint8
+    confidence: torch.Tensor  # int16 holding the uint16 bit pattern
+
+
+def widen_confidence(confidence: torch.Tensor) -> torch.Tensor:
+    """The uint16 confidence word as int32 in [0, 0xFFFF]."""
+    return confidence.to(torch.int32) & 0xFFFF
+
+
+def narrow_confidence(confidence: torch.Tensor) -> torch.Tensor:
+    """int32 [0, 0xFFFF] -> the int16 storage bit pattern (wraps)."""
+    return confidence.to(torch.int16)
+
+
+def init_state(accepted: torch.Tensor) -> VoteRecordState:
+    """Fresh records seeded with an initial preference (`vote.go:33-35`)."""
+    return VoteRecordState(
+        votes=torch.zeros(accepted.shape, dtype=torch.uint8,
+                          device=accepted.device),
+        consider=torch.zeros(accepted.shape, dtype=torch.uint8,
+                             device=accepted.device),
+        confidence=accepted.to(torch.int16),
+    )
+
+
+def is_accepted(confidence: torch.Tensor) -> torch.Tensor:
+    """Preference bit (`vote.go:38-40`)."""
+    return (confidence & 1).to(torch.bool)
+
+
+def get_confidence(confidence: torch.Tensor) -> torch.Tensor:
+    """Confidence counter (`vote.go:43-45`), int32."""
+    return widen_confidence(confidence) >> 1
+
+
+def has_finalized(confidence: torch.Tensor,
+                  cfg: AvalancheConfig = DEFAULT_CONFIG) -> torch.Tensor:
+    """Counter reached the finalization score (`vote.go:48-50`)."""
+    return get_confidence(confidence) >= cfg.finalization_score
+
+
+def status(confidence: torch.Tensor,
+           cfg: AvalancheConfig = DEFAULT_CONFIG) -> torch.Tensor:
+    """Status codes (`vote.go:77-91`) as int8: FINALIZED 3, ACCEPTED 2,
+    REJECTED 1, INVALID 0."""
+    acc = is_accepted(confidence)
+    fin = has_finalized(confidence, cfg)
+    return torch.where(fin, torch.where(acc, 3, 0),
+                       torch.where(acc, 2, 1)).to(torch.int8)
+
+
+def _apply_vote_bits(votes, consider, confidence, yes_bit, non_neutral_bit,
+                     cfg: AvalancheConfig):
+    """One window shift + confidence transition (`vote.go:54-75`) on a
+    widened int32 `confidence`; returns (votes, consider, confidence,
+    changed).  The counter saturates at 0x7FFF instead of wrapping."""
+    window_mask = (1 << cfg.window) - 1
+    votes = ((votes << 1) | yes_bit.to(torch.uint8)) & window_mask
+    consider = ((consider << 1)
+                | non_neutral_bit.to(torch.uint8)) & window_mask
+
+    threshold = cfg.quorum - 1
+    yes = popcount8(votes & consider) > threshold
+    no = popcount8(~votes & consider & window_mask) > threshold
+    conclusive = yes | no
+
+    accepted = (confidence & 1) == 1
+    agree = accepted == yes
+    saturated = (confidence >> 1) >= 0x7FFF
+    conf_bumped = torch.where(saturated, confidence, confidence + 2)
+    new_confidence = torch.where(
+        conclusive,
+        torch.where(agree, conf_bumped, yes.to(torch.int32)),
+        confidence)
+    finalized_now = ((conf_bumped >> 1) == cfg.finalization_score) & agree
+    changed = conclusive & (~agree | finalized_now)
+    return votes, consider, new_confidence, changed
+
+
+def _masked(state: VoteRecordState, new: VoteRecordState,
+            changed: torch.Tensor,
+            update_mask: Optional[torch.Tensor]) -> Tuple:
+    """Freeze records where `update_mask` is False (the batched
+    delete-on-finalize / skip-missing-record)."""
+    if update_mask is None:
+        return new, changed
+    m = update_mask.to(torch.bool)
+    return VoteRecordState(
+        torch.where(m, new.votes, state.votes),
+        torch.where(m, new.consider, state.consider),
+        torch.where(m, new.confidence, state.confidence),
+    ), changed & m
+
+
+def register_vote(
+    state: VoteRecordState,
+    err: torch.Tensor,
+    cfg: AvalancheConfig = DEFAULT_CONFIG,
+    update_mask: Optional[torch.Tensor] = None,
+) -> Tuple[VoteRecordState, torch.Tensor]:
+    """Apply one vote per record; `err` is signed (0 = yes, > 0 = no,
+    < 0 = neutral), broadcastable to the state shape.  Returns
+    (new_state, changed)."""
+    votes, consider, confidence, changed = _apply_vote_bits(
+        state.votes, state.consider, widen_confidence(state.confidence),
+        err == 0, err >= 0, cfg)
+    new = VoteRecordState(votes, consider, narrow_confidence(confidence))
+    return _masked(state, new, changed, update_mask)
+
+
+def register_packed_votes(
+    state: VoteRecordState,
+    yes_pack: torch.Tensor,
+    consider_pack: torch.Tensor,
+    k: int,
+    cfg: AvalancheConfig = DEFAULT_CONFIG,
+    update_mask: Optional[torch.Tensor] = None,
+    absent_is_skip: Optional[bool] = None,
+) -> Tuple[VoteRecordState, torch.Tensor]:
+    """Apply k votes per record from bit-packed uint8 planes,
+    oldest-first (bit j = vote j); the u8 engine.
+
+    Same contract as the reference: identical to k `register_vote` calls,
+    `changed` OR-reduced over the k votes, and `absent_is_skip` (default
+    `cfg.skip_absent_votes`) selecting whether a zero consider bit is a
+    delivered neutral vote or a vote that registers nothing.  The window
+    counts are kept incrementally (+incoming bit, -evicted bit per vote)
+    as in the reference's hand-fused loop.
+    """
+    if not (0 < k <= 8):
+        raise ValueError("k must be in (0, 8] for uint8 packing")
+    if absent_is_skip is None:
+        absent_is_skip = cfg.skip_absent_votes
+    if absent_is_skip:
+        return _register_packed_votes_skip(state, yes_pack, consider_pack,
+                                           k, cfg, update_mask)
+
+    votes, consider = state.votes, state.consider
+    confidence = widen_confidence(state.confidence)
+    any_changed = torch.zeros(votes.shape, dtype=torch.bool,
+                              device=votes.device)
+    window_mask = (1 << cfg.window) - 1
+    full_window = cfg.window == 8  # uint8 shifts self-truncate
+    top_bit = cfg.window - 1
+    threshold = cfg.quorum - 1
+
+    yes_cnt = popcount8(votes & consider)
+    cons_cnt = popcount8(consider)
+    for j in range(k):
+        in_yes_raw = (yes_pack >> j) & 1
+        in_cons = (consider_pack >> j) & 1
+        in_yes = in_yes_raw & in_cons          # counted iff considered
+
+        evict_yes = ((votes & consider) >> top_bit) & 1
+        evict_cons = (consider >> top_bit) & 1
+        yes_cnt = yes_cnt + in_yes - evict_yes
+        cons_cnt = cons_cnt + in_cons - evict_cons
+
+        votes = (votes << 1) | in_yes_raw
+        consider = (consider << 1) | in_cons
+        if not full_window:
+            votes = votes & window_mask
+            consider = consider & window_mask
+
+        yes = yes_cnt > threshold
+        no = (cons_cnt - yes_cnt) > threshold
+        conclusive = yes | no
+
+        agree = ((confidence & 1) == 1) == yes
+        saturated = (confidence >> 1) >= 0x7FFF
+        conf_bumped = torch.where(saturated, confidence, confidence + 2)
+        confidence = torch.where(
+            conclusive,
+            torch.where(agree, conf_bumped, yes.to(torch.int32)),
+            confidence)
+        finalized_now = ((conf_bumped >> 1) == cfg.finalization_score) & agree
+        any_changed |= conclusive & (~agree | finalized_now)
+
+    new = VoteRecordState(votes, consider, narrow_confidence(confidence))
+    return _masked(state, new, any_changed, update_mask)
+
+
+def register_packed_votes_engine(
+    state: VoteRecordState,
+    yes_pack: torch.Tensor,
+    consider_pack: torch.Tensor,
+    k: int,
+    cfg: AvalancheConfig = DEFAULT_CONFIG,
+    update_mask: Optional[torch.Tensor] = None,
+    absent_is_skip: Optional[bool] = None,
+) -> Tuple[VoteRecordState, torch.Tensor]:
+    """The ingest-engine dispatch on `cfg.ingest_engine`.  Only the "u8"
+    engine is ported; the config rejects "swar32" at construction."""
+    return register_packed_votes(state, yes_pack, consider_pack, k, cfg,
+                                 update_mask, absent_is_skip)
+
+
+def _register_packed_votes_skip(state, yes_pack, present_pack, k: int,
+                                cfg: AvalancheConfig, update_mask):
+    """`register_packed_votes` where an absent slot registers nothing;
+    present votes carry non_neutral=True.  Plain per-slot transitions,
+    as in the reference."""
+    votes, consider = state.votes, state.consider
+    confidence = widen_confidence(state.confidence)
+    any_changed = torch.zeros(votes.shape, dtype=torch.bool,
+                              device=votes.device)
+    for j in range(k):
+        present = ((present_pack >> j) & 1).to(torch.bool)
+        yes_bit = ((yes_pack >> j) & 1).to(torch.bool)
+        v2, c2, conf2, ch2 = _apply_vote_bits(
+            votes, consider, confidence, yes_bit,
+            torch.ones_like(yes_bit), cfg)
+        votes = torch.where(present, v2, votes)
+        consider = torch.where(present, c2, consider)
+        confidence = torch.where(present, conf2, confidence)
+        any_changed |= ch2 & present
+    new = VoteRecordState(votes, consider, narrow_confidence(confidence))
+    return _masked(state, new, any_changed, update_mask)

@@ -1,0 +1,108 @@
+"""Import hygiene of the PyTorch port and of `chip_smoke.py`.
+
+The port imports `torch` and never `jax` or anything of the JAX package
+(`go_avalanche_tpu`); its entry points default to the CUDA device and
+refuse to fall back to the CPU silently.
+"""
+
+import ast
+import subprocess
+import sys
+from pathlib import Path
+
+import pytest
+import torch
+
+REPO = Path(__file__).resolve().parents[1]
+PORT = REPO / "go_avalanche_tpu_torch"
+MODULES = ["go_avalanche_tpu_torch", "go_avalanche_tpu_torch.config",
+           "go_avalanche_tpu_torch.prng", "go_avalanche_tpu_torch.convert",
+           "go_avalanche_tpu_torch._build",
+           "go_avalanche_tpu_torch.ops.bitops",
+           "go_avalanche_tpu_torch.ops.voterecord",
+           "go_avalanche_tpu_torch.ops.sampling",
+           "go_avalanche_tpu_torch.ops.adversary",
+           "go_avalanche_tpu_torch.ops.exchange",
+           "go_avalanche_tpu_torch.ops.megakernel",
+           "go_avalanche_tpu_torch.models.avalanche",
+           "go_avalanche_tpu_torch.workload",
+           "go_avalanche_tpu_torch.round_profile"]
+
+
+def _forbidden(module: str) -> bool:
+    return (module == "jax" or module.startswith("jax.")
+            or module == "go_avalanche_tpu"
+            or module.startswith("go_avalanche_tpu."))
+
+
+def test_importing_the_port_loads_no_jax_module():
+    code = ("import sys\n"
+            + "".join(f"import {m}\n" for m in MODULES)
+            + "print('\\n'.join(sorted(sys.modules)))\n")
+    out = subprocess.run([sys.executable, "-c", code], cwd=REPO,
+                         capture_output=True, text=True, check=True,
+                         timeout=120).stdout.split()
+    assert "go_avalanche_tpu_torch.models.avalanche" in out
+    assert [m for m in out if _forbidden(m)] == []
+
+
+def _imported_modules(path: Path):
+    tree = ast.parse(path.read_text(), filename=str(path))
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            yield from (alias.name for alias in node.names)
+        elif isinstance(node, ast.ImportFrom) and node.module:
+            yield node.module
+
+
+@pytest.mark.parametrize("path", sorted(PORT.rglob("*.py"))
+                         + [REPO / "chip_smoke.py"],
+                         ids=lambda p: str(p.relative_to(REPO)))
+def test_no_source_file_imports_jax(path):
+    assert [m for m in _imported_modules(path) if _forbidden(m)] == []
+
+
+def test_chip_smoke_imports_no_jax_and_fails_without_cuda():
+    code = ("import sys, runpy\n"
+            "try:\n"
+            "    runpy.run_path('chip_smoke.py', run_name='__main__')\n"
+            "except SystemExit as e:\n"
+            "    bad = [m for m in sys.modules if m == 'jax'"
+            " or m.startswith('jax.') or m == 'go_avalanche_tpu'"
+            " or m.startswith('go_avalanche_tpu.')]\n"
+            "    print('BAD', bad)\n"
+            "    sys.exit(e.code)\n")
+    proc = subprocess.run([sys.executable, "-c", code], cwd=REPO,
+                          capture_output=True, text=True, timeout=120)
+    if torch.cuda.is_available():
+        pytest.skip("this machine has a GPU: chip_smoke.py would run")
+    assert proc.returncode != 0
+    assert "BAD []" in proc.stdout
+    assert '"ok"' not in proc.stdout
+
+
+def test_entry_points_default_to_cuda():
+    if torch.cuda.is_available():
+        pytest.skip("this machine has a GPU: the default device works")
+    from go_avalanche_tpu_torch import prng
+    from go_avalanche_tpu_torch.models import avalanche as av
+
+    key = prng.key(0, device="cpu")
+    with pytest.raises(RuntimeError, match="cuda"):
+        av.init(key, 4, 32)
+    state = av.init(key, 4, 32, device="cpu")
+    with pytest.raises(RuntimeError, match="cuda"):
+        av.run_scan(state, n_rounds=1)
+    with pytest.raises(RuntimeError, match="cuda"):
+        av.run(state, max_rounds=1)
+
+
+def test_round_profile_fails_without_cuda():
+    if torch.cuda.is_available():
+        pytest.skip("this machine has a GPU: the profile would run")
+    proc = subprocess.run(
+        [sys.executable, "-m", "go_avalanche_tpu_torch.round_profile"],
+        cwd=REPO,
+        capture_output=True, text=True, timeout=120)
+    assert proc.returncode != 0
+    assert proc.stdout == ""
