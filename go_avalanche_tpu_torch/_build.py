@@ -2,8 +2,9 @@
 
 Each `csrc/<name>.cu` has a plain C interface and compiles with `nvcc`
 alone (no PyTorch headers) into `build/lib<name>-<digest>.so`, where the
-digest covers the source and the flags, so an edited source rebuilds and
-an unchanged one is reused.  Nothing here runs at import.
+digest covers the source, every `csrc/*.cuh` header a source may include
+and the flags, so an edited source or header rebuilds and an unchanged
+one is reused.  Nothing here runs at import.
 """
 
 from __future__ import annotations
@@ -48,10 +49,13 @@ def nvcc_path() -> str:
 
 
 def library_path(name: str) -> Path:
-    src = CSRC_DIR / f"{name}.cu"
-    digest = hashlib.sha256(src.read_bytes()
-                            + " ".join(NVCC_FLAGS).encode()).hexdigest()
-    return BUILD_DIR / f"lib{name}-{digest[:16]}.so"
+    """The library of `csrc/<name>.cu`, named by a digest of the source,
+    of every `csrc/*.cuh` (in name order) and of the flags."""
+    h = hashlib.sha256()
+    for src in (CSRC_DIR / f"{name}.cu", *sorted(CSRC_DIR.glob("*.cuh"))):
+        h.update(src.name.encode() + b"\0" + src.read_bytes() + b"\0")
+    h.update(" ".join(NVCC_FLAGS).encode())
+    return BUILD_DIR / f"lib{name}-{h.hexdigest()[:16]}.so"
 
 
 def build(name: str) -> Built:
@@ -78,3 +82,23 @@ def build(name: str) -> Built:
 def load(name: str) -> ctypes.CDLL:
     """The kernel library `name`, built first if needed."""
     return ctypes.CDLL(str(build(name).path))
+
+
+def check_arg(t, name: str, dtype, shape: tuple, device, align: int = 8
+              ) -> None:
+    """Raise unless tensor `t` is what a kernel reads through a bare
+    pointer: on `device`, of `dtype` and `shape`, contiguous, and
+    starting on an `align`-byte boundary (the kernels read whole
+    words)."""
+    if t.device != device:
+        raise ValueError(f"{name} is on {t.device}, records on {device}")
+    if t.dtype != dtype:
+        raise TypeError(f"{name} must be {dtype}, got {t.dtype}")
+    if tuple(t.shape) != shape:
+        raise ValueError(f"{name} must have shape {shape}, got "
+                         f"{tuple(t.shape)}")
+    if not t.is_contiguous():
+        raise ValueError(f"{name} must be contiguous")
+    if t.data_ptr() % align:
+        raise ValueError(f"{name} must start on an {align}-byte boundary "
+                         f"(the kernel reads whole words)")

@@ -75,6 +75,8 @@ class AvalancheConfig:
     cluster_locality: float = 0.8
     gossip: bool = True
     fused_exchange: bool = True
+    # "u8" and "swar32" give the same bits; "u8" is kept as the
+    # counterpart of the reference's `_vote_kernel` (ROADMAP.md Queue 2).
     ingest_engine: str = "u8"
     round_engine: str = "phased"
     fused_sharded_gossip: bool = False
@@ -253,7 +255,6 @@ class AvalancheConfig:
 # Fields the port declares but does not run yet -> the ROADMAP.md
 # Queue 1 item that ports them.
 _UNPORTED = {
-    "ingest_engine": "item 3, register_packed_votes_swar",
     "sample_with_replacement": "item 8, sample_peers_distinct",
     "weighted_sampling": "item 8, weighted sampling",
     "n_clusters": "item 8, clustered topology",

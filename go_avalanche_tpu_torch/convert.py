@@ -6,7 +6,10 @@ same field names, records nested the same way, and the key as its two
 uint32 words (`jax.random.key_data`) — and builds the port's state on a
 device.  `state_to_numpy` goes back to the reference dtypes: uint8 vote
 planes, uint16 confidence, bool masks, int32 ranks and stamps, float32
-weights, and the key as two uint32 words.  Nothing here imports JAX.
+weights, and the key as two uint32 words.  `dag_state_from_numpy` and
+`dag_state_to_numpy` do the same for the conflict-DAG state: its base
+state, the int32 `conflict_set` and the `n_sets` / `set_size` statics.
+Nothing here imports JAX.
 """
 
 from __future__ import annotations
@@ -16,6 +19,7 @@ from typing import Any, Mapping
 import numpy as np
 import torch
 
+from go_avalanche_tpu_torch.models import dag
 from go_avalanche_tpu_torch.models.avalanche import (AvalancheSimState,
                                                      to_device)
 from go_avalanche_tpu_torch.ops.voterecord import VoteRecordState
@@ -69,3 +73,21 @@ def state_to_numpy(state: AvalancheSimState) -> AvalancheSimState:
         **{name: np_(getattr(state, name)) for name in _DTYPES},
         key=np_(state.key).astype(np.uint32),
     )
+
+
+def dag_state_from_numpy(tree: Any, device="cuda") -> dag.DagSimState:
+    """The port's DAG state on `device` from the reference DAG state's
+    numpy leaves (`base`, `conflict_set`) and statics."""
+    state = dag.DagSimState(
+        base=state_from_numpy(_field(tree, "base"), device="cpu"),
+        conflict_set=_tensor(_field(tree, "conflict_set"), torch.int32),
+        n_sets=int(_field(tree, "n_sets")),
+        set_size=(None if _field(tree, "set_size") is None
+                  else int(_field(tree, "set_size"))))
+    return dag.to_device(state, device)
+
+
+def dag_state_to_numpy(state: dag.DagSimState) -> dag.DagSimState:
+    """The DAG state's leaves as numpy arrays in the reference dtypes."""
+    return state._replace(base=state_to_numpy(state.base),
+                          conflict_set=state.conflict_set.cpu().numpy())

@@ -25,7 +25,8 @@
 // all N rows of a column block in VMEM (1 MB); here nothing is staged in
 // shared memory — the gather goes through L2.  The window fold runs SWAR
 // on the word (4 byte lanes, the reference's `swar_window_fold`
-// algebra), emitting per-draw yes / conclusive bits, and the confidence
+// algebra; swar.cuh, shared with vote_swar.cu), emitting per-draw yes /
+// conclusive bits, and the confidence
 // word is touched once, by the closed form of the k-step fold
 // (`voterecord._confidence_closed_form` in the reference).  Unpolled
 // records are restored in-kernel.  No shared memory, no atomics, no
@@ -34,57 +35,18 @@
 #include <cstdint>
 #include <cuda_runtime.h>
 
+#include "swar.cuh"
+
 namespace {
 
-constexpr uint32_t kLaneLsb = 0x01010101u;
-constexpr uint32_t kLaneMsb = 0x80808080u;
-constexpr uint32_t kNoCarry = 0xFEFEFEFEu;  // drops a lane's <<1 carry-out
+using swar::kLaneLsb;
 constexpr int kThreads = 256;               // 1024 tx columns per block
-
-// Per-byte-lane popcount of a 32-bit word.
-__host__ __device__ __forceinline__ uint32_t popcount8_lanes(uint32_t x) {
-  x = x - ((x >> 1) & 0x55555555u);
-  x = (x & 0x33333333u) + ((x >> 2) & 0x33333333u);
-  return (x + (x >> 4)) & 0x0F0F0F0Fu;
-}
 
 // Four preference bits (tx columns 4g .. 4g+3) -> one bit per byte lane:
 // nib * 0x00204081 places bit b at 8b + (other copies at disjoint
 // positions), so no carries and the mask keeps exactly the lane LSBs.
 __host__ __device__ __forceinline__ uint32_t nibble_lanes(uint32_t nib) {
   return (nib * 0x00204081u) & kLaneLsb;
-}
-
-// The k-step confidence fold of one record in closed form.  `concl` and
-// `yes` hold the per-draw conclusive and (conclusive) yes outcomes, draw
-// j at bit j.  A record flips iff some conclusive vote disagrees with its
-// initial preference; the final preference is the last conclusive
-// vote's; the final counter counts the trailing run of conclusive votes
-// agreeing with it (the run starts at 0 after a flip, and otherwise
-// extends the incoming counter, saturating at 0x7FFF).
-__host__ __device__ __forceinline__ uint32_t confidence_closed_form(
-    uint32_t conf, uint32_t concl, uint32_t yes, uint32_t score,
-    bool* changed) {
-  const uint32_t a0 = conf & 1u;
-  const uint32_t c0 = conf >> 1;
-  const bool flips = (concl & (yes ^ (a0 * 0xFFu))) != 0u;
-  uint32_t f = concl | (concl >> 1);
-  f |= f >> 2;
-  f |= f >> 4;
-  const uint32_t high = f ^ (f >> 1);  // highest conclusive draw
-  const uint32_t a_fin = concl ? ((yes & high) ? 1u : 0u) : a0;
-  const uint32_t disagree = concl & (yes ^ (a_fin * 0xFFu));
-  uint32_t d = disagree | (disagree >> 1);
-  d |= d >> 2;
-  d |= d >> 4;
-  const uint32_t run = popcount8_lanes(concl & ~d & 0xFFu);
-  const uint32_t pc = popcount8_lanes(concl);
-  const uint32_t extended = c0 + pc < 0x7FFFu ? c0 + pc : 0x7FFFu;
-  const uint32_t counter = flips ? run - 1u : extended;
-  bool crossed = c0 < score && c0 + pc >= score;
-  if (score == 0x7FFFu) crossed = crossed || (c0 == 0x7FFFu && pc > 0u);
-  *changed = flips || crossed;
-  return (counter << 1) | a_fin;
 }
 
 struct RoundArgs {
@@ -110,23 +72,13 @@ __host__ __device__ __forceinline__ void round_word(const RoundArgs& a,
   const size_t idx = static_cast<size_t>(row) * a.t4 + g;
   const uint32_t votes_in = a.votes[idx];
   const uint32_t consider_in = a.consider[idx];
-  uint32_t votes = votes_in;
-  uint32_t consider = consider_in;
-
-  const uint32_t window_lanes = ((1u << a.window) - 1u) * kLaneLsb;
-  const int top_bit = a.window - 1;
-  // lane > quorum-1  <=>  (lane + 0x7F - (quorum-1)) has its MSB set.
-  const uint32_t gt_bias = (0x7Fu - static_cast<uint32_t>(a.quorum - 1))
-                           * kLaneLsb;
   const int byte = g >> 1;
   const int shift = (g & 1) * 4;
   const uint32_t minority =
       nibble_lanes((static_cast<uint32_t>(a.minority[byte]) >> shift) & 0xFu);
 
-  uint32_t yes_cnt = popcount8_lanes(votes & consider);
-  uint32_t cons_cnt = popcount8_lanes(consider);
-  uint32_t out_yes = 0u;
-  uint32_t out_concl = 0u;
+  swar::Window w = swar::window_start(votes_in, consider_in, a.window,
+                                      a.quorum);
   for (int j = 0; j < a.k; ++j) {
     const size_t draw = static_cast<size_t>(row) * a.k + j;
     int peer = a.peers[draw];
@@ -141,20 +93,10 @@ __host__ __device__ __forceinline__ void round_word(const RoundArgs& a,
       in_yes_raw ^= lie;
     }
     const uint32_t in_cons = a.responded[draw] ? kLaneLsb : 0u;
-    const uint32_t in_yes = in_yes_raw & in_cons;  // counted iff considered
-
-    const uint32_t evict_yes = ((votes & consider) >> top_bit) & kLaneLsb;
-    const uint32_t evict_cons = (consider >> top_bit) & kLaneLsb;
-    yes_cnt = yes_cnt + in_yes - evict_yes;
-    cons_cnt = cons_cnt + in_cons - evict_cons;
-    votes = (((votes << 1) & kNoCarry) | in_yes_raw) & window_lanes;
-    consider = (((consider << 1) & kNoCarry) | in_cons) & window_lanes;
-
-    const uint32_t yes_m = (yes_cnt + gt_bias) & kLaneMsb;
-    const uint32_t no_m = ((cons_cnt - yes_cnt) + gt_bias) & kLaneMsb;
-    out_yes |= (yes_m >> (7 - j)) & (kLaneLsb << j);
-    out_concl |= ((yes_m | no_m) >> (7 - j)) & (kLaneLsb << j);
+    swar::window_step(w, in_yes_raw, in_cons, j);
   }
+  const uint32_t votes = w.votes;
+  const uint32_t consider = w.consider;
 
   const uint32_t polled = a.polled[idx];     // 0/1 per byte lane
   const uint32_t keep = polled * 0xFFu;      // 0xFF per polled lane
@@ -167,10 +109,10 @@ __host__ __device__ __forceinline__ void round_word(const RoundArgs& a,
   uint32_t conf_out[4];
   uint32_t changed = 0u;
   for (int lane = 0; lane < 4; ++lane) {
-    const uint32_t concl = (out_concl >> (8 * lane)) & 0xFFu;
-    const uint32_t yes = (out_yes >> (8 * lane)) & concl;
+    const uint32_t concl = (w.out_concl >> (8 * lane)) & 0xFFu;
+    const uint32_t yes = (w.out_yes >> (8 * lane)) & concl;
     bool lane_changed = false;
-    const uint32_t folded = confidence_closed_form(
+    const uint32_t folded = swar::confidence_closed_form(
         conf[lane], concl, yes, static_cast<uint32_t>(a.score),
         &lane_changed);
     const bool m = ((polled >> (8 * lane)) & 1u) != 0u;

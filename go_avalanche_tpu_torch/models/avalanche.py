@@ -10,9 +10,11 @@ ingest cycle on dense ``[nodes, txs]`` tensors:
     gather peer preferences + adversary / drop transforms
     k-vote window ingest        (RegisterVotes)
 
-`cfg.round_engine` selects the phased path (exchange, then the u8
-ingest, as plain PyTorch) or the megakernel (`ops/megakernel.py`, one
-hand-written CUDA kernel on the card).  Randomness comes from the
+`cfg.round_engine` selects the phased path (exchange as plain PyTorch,
+then the window ingest of `cfg.ingest_engine` through
+`ops/pallas_vote.register_packed_votes_fused`, a hand-written CUDA
+kernel on the card) or the megakernel (`ops/megakernel.py`, one
+hand-written CUDA kernel for the whole round).  Randomness comes from the
 threefry key carried in the state (`prng.py`), split exactly as the
 reference splits it, so both packages walk the same trajectory from the
 same state.  The async ring, fault scripts, adaptive adversary, metrics
@@ -34,7 +36,8 @@ import torch
 from go_avalanche_tpu_torch import prng
 from go_avalanche_tpu_torch.config import (AvalancheConfig, DEFAULT_CONFIG,
                                            VoteMode)
-from go_avalanche_tpu_torch.ops import adversary, exchange, megakernel
+from go_avalanche_tpu_torch.ops import (adversary, exchange, megakernel,
+                                        pallas_vote)
 from go_avalanche_tpu_torch.ops import voterecord as vr
 from go_avalanche_tpu_torch.ops.bitops import pack_bool_plane, popcount8
 from go_avalanche_tpu_torch.ops.sampling import draw_peers
@@ -259,7 +262,7 @@ def round_step(
             votes_applied = (responded.sum(dim=1, dtype=torch.int32)[:, None]
                              * polled).sum()
         elif cfg.vote_mode is VoteMode.SEQUENTIAL:
-            records, changed = vr.register_packed_votes_engine(
+            records, changed = pallas_vote.register_packed_votes_fused(
                 state.records, yes_pack, consider_pack, cfg.k, cfg,
                 update_mask=polled)
             votes_applied = (popcount8(consider_pack).to(torch.int32)

@@ -13,7 +13,8 @@ import torch
 
 
 def popcount8(x: torch.Tensor) -> torch.Tensor:
-    """Per-element popcount of a uint8 tensor (SWAR, branch-free)."""
+    """Per-element popcount of a uint8 tensor, or of byte values in a
+    wider integer tensor (SWAR, branch-free)."""
     x = x - ((x >> 1) & 0x55)
     x = (x & 0x33) + ((x >> 2) & 0x33)
     return (x + (x >> 4)) & 0x0F

@@ -81,22 +81,6 @@ def _oppose(cfg: AvalancheConfig) -> int:
     return int(s is AdversaryStrategy.OPPOSE_MAJORITY)
 
 
-def _require(t: torch.Tensor, name: str, dtype: torch.dtype, shape: tuple,
-             device: torch.device) -> None:
-    if t.device != device:
-        raise ValueError(f"{name} is on {t.device}, records on {device}")
-    if t.dtype != dtype:
-        raise TypeError(f"{name} must be {dtype}, got {t.dtype}")
-    if tuple(t.shape) != shape:
-        raise ValueError(f"{name} must have shape {shape}, got "
-                         f"{tuple(t.shape)}")
-    if not t.is_contiguous():
-        raise ValueError(f"{name} must be contiguous")
-    if t.data_ptr() % 8:
-        raise ValueError(f"{name} must start on an 8-byte boundary (the "
-                         f"kernel reads whole words)")
-
-
 def _launch(records, packed_prefs, peers, responded, lie, minority_t, polled,
             cfg: AvalancheConfig):
     global launches
@@ -114,7 +98,7 @@ def _launch(records, packed_prefs, peers, responded, lie, minority_t, polled,
             (lie, "lie", torch.bool, (n, k)),
             (minority_bits, "minority_t", torch.uint8, (t // 8,)),
             (polled, "polled", torch.bool, (n, t))):
-        _require(tensor, name, dtype, shape, dev)
+        _build.check_arg(tensor, name, dtype, shape, dev)
     votes = torch.empty_like(records.votes)
     consider = torch.empty_like(records.consider)
     confidence = torch.empty_like(records.confidence)

@@ -26,6 +26,7 @@ from typing import NamedTuple, Optional, Tuple
 import torch
 
 from go_avalanche_tpu_torch.config import AvalancheConfig, DEFAULT_CONFIG
+from go_avalanche_tpu_torch.ops import swar
 from go_avalanche_tpu_torch.ops.bitops import popcount8
 
 
@@ -215,6 +216,22 @@ def register_packed_votes(
     return _masked(state, new, any_changed, update_mask)
 
 
+def register_votes_sequence(
+    state: VoteRecordState,
+    errs: torch.Tensor,
+    cfg: AvalancheConfig = DEFAULT_CONFIG,
+    update_mask: Optional[torch.Tensor] = None,
+) -> Tuple[VoteRecordState, torch.Tensor]:
+    """Apply a sequence of votes (the leading axis of `errs`) one
+    `register_vote` at a time; returns ``(final_state, changed)`` with
+    `changed` stacked over the votes (``[num_votes, ...]``)."""
+    changed = []
+    for err in errs:
+        state, ch = register_vote(state, err, cfg, update_mask)
+        changed.append(ch)
+    return state, torch.stack(changed)
+
+
 def register_packed_votes_engine(
     state: VoteRecordState,
     yes_pack: torch.Tensor,
@@ -224,10 +241,157 @@ def register_packed_votes_engine(
     update_mask: Optional[torch.Tensor] = None,
     absent_is_skip: Optional[bool] = None,
 ) -> Tuple[VoteRecordState, torch.Tensor]:
-    """The ingest-engine dispatch on `cfg.ingest_engine`.  Only the "u8"
-    engine is ported; the config rejects "swar32" at construction."""
-    return register_packed_votes(state, yes_pack, consider_pack, k, cfg,
-                                 update_mask, absent_is_skip)
+    """The ingest-engine dispatch on `cfg.ingest_engine`: "u8" takes
+    `register_packed_votes`, "swar32" `register_packed_votes_swar`; both
+    return the same bits."""
+    engine = (register_packed_votes_swar if cfg.ingest_engine == "swar32"
+              else register_packed_votes)
+    return engine(state, yes_pack, consider_pack, k, cfg, update_mask,
+                  absent_is_skip)
+
+
+def _confidence_closed_form(
+    confidence: torch.Tensor,
+    outcome16: torch.Tensor,
+    cfg: AvalancheConfig,
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The k-vote confidence fold in one pass (the reference's algebra).
+
+    `confidence` is the int16 storage plane; `outcome16` holds, per
+    record, the per-vote quorum-yes bits (low byte) and conclusive bits
+    (high byte), vote j at bit j.  A record flips iff some conclusive
+    vote disagrees with its initial preference; the final preference is
+    the last conclusive vote's; the final counter is the trailing run of
+    conclusive votes agreeing with it (from 0 after a flip, else
+    extending the incoming counter, saturating at 0x7FFF); `changed` is a
+    flip or the no-flip finalization crossing, plus the re-report of an
+    already saturated record when the score is 0x7FFF.  Returns the new
+    int16 plane and bool `changed`."""
+    conf = widen_confidence(confidence)
+    outcome16 = outcome16.to(torch.int32)
+    a0 = conf & 1
+    c0 = conf >> 1
+    concl = outcome16 >> 8
+    yes = (outcome16 & 0xFF) & concl          # only conclusive yes bits
+
+    flips = (concl & (yes ^ (a0 * 0xFF))) != 0
+
+    f = concl | (concl >> 1)
+    f |= f >> 2
+    f |= f >> 4
+    high = f ^ (f >> 1)                       # highest conclusive vote
+    a_fin = torch.where(concl != 0, (yes & high) != 0,
+                        a0 != 0).to(torch.int32)
+
+    disagree = concl & (yes ^ (a_fin * 0xFF))
+    d = disagree | (disagree >> 1)
+    d |= d >> 2
+    d |= d >> 4
+    run = popcount8(concl & (~d & 0xFF))
+    pc = popcount8(concl)
+
+    counter = torch.where(flips, run - 1, torch.clamp(c0 + pc, max=0x7FFF))
+    new_conf = (counter << 1) | a_fin
+
+    score = cfg.finalization_score
+    crossed = (c0 < score) & ((c0 + pc) >= score)
+    if score == 0x7FFF:
+        crossed = crossed | ((c0 == 0x7FFF) & (pc > 0))
+    return narrow_confidence(new_conf), flips | crossed
+
+
+def register_packed_votes_swar(
+    state: VoteRecordState,
+    yes_pack: torch.Tensor,
+    consider_pack: torch.Tensor,
+    k: int,
+    cfg: AvalancheConfig = DEFAULT_CONFIG,
+    update_mask: Optional[torch.Tensor] = None,
+    absent_is_skip: Optional[bool] = None,
+) -> Tuple[VoteRecordState, torch.Tensor]:
+    """`register_packed_votes` on SWAR lanes: 4 tx columns per 32-bit
+    word (`ops/swar.py`), the window shift, counts and quorum compares
+    lane-parallel, the per-vote outcomes packed per lane, and the
+    confidence plane touched once, by `_confidence_closed_form`.  Same
+    contract and bits as the u8 engine; `absent_is_skip` gates each lane
+    on its present bit instead of taking another path."""
+    if not (0 < k <= 8):
+        raise ValueError("k must be in (0, 8] for uint8 packing")
+    if absent_is_skip is None:
+        absent_is_skip = cfg.skip_absent_votes
+
+    shape = state.votes.shape
+    t = shape[-1]
+    votes_w = swar.pack_u8_lanes(state.votes)
+    cons_w = swar.pack_u8_lanes(state.consider)
+    yes_w = swar.pack_u8_lanes(torch.broadcast_to(yes_pack, shape))
+    pack_w = swar.pack_u8_lanes(torch.broadcast_to(consider_pack, shape))
+
+    lsb = swar.LANE_LSB
+    window_lanes = swar.lane_const((1 << cfg.window) - 1)
+    full_window = cfg.window == 8
+    top_bit = cfg.window - 1
+    threshold = cfg.quorum - 1
+
+    yes_cnt = swar.popcount8_lanes(votes_w & cons_w)
+    cons_cnt = swar.popcount8_lanes(cons_w)
+    out_yes = torch.zeros_like(votes_w)
+    out_concl = torch.zeros_like(votes_w)
+
+    for j in range(k):
+        in_yes_raw = (yes_w >> j) & lsb
+        in_cons = (pack_w >> j) & lsb
+
+        if absent_is_skip:
+            # An absent slot registers nothing; a present vote shifts a
+            # set consider bit.
+            present = in_cons
+            evict_yes = ((votes_w & cons_w) >> top_bit) & present
+            evict_cons = (cons_w >> top_bit) & present
+            yes_cnt = yes_cnt + (in_yes_raw & present) - evict_yes
+            cons_cnt = cons_cnt + present - evict_cons
+
+            shifted_v = swar.lane_shl1(votes_w, in_yes_raw)
+            shifted_c = swar.lane_shl1(cons_w, present)
+            if not full_window:
+                shifted_v &= window_lanes
+                shifted_c &= window_lanes
+            keep = swar.lane_fill(present)
+            votes_w = (shifted_v & keep) | (votes_w & ~keep)
+            cons_w = (shifted_c & keep) | (cons_w & ~keep)
+
+            yes_m = swar.lane_gt(yes_cnt, threshold)
+            no_m = swar.lane_gt(cons_cnt - yes_cnt, threshold)
+            concl_m = (yes_m | no_m) & (present << 7)
+        else:
+            in_yes = in_yes_raw & in_cons      # counted iff considered
+            evict_yes = ((votes_w & cons_w) >> top_bit) & lsb
+            evict_cons = (cons_w >> top_bit) & lsb
+            yes_cnt = yes_cnt + in_yes - evict_yes
+            cons_cnt = cons_cnt + in_cons - evict_cons
+
+            votes_w = swar.lane_shl1(votes_w, in_yes_raw)
+            cons_w = swar.lane_shl1(cons_w, in_cons)
+            if not full_window:
+                votes_w &= window_lanes
+                cons_w &= window_lanes
+
+            yes_m = swar.lane_gt(yes_cnt, threshold)
+            no_m = swar.lane_gt(cons_cnt - yes_cnt, threshold)
+            concl_m = yes_m | no_m
+
+        # Outcome packs: lane MSB masks land on lane bit j.
+        out_yes |= yes_m >> (7 - j)
+        out_concl |= concl_m >> (7 - j)
+
+    new_votes = swar.unpack_u8_lanes(votes_w, t)
+    new_consider = swar.unpack_u8_lanes(cons_w, t)
+    outcome16 = ((swar.unpack_u8_lanes(out_concl, t).to(torch.int32) << 8)
+                 | swar.unpack_u8_lanes(out_yes, t).to(torch.int32))
+    confidence, changed = _confidence_closed_form(state.confidence,
+                                                  outcome16, cfg)
+    new = VoteRecordState(new_votes, new_consider, confidence)
+    return _masked(state, new, changed, update_mask)
 
 
 def _register_packed_votes_skip(state, yes_pack, present_pack, k: int,

@@ -1,11 +1,15 @@
-"""Where the flagship round's device time goes, on the card.
+"""Where a round's device time goes, on the card.
 
     python -m go_avalanche_tpu_torch.round_profile
 
-For each round engine (megakernel, then phased) it builds the flagship
-state (`workload.flagship_state`, 16384 x 16384, k=8), runs two warm-up
-rounds, traces ten more under `torch.profiler` and prints one JSON line
-with the numbers below.  The untraced round time is `chip_smoke.py`'s.
+For each case it builds the state, runs two warm-up rounds, traces ten
+more under `torch.profiler` and prints one JSON line with the numbers
+below.  The cases: the flagship round (`workload.flagship_state`,
+16384 x 16384, k=8) on the megakernel, and phased with the u8 and the
+swar32 ingest kernel; the DAG baseline round (`workload.dag_baseline_state`,
+10000 x 10000, 2-tx conflict sets) with each ingest kernel (its first
+twelve rounds, all before any set settles).  The untraced round times
+are `chip_smoke.py`'s.
 
   traced_wall_ms  host ms per round inside the trace, synchronised
   busy_ms         device ms per round summed over kernels, copies, sets
@@ -14,6 +18,7 @@ with the numbers below.  The untraced round time is `chip_smoke.py`'s.
   spans           device ms per round under each `round_step` span; the
                   rest ("other") is the key split, the finality tests,
                   the response planes, the lifecycle and the telemetry
+  kernels         device ms per round of each of the port's own kernels
   top_kernels     the ten device operations with the most time per round
 
 Every line carries the card's name and power limit (nvidia-smi).  Needs
@@ -22,6 +27,7 @@ an NVIDIA GPU: without one it exits non-zero and prints no result.
 
 from __future__ import annotations
 
+import dataclasses
 import json
 import subprocess
 import sys
@@ -33,10 +39,17 @@ from torch.profiler import ProfilerActivity, profile
 
 from go_avalanche_tpu_torch import workload
 from go_avalanche_tpu_torch.models import avalanche as av
+from go_avalanche_tpu_torch.models import dag
 
 ROUNDS = 10
 SPANS = ("poll_mask", "sample_peers", "gossip_admission", "gather_prefs",
          "fused_round", "ingest_votes")
+# The port's kernels and the span that launches each.  A kernel launched
+# through ctypes has no aten op above it, so the profiler counts its
+# device time under no span; it is added to its span here.
+PORT_KERNELS = {"mega_round_kernel": "fused_round",
+                "vote_u8_kernel": "ingest_votes",
+                "vote_swar_kernel": "ingest_votes"}
 
 
 def card_label() -> str:
@@ -46,20 +59,42 @@ def card_label() -> str:
         check=True).stdout.strip().splitlines()[0]
 
 
-def profile_engine(round_engine: str) -> dict:
-    rounds = ROUNDS
+def _flagship(round_engine: str = "phased", ingest_engine: str = "u8"):
     nodes, txs = workload.FLAGSHIP_NODES, workload.FLAGSHIP_TXS
     state, cfg = workload.flagship_state(nodes, txs,
                                          round_engine=round_engine)
+    cfg = dataclasses.replace(cfg, ingest_engine=ingest_engine)
+    return av.round_step, state, cfg, nodes, txs
+
+
+def _dag(ingest_engine: str):
+    nodes, txs = workload.DAG_NODES, workload.DAG_TXS
+    state, cfg = workload.dag_baseline_state(nodes, txs)
+    cfg = dataclasses.replace(cfg, ingest_engine=ingest_engine)
+    return dag.round_step, state, cfg, nodes, txs
+
+
+CASES = {
+    "flagship megakernel": lambda: _flagship("megakernel"),
+    "flagship phased u8": lambda: _flagship(),
+    "flagship phased swar32": lambda: _flagship(ingest_engine="swar32"),
+    "dag u8": lambda: _dag("u8"),
+    "dag swar32": lambda: _dag("swar32"),
+}
+
+
+def profile_case(case: str) -> dict:
+    rounds = ROUNDS
+    step, state, cfg, nodes, txs = CASES[case]()
     for _ in range(2):
-        state = av.round_step(state, cfg)[0]
+        state = step(state, cfg)[0]
     torch.cuda.synchronize()
 
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
         for _ in range(rounds):
-            state = av.round_step(state, cfg)[0]
+            state = step(state, cfg)[0]
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3 / rounds
 
@@ -69,15 +104,23 @@ def profile_engine(round_engine: str) -> dict:
     busy_ms = sum(r.self_device_time_total for r in device_rows) / 1e3
     spans = {r.key: r.device_time_total / 1e3 / rounds for r in rows
              if r.key in SPANS and r.device_type == DeviceType.CPU}
+    kernels = {}
+    for r in device_rows:
+        for name, launched_in in PORT_KERNELS.items():
+            if name in r.key:
+                kernels[name] = r.self_device_time_total / 1e3 / rounds
+                spans[launched_in] = spans.get(launched_in, 0.0) + kernels[
+                    name]
     spans["other"] = busy_ms / rounds - sum(spans.values())
     top = sorted(device_rows, key=lambda r: -r.self_device_time_total)[:10]
     return {
-        "round_engine": round_engine, "nodes": nodes, "txs": txs,
+        "case": case, "nodes": nodes, "txs": txs,
         "k": cfg.k, "rounds": rounds, "traced_wall_ms": wall_ms,
         "busy_ms": busy_ms / rounds,
         "idle_share": 1.0 - (busy_ms / rounds) / wall_ms,
         "launches": sum(r.count for r in device_rows) / rounds,
         "spans": spans,
+        "kernels": kernels,
         "top_kernels": [{"name": r.key[:100], "per_round": r.count / rounds,
                          "ms": r.self_device_time_total / 1e3 / rounds}
                         for r in top],
@@ -91,8 +134,8 @@ def main() -> int:
         return 2
     label = {"card": card_label(), "torch": torch.__version__,
              "cuda": torch.version.cuda}
-    for engine in ("megakernel", "phased"):
-        out = profile_engine(engine)
+    for case in CASES:
+        out = profile_case(case)
         print(json.dumps({**out, **label}), flush=True)
         torch.cuda.empty_cache()
     return 0

@@ -119,6 +119,27 @@ def test_contested_oppose_churn_trajectory_matches_jax(engine):
                   round_engine=engine), 64, 256, 6, seed=3, contested=True)
 
 
+SWAR32_CASES = {
+    "flagship": (dict(FLAGSHIP), 256, 256, 4, False),
+    "cross_backend": (dict(CROSS_BACKEND), 64, 32, 20, False),
+    "contested_oppose_churn": (dict(byzantine_fraction=0.2,
+                                    adversary_strategy="oppose_majority",
+                                    churn_probability=0.02,
+                                    max_element_poll=100), 64, 256, 6, True),
+    "ragged_small_window": (dict(window=5, quorum=4, finalization_score=8),
+                            32, 10, 8, False),
+    "skip_absent_legacy": (dict(drop_probability=0.3, skip_absent_votes=True,
+                                fused_exchange=False), 48, 40, 8, False),
+}
+
+
+@pytest.mark.parametrize("case", sorted(SWAR32_CASES))
+def test_swar32_phased_trajectory_matches_jax(case):
+    knobs, n, t, rounds, contested = SWAR32_CASES[case]
+    run_both(dict(knobs, ingest_engine="swar32"), n, t, rounds, seed=11,
+             contested=contested)
+
+
 def test_majority_legacy_exchange_trajectory_matches_jax():
     run_both(dict(vote_mode="majority", fused_exchange=False), 48, 40, 10)
 

@@ -24,7 +24,10 @@ MODULES = ["go_avalanche_tpu_torch", "go_avalanche_tpu_torch.config",
            "go_avalanche_tpu_torch.ops.adversary",
            "go_avalanche_tpu_torch.ops.exchange",
            "go_avalanche_tpu_torch.ops.megakernel",
+           "go_avalanche_tpu_torch.ops.swar",
+           "go_avalanche_tpu_torch.ops.pallas_vote",
            "go_avalanche_tpu_torch.models.avalanche",
+           "go_avalanche_tpu_torch.models.dag",
            "go_avalanche_tpu_torch.workload",
            "go_avalanche_tpu_torch.round_profile"]
 

@@ -162,7 +162,7 @@ def test_config_rejections_match_jax(kwargs, match):
 
 
 @pytest.mark.parametrize("kwargs", [
-    dict(ingest_engine="swar32"), dict(stake_mode="zipf"),
+    dict(inflight_engine="coalesced"), dict(stake_mode="zipf"),
     dict(n_clusters=2), dict(weighted_sampling=True),
     dict(sample_with_replacement=False), dict(latency_mode="fixed"),
     dict(metrics_every=1), dict(trace_every=1), dict(arrival_mode="poisson"),
