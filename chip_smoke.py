@@ -47,13 +47,17 @@ INT_OPS_PER_S = 67e12           # H100 non-tensor-core 32-bit rate
 TIMED_ROUNDS = 20
 PHASED_TIMED_ROUNDS = 3
 SOURCES = ("megakernel", "vote_u8", "vote_swar")
-KERNEL_SHAPES = ((2048, 2048), (1000, 1184))
+# The megakernel: one thread per 16 columns, 256 a block, so 1184 and
+# 2080 leave the last block of a row part empty.
+KERNEL_SHAPES = ((2048, 2048), (1000, 1184), (333, 2080))
 KERNEL_CASES = {
     "base": dict(),
     "flip_byz0.2": dict(byzantine_fraction=0.2),
     "oppose_byz0.2": dict(byzantine_fraction=0.2,
                           adversary_strategy="oppose_majority"),
     "k3_q2_w3": dict(k=3, quorum=2, window=3),
+    "score7fff": dict(finalization_score=0x7FFF),
+    "k1_w3_q2": dict(k=1, window=3, quorum=2),
 }
 # The ingest kernels: 333 x 1001 has N*T % 4 == 1, a ragged last word.
 INGEST_SHAPES = ((2048, 2048), (1000, 1184), (333, 1001))

@@ -10,27 +10,46 @@
 // Bound.  Per record the kernel must read votes, consider (1 B each),
 // confidence (2 B) and the polled flag (1 B), and write votes, consider,
 // confidence and changed (5 B): about 10 B per record, 2.7 GB at
-// 16384 x 16384, or ~0.8 ms at 3.35 TB/s.  The gathered preference words
+// 16384 x 16384, or 0.81 ms at 3.35 TB/s.  The gathered preference bits
 // (N*k*T/8 bytes a round) come from the bit-packed [N, T/8] plane, which
-// at 32 MiB fits the 50 MB L2, so the gather is served from L2 rather
-// than device memory.  The kernel is bound by bytes.
+// at 32 MiB fits the 50 MB L2.  A first design, one thread per 4 columns
+// re-reading the row's draw data and gathering one byte per draw, ran
+// ~400 int32 instructions per 4-column word and took 2.45 ms at
+// 16384 x 16384, k = 8 (NVIDIA H100 80GB HBM3, 700 W): it was bound by
+// instructions.  This design cuts instructions and load instructions;
+// it takes 1.24 ms there, 1.5x the byte bound; by a count from the
+// source, ~240 int32 instructions per word remain, about as much time
+// as the byte stream.
 //
-// Design.  One thread per 4 tx columns of one node row: the record
-// planes are read and written as whole 32-bit words (confidence as one
-// 64-bit word), neighbouring threads on neighbouring words, so every
-// plane access is coalesced.  A block covers 1024 columns of ONE row, so
-// the row's k peer ids, responded and lie flags are the same address
-// for the whole block (broadcast loads), and for draw j the block's
-// threads read consecutive bytes of one peer row.  The TPU kernel staged
-// all N rows of a column block in VMEM (1 MB); here nothing is staged in
-// shared memory — the gather goes through L2.  The window fold runs SWAR
-// on the word (4 byte lanes, the reference's `swar_window_fold`
-// algebra; swar.cuh, shared with vote_swar.cu), emitting per-draw yes /
-// conclusive bits, and the confidence
-// word is touched once, by the closed form of the k-step fold
-// (`voterecord._confidence_closed_form` in the reference).  Unpolled
-// records are restored in-kernel.  No shared memory, no atomics, no
-// synchronisation; the kernel allocates nothing.
+// Design.  One thread per 16 tx columns of one node row (4 SWAR words,
+// swar.cuh: 4 columns per 32-bit word, one byte lane each):
+//  - k and the adversary strategy are template parameters (k = 1..8,
+//    FLIP or OPPOSE_MAJORITY; the launcher dispatches), so the draw loop
+//    unrolls, the per-draw shifts of `swar::window_step` are constants
+//    and the strategy test leaves the loop.
+//  - Votes, consider and polled are read as one 16-byte load each and
+//    confidence as two, outputs stored the same way, all streaming
+//    (`__ldcs` / `__stcs`) so the record stream does not evict the
+//    preference plane from L2.  A draw's gather is one aligned 16-bit
+//    load of the peer's preference row.
+//  - The row's draw data (peer ids, responded, lie) is loaded once per
+//    thread, with the widest aligned loads k allows, and each draw's lie
+//    is applied to the whole 16-bit gathered chunk (FLIP: xor; OPPOSE:
+//    the thread's minority chunk) before the 4-bit nibbles are spread
+//    into byte lanes; `responded` becomes one lane word per draw,
+//    shared by the 4 SWAR words.
+//  These three took the kernel from 2.45 to 1.92 ms (same card).
+//  - The closed-form confidence (`swar::confidence_closed_form`, the
+//    reference's `_confidence_closed_form`) runs over the four byte
+//    lanes of a word at once (`closed_form4`): flips, the last conclusive
+//    vote and the trailing agree run are per-byte smears and popcounts;
+//    only the 15-bit counter, its saturation and the score crossing run
+//    per 16-bit lane, two records per 32-bit word.  1.92 -> 1.24 ms.
+//  32 columns a thread (a 32-bit gather, 8 words) measured 1.28 ms
+//  against 1.24 in the same run, at 75-105 registers against 48-72.
+// No shared memory, no atomics, no synchronisation; the kernel allocates
+// nothing.  A thread's 16 columns never straddle rows (t % 32 == 0), and
+// the last block of a row masks the threads past the row's end.
 
 #include <cstdint>
 #include <cuda_runtime.h>
@@ -40,7 +59,14 @@
 namespace {
 
 using swar::kLaneLsb;
-constexpr int kThreads = 256;               // 1024 tx columns per block
+using swar::kLaneMsb;
+constexpr int kThreads = 256;
+constexpr int kWords = 4;            // SWAR words a thread: 4 columns each
+constexpr int kCols = 4 * kWords;    // tx columns a thread
+constexpr int kChunks = kWords / 4;  // 16-byte chunks of a uint8 plane
+using Bits = uint16_t;               // a thread's preference bits
+constexpr uint32_t kAllBits = 0xFFFFu;
+constexpr uint32_t kLow7 = 0x7F7F7F7Fu;
 
 // Four preference bits (tx columns 4g .. 4g+3) -> one bit per byte lane:
 // nib * 0x00204081 places bit b at 8b + (other copies at disjoint
@@ -49,90 +75,237 @@ __host__ __device__ __forceinline__ uint32_t nibble_lanes(uint32_t nib) {
   return (nib * 0x00204081u) & kLaneLsb;
 }
 
+// Each byte lane's highest set bit smeared down over the lane's lower bits.
+__host__ __device__ __forceinline__ uint32_t smear_down(uint32_t x) {
+  x |= (x >> 1) & kLow7;
+  x |= (x >> 2) & 0x3F3F3F3Fu;
+  x |= (x >> 4) & 0x0F0F0F0Fu;
+  return x;
+}
+
+// The MSB of each byte lane that is not zero.
+__host__ __device__ __forceinline__ uint32_t lane_nonzero(uint32_t x) {
+  return (((x & kLow7) + kLow7) | x) & kLaneMsb;
+}
+
+// The per-record inputs of the closed form for two records, spread from
+// byte lanes into the 16-bit lanes of one confidence word.
+struct Pair {
+  uint32_t pc, run_less1, a_fin, flip_mask, keep;
+};
+
+// The folded confidence word of two records (restored where unpolled);
+// sets `crossed` to the MSB of each 16-bit lane whose counter crossed
+// the score.  `bias` is (0x8000 - score) in each 16-bit lane.
+__device__ __forceinline__ uint32_t fold_pair(uint32_t c, const Pair& p,
+                                              uint32_t score, uint32_t bias,
+                                              uint32_t& crossed) {
+  const uint32_t c0 = (c >> 1) & 0x7FFF7FFFu;
+  const uint32_t sum = c0 + p.pc;                          // <= 0x8007
+  const uint32_t over = sum & 0x80008000u;
+  const uint32_t sat = over - (over >> 15);                // 0x7FFF lanes
+  const uint32_t extended = (sum & ~(over | sat)) | sat;
+  const uint32_t counter = (p.run_less1 & p.flip_mask)
+                           | (extended & ~p.flip_mask);
+  const uint32_t folded = (counter << 1) | p.a_fin;
+  crossed = ((extended + bias) & ~(c0 + bias)) & 0x80008000u;
+  if (score == 0x7FFFu) crossed |= over;   // c0 == 0x7FFF and a vote counted
+  return (folded & p.keep) | (c & ~p.keep);
+}
+
+// `swar::confidence_closed_form` for the four records of one SWAR word.
+// `concl` / `yes` hold each record's per-draw outcomes in its byte lane
+// (draw j at bit j); `lo` / `hi` are the u16 confidences of records 0-1
+// and 2-3, replaced by the folded ones where `polled` (0/1 per byte lane)
+// is set.  Returns the changed flags, 0/1 per byte lane.  Needs
+// 0 < score <= 0x7FFF.
+__device__ __forceinline__ uint32_t closed_form4(uint32_t concl, uint32_t yes,
+                                                 uint32_t polled,
+                                                 uint32_t score,
+                                                 uint32_t& lo, uint32_t& hi) {
+  yes &= concl;
+  const uint32_t a0 = __byte_perm(lo, hi, 0x6420) & kLaneLsb;
+  const uint32_t flips = lane_nonzero(concl & (yes ^ (a0 * 0xFFu)));
+  const uint32_t f = smear_down(concl);           // lane LSB: any conclusive
+  const uint32_t high = f & ~((f >> 1) & kLow7);  // the last conclusive draw
+  const uint32_t a_fin =
+      ((((yes & high) + kLow7) & kLaneMsb) >> 7) | (a0 & ~f);
+  const uint32_t d = smear_down(concl & (yes ^ (a_fin * 0xFFu)));
+  const uint32_t pc = swar::popcount8_lanes(concl);
+  // The trailing agree run, less one where the record flips (run >= 1
+  // there, so no lane borrows).
+  const uint32_t run_less1 =
+      swar::popcount8_lanes(concl & ~d) - (flips >> 7);
+  const uint32_t flip_mask = (flips >> 7) * 0xFFu;
+  const uint32_t keep = polled * 0xFFu;
+  const uint32_t bias = (0x8000u - score) * 0x00010001u;
+  // Byte lanes 0-1 (2-3) to the two 16-bit lanes; 0xFF lanes to 0xFFFF.
+  const Pair p01 = {
+      __byte_perm(pc, 0u, 0x4140), __byte_perm(run_less1, 0u, 0x4140),
+      __byte_perm(a_fin, 0u, 0x4140), __byte_perm(flip_mask, 0u, 0x1100),
+      __byte_perm(keep, 0u, 0x1100)};
+  const Pair p23 = {
+      __byte_perm(pc, 0u, 0x4342), __byte_perm(run_less1, 0u, 0x4342),
+      __byte_perm(a_fin, 0u, 0x4342), __byte_perm(flip_mask, 0u, 0x3322),
+      __byte_perm(keep, 0u, 0x3322)};
+  uint32_t crossed01, crossed23;
+  lo = fold_pair(lo, p01, score, bias, crossed01);
+  hi = fold_pair(hi, p23, score, bias, crossed23);
+  const uint32_t crossed_lanes = __byte_perm(crossed01, crossed23, 0x7531);
+  return ((flips | crossed_lanes) >> 7) & polled;
+}
+
 struct RoundArgs {
-  const uint32_t* votes;     // [n, t/4] words of the uint8 votes plane
-  const uint32_t* consider;  // [n, t/4]
-  const uint2* confidence;   // [n, t/4] words of 4 uint16 confidences
-  const uint8_t* prefs;      // [n, t/8] bit-packed preferences
+  const uint4* votes;        // [n, t/16] 16-byte chunks of the uint8 plane
+  const uint4* consider;     // [n, t/16]
+  const uint4* confidence;   // [n, t/8] chunks of 8 uint16 confidences
+  const Bits* prefs;         // [n, t/kCols] bit-packed preferences
   const int32_t* peers;      // [n, k]
   const uint8_t* responded;  // [n, k] bool
   const uint8_t* lie;        // [n, k] bool
-  const uint8_t* minority;   // [t/8] bit-packed minority colors
-  const uint32_t* polled;    // [n, t/4] words of the bool polled plane
-  uint32_t* votes_out;
-  uint32_t* consider_out;
-  uint2* confidence_out;
-  uint32_t* changed_out;     // [n, t/4] words of the bool changed plane
-  int n, t4, t8, k, window, quorum, score, oppose;
+  const Bits* minority;      // [t/kCols] bit-packed minority colors
+  const uint4* polled;       // [n, t/16] chunks of the bool polled plane
+  uint4* votes_out;
+  uint4* consider_out;
+  uint4* confidence_out;
+  uint4* changed_out;        // [n, t/16] chunks of the bool changed plane
+  int n, tq, window, quorum, score;   // tq = t / kCols threads a row
 };
 
-// One 4-column word of one row: the whole round.
-__host__ __device__ __forceinline__ void round_word(const RoundArgs& a,
-                                                    int row, int g) {
-  const size_t idx = static_cast<size_t>(row) * a.t4 + g;
-  const uint32_t votes_in = a.votes[idx];
-  const uint32_t consider_in = a.consider[idx];
-  const int byte = g >> 1;
-  const int shift = (g & 1) * 4;
-  const uint32_t minority =
-      nibble_lanes((static_cast<uint32_t>(a.minority[byte]) >> shift) & 0xFu);
-
-  swar::Window w = swar::window_start(votes_in, consider_in, a.window,
-                                      a.quorum);
-  for (int j = 0; j < a.k; ++j) {
-    const size_t draw = static_cast<size_t>(row) * a.k + j;
-    int peer = a.peers[draw];
-    peer = peer < 0 ? 0 : (peer >= a.n ? a.n - 1 : peer);
-    uint32_t in_yes_raw = nibble_lanes(
-        (static_cast<uint32_t>(a.prefs[static_cast<size_t>(peer) * a.t8
-                                       + byte]) >> shift) & 0xFu);
-    const uint32_t lie = a.lie[draw] ? kLaneLsb : 0u;
-    if (a.oppose) {  // OPPOSE_MAJORITY: a lie says the minority color
-      in_yes_raw = (in_yes_raw & ~lie) | (minority & lie);
-    } else {         // FLIP: a lie says the opposite
-      in_yes_raw ^= lie;
+// A row's K draw flags (bool bytes), byte j = draw j.  The row starts at
+// a multiple of K bytes of an 8-byte aligned plane.
+template <int K>
+__device__ __forceinline__ uint64_t load_flags(const uint8_t* p) {
+  if constexpr (K == 8) {
+    return __ldg(reinterpret_cast<const unsigned long long*>(p));
+  } else if constexpr (K == 4) {
+    return __ldg(reinterpret_cast<const unsigned int*>(p));
+  } else {
+    uint64_t v = 0;
+#pragma unroll
+    for (int j = 0; j < K; ++j) {
+      v |= static_cast<uint64_t>(__ldg(p + j)) << (8 * j);
     }
-    const uint32_t in_cons = a.responded[draw] ? kLaneLsb : 0u;
-    swar::window_step(w, in_yes_raw, in_cons, j);
+    return v;
   }
-  const uint32_t votes = w.votes;
-  const uint32_t consider = w.consider;
-
-  const uint32_t polled = a.polled[idx];     // 0/1 per byte lane
-  const uint32_t keep = polled * 0xFFu;      // 0xFF per polled lane
-  a.votes_out[idx] = (votes & keep) | (votes_in & ~keep);
-  a.consider_out[idx] = (consider & keep) | (consider_in & ~keep);
-
-  const uint2 conf_in = a.confidence[idx];
-  const uint32_t conf[4] = {conf_in.x & 0xFFFFu, conf_in.x >> 16,
-                            conf_in.y & 0xFFFFu, conf_in.y >> 16};
-  uint32_t conf_out[4];
-  uint32_t changed = 0u;
-  for (int lane = 0; lane < 4; ++lane) {
-    const uint32_t concl = (w.out_concl >> (8 * lane)) & 0xFFu;
-    const uint32_t yes = (w.out_yes >> (8 * lane)) & concl;
-    bool lane_changed = false;
-    const uint32_t folded = swar::confidence_closed_form(
-        conf[lane], concl, yes, static_cast<uint32_t>(a.score),
-        &lane_changed);
-    const bool m = ((polled >> (8 * lane)) & 1u) != 0u;
-    conf_out[lane] = m ? folded : conf[lane];
-    changed |= static_cast<uint32_t>(m && lane_changed) << (8 * lane);
-  }
-  a.confidence_out[idx] = make_uint2(conf_out[0] | (conf_out[1] << 16),
-                                     conf_out[2] | (conf_out[3] << 16));
-  a.changed_out[idx] = changed;
 }
 
+// N 16-byte chunks as 4N words, read / written streaming.
+template <int N>
+__device__ __forceinline__ void load_chunks(const uint4* p,
+                                            uint32_t (&w)[4 * N]) {
+#pragma unroll
+  for (int c = 0; c < N; ++c) {
+    const uint4 v = __ldcs(p + c);
+    w[4 * c] = v.x;
+    w[4 * c + 1] = v.y;
+    w[4 * c + 2] = v.z;
+    w[4 * c + 3] = v.w;
+  }
+}
+
+template <int N>
+__device__ __forceinline__ void store_chunks(uint4* p,
+                                             const uint32_t (&w)[4 * N]) {
+#pragma unroll
+  for (int c = 0; c < N; ++c) {
+    __stcs(p + c, make_uint4(w[4 * c], w[4 * c + 1], w[4 * c + 2],
+                             w[4 * c + 3]));
+  }
+}
+
+template <int K, bool OPPOSE>
 __global__ void __launch_bounds__(kThreads) mega_round_kernel(RoundArgs a) {
   const int row = blockIdx.x;
-  const int g = blockIdx.y * kThreads + threadIdx.x;
-  if (g < a.t4) round_word(a, row, g);
+  const int q = blockIdx.y * kThreads + threadIdx.x;   // kCols-column chunk
+  if (q >= a.tq) return;
+  const size_t rq = static_cast<size_t>(row) * a.tq + q;
+
+  // The row's draws: peer ids (pairs of int32 where K is even), flags.
+  int peer[K];
+  const int32_t* peer_row = a.peers + static_cast<size_t>(row) * K;
+  if constexpr (K % 2 == 0) {
+#pragma unroll
+    for (int j = 0; j < K; j += 2) {
+      const int2 v = __ldg(reinterpret_cast<const int2*>(peer_row) + j / 2);
+      peer[j] = v.x;
+      peer[j + 1] = v.y;
+    }
+  } else {
+#pragma unroll
+    for (int j = 0; j < K; ++j) peer[j] = __ldg(peer_row + j);
+  }
+  const uint64_t responded = load_flags<K>(a.responded
+                                           + static_cast<size_t>(row) * K);
+  const uint64_t lie = load_flags<K>(a.lie + static_cast<size_t>(row) * K);
+  uint32_t gathered[K];
+#pragma unroll
+  for (int j = 0; j < K; ++j) {
+    const int p = peer[j] < 0 ? 0 : (peer[j] >= a.n ? a.n - 1 : peer[j]);
+    gathered[j] = __ldg(a.prefs + static_cast<size_t>(p) * a.tq + q);
+  }
+  uint32_t minority = 0u;
+  if constexpr (OPPOSE) minority = __ldg(a.minority + q);
+
+  uint32_t vin[kWords], cin[kWords];
+  load_chunks<kChunks>(a.votes + rq * kChunks, vin);
+  load_chunks<kChunks>(a.consider + rq * kChunks, cin);
+  swar::Window w[kWords];
+#pragma unroll
+  for (int i = 0; i < kWords; ++i) {
+    w[i] = swar::window_start(vin[i], cin[i], a.window, a.quorum);
+  }
+#pragma unroll
+  for (int j = 0; j < K; ++j) {
+    const bool lies = ((lie >> (8 * j)) & 0xFFu) != 0u;
+    uint32_t yes_bits = gathered[j];
+    if constexpr (OPPOSE) {      // a lie says the minority color
+      yes_bits = lies ? minority : yes_bits;
+    } else {                     // FLIP: a lie says the opposite
+      yes_bits ^= lies ? kAllBits : 0u;
+    }
+    const uint32_t in_cons =
+        ((responded >> (8 * j)) & 0xFFu) != 0u ? kLaneLsb : 0u;
+#pragma unroll
+    for (int i = 0; i < kWords; ++i) {
+      swar::window_step(w[i], nibble_lanes((yes_bits >> (4 * i)) & 0xFu),
+                        in_cons, j);
+    }
+  }
+
+  uint32_t pin[kWords], conf[2 * kWords];
+  load_chunks<kChunks>(a.polled + rq * kChunks, pin);
+  load_chunks<2 * kChunks>(a.confidence + rq * 2 * kChunks, conf);
+  uint32_t vout[kWords], cout[kWords], changed[kWords];
+#pragma unroll
+  for (int i = 0; i < kWords; ++i) {
+    const uint32_t keep = pin[i] * 0xFFu;        // 0xFF per polled lane
+    vout[i] = (w[i].votes & keep) | (vin[i] & ~keep);
+    cout[i] = (w[i].consider & keep) | (cin[i] & ~keep);
+    changed[i] = closed_form4(w[i].out_concl, w[i].out_yes, pin[i],
+                              static_cast<uint32_t>(a.score), conf[2 * i],
+                              conf[2 * i + 1]);
+  }
+  store_chunks<kChunks>(a.votes_out + rq * kChunks, vout);
+  store_chunks<kChunks>(a.consider_out + rq * kChunks, cout);
+  store_chunks<2 * kChunks>(a.confidence_out + rq * 2 * kChunks, conf);
+  store_chunks<kChunks>(a.changed_out + rq * kChunks, changed);
+}
+
+template <int K>
+void launch(const RoundArgs& a, bool oppose, dim3 grid, cudaStream_t s) {
+  if (oppose) {
+    mega_round_kernel<K, true><<<grid, kThreads, 0, s>>>(a);
+  } else {
+    mega_round_kernel<K, false><<<grid, kThreads, 0, s>>>(a);
+  }
 }
 
 }  // namespace
 
-// Launch on `stream`; returns cudaGetLastError() (0 = launched).
+// Launch on `stream`; returns cudaGetLastError() (0 = launched).  Every
+// record plane must start on a 16-byte boundary, the other inputs on an
+// 8-byte one.
 extern "C" int mega_round(const void* votes, const void* consider,
                           const void* confidence, const void* prefs,
                           const void* peers, const void* responded,
@@ -143,34 +316,42 @@ extern "C" int mega_round(const void* votes, const void* consider,
                           int quorum, int score, int oppose,
                           void* stream) {
   if (n <= 0 || t <= 0 || t % 32 != 0 || k <= 0 || k > 8 || window <= 0
-      || window > 8 || quorum <= 0 || quorum > window) {
+      || window > 8 || quorum <= 0 || quorum > window || score <= 0
+      || score > 0x7FFF) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   RoundArgs a;
-  a.votes = static_cast<const uint32_t*>(votes);
-  a.consider = static_cast<const uint32_t*>(consider);
-  a.confidence = static_cast<const uint2*>(confidence);
-  a.prefs = static_cast<const uint8_t*>(prefs);
+  a.votes = static_cast<const uint4*>(votes);
+  a.consider = static_cast<const uint4*>(consider);
+  a.confidence = static_cast<const uint4*>(confidence);
+  a.prefs = static_cast<const Bits*>(prefs);
   a.peers = static_cast<const int32_t*>(peers);
   a.responded = static_cast<const uint8_t*>(responded);
   a.lie = static_cast<const uint8_t*>(lie);
-  a.minority = static_cast<const uint8_t*>(minority);
-  a.polled = static_cast<const uint32_t*>(polled);
-  a.votes_out = static_cast<uint32_t*>(votes_out);
-  a.consider_out = static_cast<uint32_t*>(consider_out);
-  a.confidence_out = static_cast<uint2*>(confidence_out);
-  a.changed_out = static_cast<uint32_t*>(changed_out);
+  a.minority = static_cast<const Bits*>(minority);
+  a.polled = static_cast<const uint4*>(polled);
+  a.votes_out = static_cast<uint4*>(votes_out);
+  a.consider_out = static_cast<uint4*>(consider_out);
+  a.confidence_out = static_cast<uint4*>(confidence_out);
+  a.changed_out = static_cast<uint4*>(changed_out);
   a.n = n;
-  a.t4 = t / 4;
-  a.t8 = t / 8;
-  a.k = k;
+  a.tq = t / kCols;
   a.window = window;
   a.quorum = quorum;
   a.score = score;
-  a.oppose = oppose;
   const dim3 grid(static_cast<unsigned>(n),
-                  static_cast<unsigned>((a.t4 + kThreads - 1) / kThreads));
-  mega_round_kernel<<<grid, kThreads, 0,
-                      static_cast<cudaStream_t>(stream)>>>(a);
+                  static_cast<unsigned>((a.tq + kThreads - 1) / kThreads));
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const bool opp = oppose != 0;
+  switch (k) {
+    case 1: launch<1>(a, opp, grid, s); break;
+    case 2: launch<2>(a, opp, grid, s); break;
+    case 3: launch<3>(a, opp, grid, s); break;
+    case 4: launch<4>(a, opp, grid, s); break;
+    case 5: launch<5>(a, opp, grid, s); break;
+    case 6: launch<6>(a, opp, grid, s); break;
+    case 7: launch<7>(a, opp, grid, s); break;
+    default: launch<8>(a, opp, grid, s); break;
+  }
   return static_cast<int>(cudaGetLastError());
 }

@@ -5,9 +5,11 @@ kernel — `go_avalanche_tpu/ops/megakernel.py`.
 `models/avalanche.round_step`, with the reference's inputs, shape
 contract and errors.  On CUDA tensors it launches the hand-written
 Hopper kernel `csrc/megakernel.cu` (built with nvcc at first use, see
-`_build.py`) or raises; on CPU tensors it runs `fused_round_reference`,
-the plain PyTorch version — the phased round's own exchange and u8
-ingest — which is also what the kernel is held against on the card.
+`_build.py`; one thread per 16 tx columns of a row, so the record planes
+must start on 16-byte boundaries) or raises; on CPU tensors it runs
+`fused_round_reference`, the plain PyTorch version — the phased round's
+own exchange and u8 ingest — which is also what the kernel is held
+against on the card.
 `launches` counts kernel launches, so a run can show that it went
 through the kernel.
 """
@@ -88,17 +90,19 @@ def _launch(records, packed_prefs, peers, responded, lie, minority_t, polled,
     k = cfg.k
     dev = records.votes.device
     minority_bits = pack_bool_plane(minority_t)
-    for tensor, name, dtype, shape in (
-            (records.votes, "votes", torch.uint8, (n, t)),
-            (records.consider, "consider", torch.uint8, (n, t)),
-            (records.confidence, "confidence", torch.int16, (n, t)),
-            (packed_prefs, "packed_prefs", torch.uint8, (n, t // 8)),
-            (peers, "peers", torch.int32, (n, k)),
-            (responded, "responded", torch.bool, (n, k)),
-            (lie, "lie", torch.bool, (n, k)),
-            (minority_bits, "minority_t", torch.uint8, (t // 8,)),
-            (polled, "polled", torch.bool, (n, t))):
-        _build.check_arg(tensor, name, dtype, shape, dev)
+    # The record planes are read as 16-byte chunks, the rest as words of
+    # at most 8 bytes.
+    for tensor, name, dtype, shape, align in (
+            (records.votes, "votes", torch.uint8, (n, t), 16),
+            (records.consider, "consider", torch.uint8, (n, t), 16),
+            (records.confidence, "confidence", torch.int16, (n, t), 16),
+            (packed_prefs, "packed_prefs", torch.uint8, (n, t // 8), 8),
+            (peers, "peers", torch.int32, (n, k), 8),
+            (responded, "responded", torch.bool, (n, k), 8),
+            (lie, "lie", torch.bool, (n, k), 8),
+            (minority_bits, "minority_t", torch.uint8, (t // 8,), 8),
+            (polled, "polled", torch.bool, (n, t), 16)):
+        _build.check_arg(tensor, name, dtype, shape, dev, align)
     votes = torch.empty_like(records.votes)
     consider = torch.empty_like(records.consider)
     confidence = torch.empty_like(records.confidence)

@@ -31,6 +31,9 @@ CASES = {
                64, 512),
     "k3q2w3": (dict(k=3, quorum=2, window=3), 64, 512),
     "t1184": (dict(), 96, 1184),
+    "score7fff": (dict(finalization_score=0x7FFF), 64, 512),
+    "k1w3q2": (dict(k=1, window=3, quorum=2), 64, 512),
+    "t2080": (dict(), 333, 2080),     # the last block of a row part empty
 }
 
 

@@ -33,6 +33,9 @@ CASES = {
                     adversary_strategy="oppose_majority"), 64, 512),
     "k3q2": (dict(k=3, quorum=2), 64, 512),
     "t1184": (dict(), 96, 1184),
+    "score7fff": (dict(finalization_score=0x7FFF), 64, 512),
+    "k1w3q2": (dict(k=1, window=3, quorum=2), 64, 512),
+    "t2080": (dict(), 40, 2080),
 }
 
 
@@ -117,6 +120,28 @@ def test_plain_path_does_not_count_launches():
     before = mk.launches
     mk.fused_round(*torch_args(make_inputs(np.random.default_rng(5), 8, 32,
                                            tcfg)), tcfg)
+    assert mk.launches == before
+
+
+@pytest.mark.parametrize("plane", ["votes", "consider", "confidence",
+                                   "polled"])
+def test_launch_rejects_record_planes_off_16_bytes(plane):
+    """The kernel reads each record plane as 16-byte chunks: a plane that
+    starts 8 bytes into its storage is refused before any launch."""
+    _, tcfg = _configs({})
+    records, *rest = torch_args(make_inputs(np.random.default_rng(6), 8, 64,
+                                            tcfg))
+    planes = dict(records._asdict(), polled=rest[-1])
+    src = planes[plane]
+    shifted = torch.zeros(src.numel() * src.element_size() + 8,
+                          dtype=torch.uint8)[8:].view(src.dtype)
+    planes[plane] = shifted.view(src.shape).copy_(src)
+    assert planes[plane].data_ptr() % 16 == 8
+    records = vr.VoteRecordState(planes["votes"], planes["consider"],
+                                 planes["confidence"])
+    before = mk.launches
+    with pytest.raises(ValueError, match="16-byte boundary"):
+        mk._launch(records, *rest[:-1], planes["polled"], tcfg)
     assert mk.launches == before
 
 
