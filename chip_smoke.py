@@ -14,7 +14,7 @@ package is missing.  Phases, each printing JSON lines:
                PyTorch version on the same inputs, bit for bit, over the
                shapes and configs below (the two ingest kernels also
                with a ragged T, both consider-pack forms and at the DAG
-               path's 10000 x 10000);
+               path's 10000 x 10000; vote_u8 on both its paths);
   4. main    — the flagship round (16384 nodes x 16384 txs, k=8,
                `workload.flagship_state`, the reference bench's) through
                `models.avalanche.init` / `round_step`: the megakernel,
@@ -43,7 +43,9 @@ import sys
 import time
 
 HBM_BYTES_PER_S = 3.35e12       # H100 SXM device memory rate
-INT_OPS_PER_S = 67e12           # H100 non-tensor-core 32-bit rate
+# H100 SXM int32 rate outside the tensor cores: 132 SMs x 64 int32
+# lanes x ~1.98 GHz (67e12/s is its fp32 FMA rate, not an integer one)
+INT_OPS_PER_S = 1.67e13
 TIMED_ROUNDS = 20
 PHASED_TIMED_ROUNDS = 3
 SOURCES = ("megakernel", "vote_u8", "vote_swar")
@@ -59,14 +61,19 @@ KERNEL_CASES = {
     "score7fff": dict(finalization_score=0x7FFF),
     "k1_w3_q2": dict(k=1, window=3, quorum=2),
 }
-# The ingest kernels: 333 x 1001 has N*T % 4 == 1, a ragged last word.
-INGEST_SHAPES = ((2048, 2048), (1000, 1184), (333, 1001))
+# The ingest kernels: 333 x 1001 has N*T % 4 == 1, a ragged last word;
+# 1000 x 1180 (T % 16 != 0) and 333 x 1001 take vote_u8's general path,
+# the others its fast path.
+INGEST_SHAPES = ((2048, 2048), (1000, 1184), (333, 1001), (1000, 1180))
 INGEST_CASES = {                # config knobs, consider-pack form, masked
     "base": (dict(), "stride0", True),
     "plane_pack": (dict(), "plane", True),
     "k3_q2_w3": (dict(k=3, quorum=2, window=3), "stride0", True),
     "saturated_score7fff": (dict(finalization_score=0x7FFF), "plane", True),
     "unmasked": (dict(), "stride0", False),
+    "k1_w3_q2": (dict(k=1, window=3, quorum=2), "stride0", True),
+    "k5_w6_q4_score1": (dict(k=5, window=6, quorum=4, finalization_score=1),
+                        "plane", True),
 }
 # The reference's recorded DAG baseline (benchmarks/results.json, the
 # "avalanche DAG (10000 nodes, 10000-tx UTXO conflict graph)" row).

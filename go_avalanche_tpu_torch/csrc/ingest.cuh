@@ -1,6 +1,8 @@
 // The record I/O shared by the two window-ingest kernels (vote_u8.cu,
 // vote_swar.cu): arguments, the flat walk over the [N, T] planes, and
-// the masked write-back.
+// the masked write-back.  vote_swar runs on this walk for every shape;
+// vote_u8 runs its general path on it, and takes the Args filled here
+// to pick its 16-records-a-thread fast path where the shape allows.
 //
 // Both kernels are elementwise per record, so they walk the flat N*T
 // planes: thread w owns records 4w .. 4w+3 (one 32-bit word of each
@@ -149,21 +151,20 @@ __device__ __forceinline__ void store_word(const Args& a, const Word& in,
   }
 }
 
-// Validate, fill Args and launch `kernel` over ceil(N*T / 4) threads on
-// `stream`; returns cudaGetLastError() (0 = launched).
-inline int launch(void (*kernel)(Args), const void* votes,
-                  const void* consider, const void* confidence,
-                  const void* yes_pack, long long yes_rs, long long yes_cs,
-                  const void* consider_pack, long long cons_rs,
-                  long long cons_cs, const void* mask, void* votes_out,
-                  void* consider_out, void* confidence_out, void* changed_out,
-                  long long n, long long t, int k, int window, int quorum,
-                  int score, void* stream) {
+// Validate the arguments and fill `a`; false where a kernel does not
+// take them.
+inline bool fill_args(Args& a, const void* votes, const void* consider,
+                      const void* confidence, const void* yes_pack,
+                      long long yes_rs, long long yes_cs,
+                      const void* consider_pack, long long cons_rs,
+                      long long cons_cs, const void* mask, void* votes_out,
+                      void* consider_out, void* confidence_out,
+                      void* changed_out, long long n, long long t, int k,
+                      int window, int quorum, int score) {
   if (n < 0 || t <= 0 || k <= 0 || k > 8 || window <= 0 || window > 8
       || quorum <= 0 || quorum > window) {
-    return static_cast<int>(cudaErrorInvalidValue);
+    return false;
   }
-  Args a;
   a.votes = static_cast<const uint8_t*>(votes);
   a.consider = static_cast<const uint8_t*>(consider);
   a.confidence = static_cast<const uint16_t*>(confidence);
@@ -188,12 +189,38 @@ inline int launch(void (*kernel)(Args), const void* votes,
                 && (reinterpret_cast<uintptr_t>(yes_pack) & 3u) == 0u;
   a.cons_words = cons_rs == t && cons_cs == 1
                  && (reinterpret_cast<uintptr_t>(consider_pack) & 3u) == 0u;
+  return true;
+}
+
+// Launch `kernel` over ceil(N*T / 4) threads on `stream`; returns
+// cudaGetLastError() (0 = launched).
+inline int launch(void (*kernel)(Args), const Args& a, void* stream) {
   if (a.total == 0) return 0;
   const long long words = (a.total + 3) / 4;
   const unsigned blocks = static_cast<unsigned>((words + kThreads - 1)
                                                 / kThreads);
   kernel<<<blocks, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(a);
   return static_cast<int>(cudaGetLastError());
+}
+
+// Validate, fill Args and launch `kernel`; returns cudaErrorInvalidValue
+// on arguments it does not take, else as `launch` above.
+inline int launch(void (*kernel)(Args), const void* votes,
+                  const void* consider, const void* confidence,
+                  const void* yes_pack, long long yes_rs, long long yes_cs,
+                  const void* consider_pack, long long cons_rs,
+                  long long cons_cs, const void* mask, void* votes_out,
+                  void* consider_out, void* confidence_out, void* changed_out,
+                  long long n, long long t, int k, int window, int quorum,
+                  int score, void* stream) {
+  Args a;
+  if (!fill_args(a, votes, consider, confidence, yes_pack, yes_rs, yes_cs,
+                 consider_pack, cons_rs, cons_cs, mask, votes_out,
+                 consider_out, confidence_out, changed_out, n, t, k, window,
+                 quorum, score)) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  return launch(kernel, a, stream);
 }
 
 }  // namespace ingest

@@ -41,10 +41,12 @@
 //  These three took the kernel from 2.45 to 1.92 ms (same card).
 //  - The closed-form confidence (`swar::confidence_closed_form`, the
 //    reference's `_confidence_closed_form`) runs over the four byte
-//    lanes of a word at once (`closed_form4`): flips, the last conclusive
-//    vote and the trailing agree run are per-byte smears and popcounts;
-//    only the 15-bit counter, its saturation and the score crossing run
-//    per 16-bit lane, two records per 32-bit word.  1.92 -> 1.24 ms.
+//    lanes of a word at once (`swar::closed_form4`, in swar.cuh with the
+//    16-byte chunk I/O, shared with vote_u8.cu): flips, the last
+//    conclusive vote and the trailing agree run are per-byte smears and
+//    popcounts; only the 15-bit counter, its saturation and the score
+//    crossing run per 16-bit lane, two records per 32-bit word.
+//    1.92 -> 1.24 ms.
 //  32 columns a thread (a 32-bit gather, 8 words) measured 1.28 ms
 //  against 1.24 in the same run, at 75-105 registers against 48-72.
 // No shared memory, no atomics, no synchronisation; the kernel allocates
@@ -59,100 +61,21 @@
 namespace {
 
 using swar::kLaneLsb;
-using swar::kLaneMsb;
+using swar::closed_form4;
+using swar::load_chunks;
+using swar::store_chunks;
 constexpr int kThreads = 256;
 constexpr int kWords = 4;            // SWAR words a thread: 4 columns each
 constexpr int kCols = 4 * kWords;    // tx columns a thread
 constexpr int kChunks = kWords / 4;  // 16-byte chunks of a uint8 plane
 using Bits = uint16_t;               // a thread's preference bits
 constexpr uint32_t kAllBits = 0xFFFFu;
-constexpr uint32_t kLow7 = 0x7F7F7F7Fu;
 
 // Four preference bits (tx columns 4g .. 4g+3) -> one bit per byte lane:
 // nib * 0x00204081 places bit b at 8b + (other copies at disjoint
 // positions), so no carries and the mask keeps exactly the lane LSBs.
 __host__ __device__ __forceinline__ uint32_t nibble_lanes(uint32_t nib) {
   return (nib * 0x00204081u) & kLaneLsb;
-}
-
-// Each byte lane's highest set bit smeared down over the lane's lower bits.
-__host__ __device__ __forceinline__ uint32_t smear_down(uint32_t x) {
-  x |= (x >> 1) & kLow7;
-  x |= (x >> 2) & 0x3F3F3F3Fu;
-  x |= (x >> 4) & 0x0F0F0F0Fu;
-  return x;
-}
-
-// The MSB of each byte lane that is not zero.
-__host__ __device__ __forceinline__ uint32_t lane_nonzero(uint32_t x) {
-  return (((x & kLow7) + kLow7) | x) & kLaneMsb;
-}
-
-// The per-record inputs of the closed form for two records, spread from
-// byte lanes into the 16-bit lanes of one confidence word.
-struct Pair {
-  uint32_t pc, run_less1, a_fin, flip_mask, keep;
-};
-
-// The folded confidence word of two records (restored where unpolled);
-// sets `crossed` to the MSB of each 16-bit lane whose counter crossed
-// the score.  `bias` is (0x8000 - score) in each 16-bit lane.
-__device__ __forceinline__ uint32_t fold_pair(uint32_t c, const Pair& p,
-                                              uint32_t score, uint32_t bias,
-                                              uint32_t& crossed) {
-  const uint32_t c0 = (c >> 1) & 0x7FFF7FFFu;
-  const uint32_t sum = c0 + p.pc;                          // <= 0x8007
-  const uint32_t over = sum & 0x80008000u;
-  const uint32_t sat = over - (over >> 15);                // 0x7FFF lanes
-  const uint32_t extended = (sum & ~(over | sat)) | sat;
-  const uint32_t counter = (p.run_less1 & p.flip_mask)
-                           | (extended & ~p.flip_mask);
-  const uint32_t folded = (counter << 1) | p.a_fin;
-  crossed = ((extended + bias) & ~(c0 + bias)) & 0x80008000u;
-  if (score == 0x7FFFu) crossed |= over;   // c0 == 0x7FFF and a vote counted
-  return (folded & p.keep) | (c & ~p.keep);
-}
-
-// `swar::confidence_closed_form` for the four records of one SWAR word.
-// `concl` / `yes` hold each record's per-draw outcomes in its byte lane
-// (draw j at bit j); `lo` / `hi` are the u16 confidences of records 0-1
-// and 2-3, replaced by the folded ones where `polled` (0/1 per byte lane)
-// is set.  Returns the changed flags, 0/1 per byte lane.  Needs
-// 0 < score <= 0x7FFF.
-__device__ __forceinline__ uint32_t closed_form4(uint32_t concl, uint32_t yes,
-                                                 uint32_t polled,
-                                                 uint32_t score,
-                                                 uint32_t& lo, uint32_t& hi) {
-  yes &= concl;
-  const uint32_t a0 = __byte_perm(lo, hi, 0x6420) & kLaneLsb;
-  const uint32_t flips = lane_nonzero(concl & (yes ^ (a0 * 0xFFu)));
-  const uint32_t f = smear_down(concl);           // lane LSB: any conclusive
-  const uint32_t high = f & ~((f >> 1) & kLow7);  // the last conclusive draw
-  const uint32_t a_fin =
-      ((((yes & high) + kLow7) & kLaneMsb) >> 7) | (a0 & ~f);
-  const uint32_t d = smear_down(concl & (yes ^ (a_fin * 0xFFu)));
-  const uint32_t pc = swar::popcount8_lanes(concl);
-  // The trailing agree run, less one where the record flips (run >= 1
-  // there, so no lane borrows).
-  const uint32_t run_less1 =
-      swar::popcount8_lanes(concl & ~d) - (flips >> 7);
-  const uint32_t flip_mask = (flips >> 7) * 0xFFu;
-  const uint32_t keep = polled * 0xFFu;
-  const uint32_t bias = (0x8000u - score) * 0x00010001u;
-  // Byte lanes 0-1 (2-3) to the two 16-bit lanes; 0xFF lanes to 0xFFFF.
-  const Pair p01 = {
-      __byte_perm(pc, 0u, 0x4140), __byte_perm(run_less1, 0u, 0x4140),
-      __byte_perm(a_fin, 0u, 0x4140), __byte_perm(flip_mask, 0u, 0x1100),
-      __byte_perm(keep, 0u, 0x1100)};
-  const Pair p23 = {
-      __byte_perm(pc, 0u, 0x4342), __byte_perm(run_less1, 0u, 0x4342),
-      __byte_perm(a_fin, 0u, 0x4342), __byte_perm(flip_mask, 0u, 0x3322),
-      __byte_perm(keep, 0u, 0x3322)};
-  uint32_t crossed01, crossed23;
-  lo = fold_pair(lo, p01, score, bias, crossed01);
-  hi = fold_pair(hi, p23, score, bias, crossed23);
-  const uint32_t crossed_lanes = __byte_perm(crossed01, crossed23, 0x7531);
-  return ((flips | crossed_lanes) >> 7) & polled;
 }
 
 struct RoundArgs {
@@ -187,30 +110,6 @@ __device__ __forceinline__ uint64_t load_flags(const uint8_t* p) {
       v |= static_cast<uint64_t>(__ldg(p + j)) << (8 * j);
     }
     return v;
-  }
-}
-
-// N 16-byte chunks as 4N words, read / written streaming.
-template <int N>
-__device__ __forceinline__ void load_chunks(const uint4* p,
-                                            uint32_t (&w)[4 * N]) {
-#pragma unroll
-  for (int c = 0; c < N; ++c) {
-    const uint4 v = __ldcs(p + c);
-    w[4 * c] = v.x;
-    w[4 * c + 1] = v.y;
-    w[4 * c + 2] = v.z;
-    w[4 * c + 3] = v.w;
-  }
-}
-
-template <int N>
-__device__ __forceinline__ void store_chunks(uint4* p,
-                                             const uint32_t (&w)[4 * N]) {
-#pragma unroll
-  for (int c = 0; c < N; ++c) {
-    __stcs(p + c, make_uint4(w[4 * c], w[4 * c + 1], w[4 * c + 2],
-                             w[4 * c + 3]));
   }
 }
 

@@ -23,7 +23,8 @@
 // changed and 2 B confidence out) plus N bytes for the broadcast
 // consider pack: 2.95 GB or 0.88 ms at 16384 x 16384 and 3.35 TB/s,
 // 1.1 GB or 0.33 ms at 10000 x 10000.  The integer work, N*T*k votes at
-// one operation each, is 0.03 ms at 16384 x 16384: bytes bound it.
+// one operation each, is 0.13 ms at 16384 x 16384 over Hopper's ~1.67e13
+// int32 operations a second: bytes bound it.
 //
 // Design.  Correct and simple first: one thread per 4-record word of the
 // flat planes (ingest.cuh).  The uint8 planes are taken as they lie: a

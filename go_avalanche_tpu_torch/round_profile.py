@@ -44,11 +44,15 @@ from go_avalanche_tpu_torch.models import dag
 ROUNDS = 10
 SPANS = ("poll_mask", "sample_peers", "gossip_admission", "gather_prefs",
          "fused_round", "ingest_votes")
-# The port's kernels and the span that launches each.  A kernel launched
-# through ctypes has no aten op above it, so the profiler counts its
-# device time under no span; it is added to its span here.
+# The port's kernels, by a part of their symbol, and the span that
+# launches each.  A kernel launched through ctypes has no aten op above
+# it, so the profiler counts its device time under no span; it is added
+# to its span here.  `vote_u8_kernel<` is vote_u8's fast path (one
+# symbol per k and consider-pack form), `vote_u8_kernel_any` its general
+# path.
 PORT_KERNELS = {"mega_round_kernel": "fused_round",
-                "vote_u8_kernel": "ingest_votes",
+                "vote_u8_kernel<": "ingest_votes",
+                "vote_u8_kernel_any": "ingest_votes",
                 "vote_swar_kernel": "ingest_votes"}
 
 
@@ -108,9 +112,9 @@ def profile_case(case: str) -> dict:
     for r in device_rows:
         for name, launched_in in PORT_KERNELS.items():
             if name in r.key:
-                kernels[name] = r.self_device_time_total / 1e3 / rounds
-                spans[launched_in] = spans.get(launched_in, 0.0) + kernels[
-                    name]
+                ms = r.self_device_time_total / 1e3 / rounds
+                kernels[name] = kernels.get(name, 0.0) + ms
+                spans[launched_in] = spans.get(launched_in, 0.0) + ms
     spans["other"] = busy_ms / rounds - sum(spans.values())
     top = sorted(device_rows, key=lambda r: -r.self_device_time_total)[:10]
     return {

@@ -104,6 +104,10 @@ INGEST_CASES = {
     "score1": (dict(finalization_score=1, k=5, quorum=4, window=6), 48, 200),
     "ragged": (dict(), 33, 1001),       # N*T % 4 == 1: a ragged last word
     "tiny": (dict(k=4), 3, 7),
+    "k1w3q2": (dict(k=1, window=3, quorum=2), 64, 512),
+    "k5w6q4score1": (dict(k=5, window=6, quorum=4, finalization_score=1),
+                     64, 512),
+    "t1180": (dict(), 40, 1180),        # T % 16 != 0: vote_u8's general path
 }
 INGEST_KERNELS = {
     "vote_u8": (pv.register_packed_votes_cuda,
@@ -113,9 +117,17 @@ INGEST_KERNELS = {
 }
 
 
-def _ingest_inputs(rng, n, t, cfg, device, pack_form, masked):
+def _ingest_inputs(rng, n, t, cfg, device, pack_form, masked, offset=0):
+    """One ingest call's inputs; with `offset`, each record plane and the
+    mask start that many records into their storage."""
     def t_(a):
-        return torch.from_numpy(np.ascontiguousarray(a)).to(device)
+        x = torch.from_numpy(np.ascontiguousarray(a)).to(device)
+        if not offset:
+            return x
+        buf = torch.empty(x.numel() + offset, dtype=x.dtype, device=device)
+        view = buf[offset:].view(x.shape)
+        view.copy_(x)
+        return view
 
     wm = (1 << cfg.window) - 1
     kind = rng.integers(0, 3, (n, t))
@@ -130,8 +142,10 @@ def _ingest_inputs(rng, n, t, cfg, device, pack_form, masked):
         t_(rng.integers(0, 256, (n, t), dtype=np.uint8) & wm),
         t_(rng.integers(0, 256, (n, t), dtype=np.uint8) & wm),
         t_(conf.view(np.int16)))
-    yes = t_(rng.integers(0, 256, (n, t), dtype=np.uint8))
-    col = t_(rng.integers(0, 256, (n, 1), dtype=np.uint8))
+    yes = torch.from_numpy(rng.integers(0, 256, (n, t),
+                                        dtype=np.uint8)).to(device)
+    col = torch.from_numpy(rng.integers(0, 256, (n, 1),
+                                        dtype=np.uint8)).to(device)
     cons = (col.expand(n, t) if pack_form == "stride0"
             else col.expand(n, t).contiguous())
     mask = t_(rng.random((n, t)) < 0.7) if masked else None
@@ -158,6 +172,53 @@ def test_ingest_kernel_matches_plain_version(kernel, case, pack_form, masked,
     for g, w in zip((*got_recs, got_changed), (*want_recs, want_changed)):
         assert torch.equal(g, w)
     assert got_changed.view(torch.uint8).max() <= 1
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kernel", sorted(INGEST_KERNELS))
+@pytest.mark.parametrize("pack_form", ["stride0", "plane"])
+def test_ingest_kernel_matches_plain_version_off_16_bytes(kernel, pack_form,
+                                                          cuda):
+    """Record planes and mask 4 records into their storage (4 bytes for
+    the uint8 planes, 8 for confidence): vote_u8 must refuse its fast
+    path, which reads 16-byte chunks, and still give the plain bits."""
+    cfg = AvalancheConfig()
+    recs, yes, cons, mask = _ingest_inputs(np.random.default_rng(7), 64, 512,
+                                           cfg, cuda, pack_form, True,
+                                           offset=4)
+    assert recs.votes.data_ptr() % 16 == 4
+    wrapper, plain = INGEST_KERNELS[kernel]
+    got_recs, got_changed = wrapper(recs, yes, cons, cfg.k, cfg, mask)
+    want_recs, want_changed = plain(recs, yes, cons, cfg.k, cfg, mask)
+    for g, w in zip((*got_recs, got_changed), (*want_recs, want_changed)):
+        assert torch.equal(g, w)
+
+
+def _vote_u8_symbols(recs, yes, cons, cfg, mask):
+    """The device kernels one vote_u8 launch ran, by the profiler."""
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        pv.register_packed_votes_cuda(recs, yes, cons, cfg.k, cfg, mask)
+        torch.cuda.synchronize()
+    return [e.key for e in prof.key_averages() if "vote_u8" in e.key]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n,t,offset,fast", [
+    (64, 512, 0, True), (40, 96, 0, True), (40, 1180, 0, False),
+    (33, 1001, 0, False), (64, 512, 4, False)])
+def test_vote_u8_takes_its_fast_path_where_it_can(n, t, offset, fast, cuda):
+    """T % 16 == 0 with 16-byte aligned planes and the round's stride-0
+    consider pack takes `vote_u8_kernel<K, ...>`; anything else the
+    general `vote_u8_kernel_any`."""
+    cfg = AvalancheConfig(k=3, window=3, quorum=2)
+    args = _ingest_inputs(np.random.default_rng(n * t), n, t, cfg, cuda,
+                          "stride0", True, offset)
+    symbols = _vote_u8_symbols(*args[:3], cfg, args[3])
+    assert len(symbols) == 1, symbols
+    assert ("vote_u8_kernel_any" in symbols[0]) != fast, symbols
+    assert ("vote_u8_kernel<3" in symbols[0]) == fast, symbols
 
 
 @pytest.mark.cuda

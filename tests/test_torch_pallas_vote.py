@@ -91,6 +91,27 @@ def test_cpu_route_matches_pallas_interpret(engine, shape, pack_form):
 
 
 @pytest.mark.parametrize("engine", ENGINES)
+@pytest.mark.parametrize("k", range(1, 9))
+def test_plain_version_matches_pallas_interpret_every_k(engine, k):
+    """Each kernel's plain version, the oracle it is held against on the
+    card, against the JAX kernel for every k the CUDA kernels compile
+    (vote_u8's fast path has one instance per k), with the round's
+    stride-0 consider pack."""
+    n, t = 64, 512
+    kw = dict(ingest_engine=engine, k=k)
+    jcfg, tcfg = JaxConfig(**kw), AvalancheConfig(**kw)
+    jax_in, torch_in = _inputs(100 + k, n, t, tcfg, "stride0")
+    state, yes, cons, mask = jax_in
+    launcher, plain = ((jpv.register_packed_votes_pallas_swar,
+                        pv.register_packed_votes_swar_plain)
+                       if engine == "swar32" else
+                       (jpv.register_packed_votes_pallas,
+                        pv.register_packed_votes_plain))
+    want = launcher(state, yes, cons, k, jcfg, mask, interpret=True)
+    _assert_same(want, plain(*torch_in[:3], k, tcfg, torch_in[3]))
+
+
+@pytest.mark.parametrize("engine", ENGINES)
 @pytest.mark.parametrize("shape", [(3, 7), (100, 1000), (10, 1001)])
 @pytest.mark.parametrize("pack_form", ["stride0", "plane"])
 def test_cpu_route_matches_jax_dispatcher_untileable(engine, shape,
