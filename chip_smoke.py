@@ -14,7 +14,7 @@ package is missing.  Phases, each printing JSON lines:
                PyTorch version on the same inputs, bit for bit, over the
                shapes and configs below (the two ingest kernels also
                with a ragged T, both consider-pack forms and at the DAG
-               path's 10000 x 10000; vote_u8 on both its paths);
+               path's 10000 x 10000, each on both its paths);
   4. main    — the flagship round (16384 nodes x 16384 txs, k=8,
                `workload.flagship_state`, the reference bench's) through
                `models.avalanche.init` / `round_step`: the megakernel,
@@ -62,8 +62,8 @@ KERNEL_CASES = {
     "k1_w3_q2": dict(k=1, window=3, quorum=2),
 }
 # The ingest kernels: 333 x 1001 has N*T % 4 == 1, a ragged last word;
-# 1000 x 1180 (T % 16 != 0) and 333 x 1001 take vote_u8's general path,
-# the others its fast path.
+# 1000 x 1180 (T % 16 != 0) and 333 x 1001 take each kernel's general
+# path, the others its fast path.
 INGEST_SHAPES = ((2048, 2048), (1000, 1184), (333, 1001), (1000, 1180))
 INGEST_CASES = {                # config knobs, consider-pack form, masked
     "base": (dict(), "stride0", True),

@@ -1,8 +1,9 @@
 // The record I/O shared by the two window-ingest kernels (vote_u8.cu,
-// vote_swar.cu): arguments, the flat walk over the [N, T] planes, and
-// the masked write-back.  vote_swar runs on this walk for every shape;
-// vote_u8 runs its general path on it, and takes the Args filled here
-// to pick its 16-records-a-thread fast path where the shape allows.
+// vote_swar.cu): arguments, and the general path, the flat walk over the
+// [N, T] planes with its masked write-back.  Both kernels run their
+// general path on this walk, for the shapes their 16-records-a-thread
+// fast path (ingest_fast.cuh, which picks between the two from the Args
+// filled here) does not take.
 //
 // Both kernels are elementwise per record, so they walk the flat N*T
 // planes: thread w owns records 4w .. 4w+3 (one 32-bit word of each
@@ -201,26 +202,6 @@ inline int launch(void (*kernel)(Args), const Args& a, void* stream) {
                                                 / kThreads);
   kernel<<<blocks, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(a);
   return static_cast<int>(cudaGetLastError());
-}
-
-// Validate, fill Args and launch `kernel`; returns cudaErrorInvalidValue
-// on arguments it does not take, else as `launch` above.
-inline int launch(void (*kernel)(Args), const void* votes,
-                  const void* consider, const void* confidence,
-                  const void* yes_pack, long long yes_rs, long long yes_cs,
-                  const void* consider_pack, long long cons_rs,
-                  long long cons_cs, const void* mask, void* votes_out,
-                  void* consider_out, void* confidence_out, void* changed_out,
-                  long long n, long long t, int k, int window, int quorum,
-                  int score, void* stream) {
-  Args a;
-  if (!fill_args(a, votes, consider, confidence, yes_pack, yes_rs, yes_cs,
-                 consider_pack, cons_rs, cons_cs, mask, votes_out,
-                 consider_out, confidence_out, changed_out, n, t, k, window,
-                 quorum, score)) {
-    return static_cast<int>(cudaErrorInvalidValue);
-  }
-  return launch(kernel, a, stream);
 }
 
 }  // namespace ingest

@@ -23,31 +23,15 @@
 // 0.13 ms at 16384 x 16384 over Hopper's ~1.67e13 int32 operations a
 // second (132 SMs x 64 lanes x ~1.98 GHz): bytes bound it, on paper.
 //
-// Two paths, one function; the C entry picks one per call.
+// Two paths, one function; the C entry (ingest_fast.cuh `launch`) picks
+// one per call.
 //  - Fast path, `vote_u8_kernel<K, CONS_ROW>`, for the shapes every
-//    round hands over: T % 16 == 0, record planes and contiguous packs
-//    on 16-byte boundaries, each vote pack the contiguous plane or a row
-//    broadcast (the fused exchange's consider pack
-//    `consider[:, None].expand(n, t)`, column stride 0), and N*T/16
-//    small enough for a 32-bit chunk index.
-//    One thread per 16 consecutive records of a row (4 SWAR words), on a
-//    flat 1-D grid over the 16-record chunks so that a narrow row (74
-//    chunks at T = 1184) leaves no thread of a block idle.  k (1..8) and
-//    the consider pack's form are template parameters, so the draw loop
-//    unrolls, its shifts are constants and a row-broadcast consider
-//    pack's per-draw bits are computed once for the thread's 4 words.
-//    Each plane is one 16-byte streaming load a thread (confidence two),
-//    each output one 16-byte streaming store; a broadcast pack is one
-//    byte a row, replicated to the lanes, its row a 32-bit division.  The
-//    fold is the SWAR one of the megakernel and vote_swar.cu (swar.cuh):
-//    `window_step` per word and draw, then `closed_form4`, the
-//    closed-form confidence over a word's four lanes at once, which also
-//    restores unmasked confidences and masks `changed`.  The closed form
-//    is the reference's `_confidence_closed_form`, so these are the
-//    per-step transition's bits (the megakernel and vote_swar.cu hold the
-//    same algebra bit-equal on the card).  By a count from the source,
-//    ~250 int32 instructions a 4-record word at k = 8, about 1 ms of
-//    issue at 16384 x 16384, next to 0.88 ms of bytes.
+//    round hands over (T % 16 == 0, 16-byte aligned planes, packs
+//    contiguous or row broadcasts): 16 records a thread, k compiled in,
+//    the SWAR window fold and the four-lane closed form.  The body is
+//    ingest_fast.cuh's, shared with vote_swar.cu; the closed form is the
+//    reference's `_confidence_closed_form`, so these are the per-step
+//    transition's bits.
 //  - General path, `vote_u8_kernel_any`, for every other shape: the flat
 //    4-record walk of ingest.cuh (any N and T, a ragged last word, packs
 //    through any strides), folding record by record with the per-step
@@ -65,11 +49,9 @@
 #include <cuda_runtime.h>
 
 #include "ingest.cuh"
-#include "swar.cuh"
+#include "ingest_fast.cuh"
 
 namespace {
-
-using swar::kLaneLsb;
 
 // --- general path -----------------------------------------------------
 
@@ -137,175 +119,26 @@ __global__ void __launch_bounds__(ingest::kThreads)
 
 // --- fast path --------------------------------------------------------
 
-constexpr int kThreads = 256;
-constexpr int kWords = 4;           // SWAR words a thread: 4 records each
-constexpr int kRecords = 4 * kWords;
-
-// A vote pack as the fast path reads it: the contiguous [N, T] plane in
-// 16-byte chunks, or a row broadcast, row r's byte at `base + r * rs`.
-struct Pack {
-  const uint8_t* base;
-  long long rs;
-  bool broadcast;
-};
-
-struct FastArgs {
-  const uint4* votes;        // [N*T/16] 16-byte chunks of the uint8 plane
-  const uint4* consider;
-  const uint4* confidence;   // [N*T/8] chunks of 8 uint16 confidences
-  const uint4* mask;         // bool chunks; nullptr = every record
-  Pack yes, cons;
-  uint4* votes_out;
-  uint4* consider_out;
-  uint4* confidence_out;
-  uint4* changed_out;
-  uint32_t chunks, row_chunks;   // N*T/16, T/16
-  int window, quorum, score;
-};
-
-// A row-broadcast pack's byte for `row`, in every byte lane.
-__device__ __forceinline__ uint32_t row_lanes(const Pack& p, uint32_t row) {
-  return __ldg(p.base + row * p.rs) * kLaneLsb;
-}
-
-// CONS_ROW: the consider pack is a row broadcast, as on every round, so
-// its 4 words are one value and each draw's consider bits are computed
-// once for the thread.  The yes pack's form is read at run time.
 template <int K, bool CONS_ROW>
-__global__ void __launch_bounds__(kThreads) vote_u8_kernel(FastArgs a) {
-  const uint32_t q = blockIdx.x * kThreads + threadIdx.x;   // chunk
-  if (q >= a.chunks) return;
-  const uint32_t row = CONS_ROW || a.yes.broadcast ? q / a.row_chunks : 0u;
-
-  uint32_t vin[kWords], cin[kWords], yes[kWords], cons[kWords];
-  swar::load_chunks<1>(a.votes + q, vin);
-  swar::load_chunks<1>(a.consider + q, cin);
-  if (a.yes.broadcast) {
-    const uint32_t lanes = row_lanes(a.yes, row);
-#pragma unroll
-    for (int i = 0; i < kWords; ++i) yes[i] = lanes;
-  } else {
-    swar::load_chunks<1>(reinterpret_cast<const uint4*>(a.yes.base) + q, yes);
-  }
-  if constexpr (CONS_ROW) {
-    const uint32_t lanes = row_lanes(a.cons, row);
-#pragma unroll
-    for (int i = 0; i < kWords; ++i) cons[i] = lanes;
-  } else {
-    swar::load_chunks<1>(reinterpret_cast<const uint4*>(a.cons.base) + q,
-                         cons);
-  }
-  swar::Window w[kWords];
-#pragma unroll
-  for (int i = 0; i < kWords; ++i) {
-    w[i] = swar::window_start(vin[i], cin[i], a.window, a.quorum);
-  }
-#pragma unroll
-  for (int j = 0; j < K; ++j) {
-#pragma unroll
-    for (int i = 0; i < kWords; ++i) {
-      swar::window_step(w[i], (yes[i] >> j) & kLaneLsb,
-                        (cons[i] >> j) & kLaneLsb, j);
-    }
-  }
-
-  uint32_t kept[kWords], conf[2 * kWords];      // kept: 0/1 per byte lane
-  if (a.mask) {
-    swar::load_chunks<1>(a.mask + q, kept);
-  } else {
-#pragma unroll
-    for (int i = 0; i < kWords; ++i) kept[i] = kLaneLsb;
-  }
-  swar::load_chunks<2>(a.confidence + 2 * static_cast<size_t>(q), conf);
-  uint32_t vout[kWords], cout[kWords], changed[kWords];
-#pragma unroll
-  for (int i = 0; i < kWords; ++i) {
-    const uint32_t keep = kept[i] * 0xFFu;       // 0xFF per kept lane
-    vout[i] = (w[i].votes & keep) | (vin[i] & ~keep);
-    cout[i] = (w[i].consider & keep) | (cin[i] & ~keep);
-    changed[i] = swar::closed_form4(w[i].out_concl, w[i].out_yes, kept[i],
-                                    static_cast<uint32_t>(a.score),
-                                    conf[2 * i], conf[2 * i + 1]);
-  }
-  swar::store_chunks<1>(a.votes_out + q, vout);
-  swar::store_chunks<1>(a.consider_out + q, cout);
-  swar::store_chunks<2>(a.confidence_out + 2 * static_cast<size_t>(q), conf);
-  swar::store_chunks<1>(a.changed_out + q, changed);
+__global__ void __launch_bounds__(ingest::kFastThreads)
+    vote_u8_kernel(ingest::FastArgs a) {
+  ingest::fast_body<K, CONS_ROW>(a);
 }
 
-bool aligned16(const void* p) {
-  return (reinterpret_cast<uintptr_t>(p) & 15u) == 0u;
-}
-
-// The fast path's view of a pack, if it takes it: the contiguous plane
-// on a 16-byte boundary, or a row broadcast.
-bool fast_pack(const uint8_t* base, long long rs, long long cs, long long t,
-               Pack& p) {
-  p = Pack{base, rs, cs == 0};
-  return cs == 0 || (rs == t && cs == 1 && aligned16(base));
-}
-
-// Fill `f` and return true if the fast path takes the call `a`.
-bool fast_args(const ingest::Args& a, FastArgs& f) {
-  // The chunk index of every launched thread fits in 32 bits.
-  const long long chunks = a.total / kRecords;
-  if (a.total == 0 || a.t % kRecords != 0
-      || chunks + kThreads > (1LL << 32)
-      || !aligned16(a.votes) || !aligned16(a.consider)
-      || !aligned16(a.confidence) || (a.mask && !aligned16(a.mask))
-      || !aligned16(a.votes_out) || !aligned16(a.consider_out)
-      || !aligned16(a.confidence_out) || !aligned16(a.changed_out)
-      || !fast_pack(a.yes_pack, a.yes_rs, a.yes_cs, a.t, f.yes)
-      || !fast_pack(a.consider_pack, a.cons_rs, a.cons_cs, a.t, f.cons)) {
-    return false;
-  }
-  f.votes = reinterpret_cast<const uint4*>(a.votes);
-  f.consider = reinterpret_cast<const uint4*>(a.consider);
-  f.confidence = reinterpret_cast<const uint4*>(a.confidence);
-  f.mask = reinterpret_cast<const uint4*>(a.mask);
-  f.votes_out = reinterpret_cast<uint4*>(a.votes_out);
-  f.consider_out = reinterpret_cast<uint4*>(a.consider_out);
-  f.confidence_out = reinterpret_cast<uint4*>(a.confidence_out);
-  f.changed_out = reinterpret_cast<uint4*>(a.changed_out);
-  f.chunks = static_cast<uint32_t>(chunks);
-  f.row_chunks = static_cast<uint32_t>(a.t / kRecords);
-  f.window = a.window;
-  f.quorum = a.quorum;
-  f.score = a.score;
-  return true;
-}
-
-template <int K>
-void launch_fast(const FastArgs& f, unsigned blocks, cudaStream_t s) {
-  if (f.cons.broadcast) {
-    vote_u8_kernel<K, true><<<blocks, kThreads, 0, s>>>(f);
-  } else {
-    vote_u8_kernel<K, false><<<blocks, kThreads, 0, s>>>(f);
-  }
-}
-
-int launch_fast(const FastArgs& f, int k, void* stream) {
-  const unsigned blocks = (f.chunks + kThreads - 1) / kThreads;
-  const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  switch (k) {
-    case 1: launch_fast<1>(f, blocks, s); break;
-    case 2: launch_fast<2>(f, blocks, s); break;
-    case 3: launch_fast<3>(f, blocks, s); break;
-    case 4: launch_fast<4>(f, blocks, s); break;
-    case 5: launch_fast<5>(f, blocks, s); break;
-    case 6: launch_fast<6>(f, blocks, s); break;
-    case 7: launch_fast<7>(f, blocks, s); break;
-    default: launch_fast<8>(f, blocks, s); break;
-  }
-  return static_cast<int>(cudaGetLastError());
-}
+const ingest::FastKernels kFast = {
+    {vote_u8_kernel<1, false>, vote_u8_kernel<1, true>},
+    {vote_u8_kernel<2, false>, vote_u8_kernel<2, true>},
+    {vote_u8_kernel<3, false>, vote_u8_kernel<3, true>},
+    {vote_u8_kernel<4, false>, vote_u8_kernel<4, true>},
+    {vote_u8_kernel<5, false>, vote_u8_kernel<5, true>},
+    {vote_u8_kernel<6, false>, vote_u8_kernel<6, true>},
+    {vote_u8_kernel<7, false>, vote_u8_kernel<7, true>},
+    {vote_u8_kernel<8, false>, vote_u8_kernel<8, true>},
+};
 
 }  // namespace
 
-// Launch on `stream`; returns cudaGetLastError() (0 = launched).  Pack
-// strides are in elements; `mask` may be null (every record updates).
-// The score must be in (0, 0x7FFF], the config's range, which the fast
-// path's crossing test needs.
+// Launch on `stream`: ingest_fast.cuh `launch`.
 extern "C" int vote_u8(const void* votes, const void* consider,
                        const void* confidence, const void* yes_pack,
                        long long yes_rs, long long yes_cs,
@@ -314,15 +147,9 @@ extern "C" int vote_u8(const void* votes, const void* consider,
                        void* consider_out, void* confidence_out,
                        void* changed_out, long long n, long long t, int k,
                        int window, int quorum, int score, void* stream) {
-  ingest::Args a;
-  if (!ingest::fill_args(a, votes, consider, confidence, yes_pack, yes_rs,
-                         yes_cs, consider_pack, cons_rs, cons_cs, mask,
-                         votes_out, consider_out, confidence_out, changed_out,
-                         n, t, k, window, quorum, score)
-      || score <= 0 || score > 0x7FFF) {
-    return static_cast<int>(cudaErrorInvalidValue);
-  }
-  FastArgs f;
-  if (fast_args(a, f)) return launch_fast(f, k, stream);
-  return ingest::launch(vote_u8_kernel_any, a, stream);
+  return ingest::launch(vote_u8_kernel_any, kFast, votes, consider,
+                        confidence, yes_pack, yes_rs, yes_cs, consider_pack,
+                        cons_rs, cons_cs, mask, votes_out, consider_out,
+                        confidence_out, changed_out, n, t, k, window, quorum,
+                        score, stream);
 }

@@ -5,21 +5,22 @@ reader finds it.  It holds hand-written CUDA kernels for Hopper
 
   kernel 1  `register_packed_votes_cuda` -> `csrc/vote_u8.cu`, the port
             of `_vote_kernel`: k sequential window shift-ins per record
-            with the per-step confidence transition's bits (its C entry
-            takes a 16-records-a-thread SWAR fast path where T % 16 == 0
-            and the planes lie on 16-byte boundaries, and the general
-            per-record walk otherwise);
+            with the per-step confidence transition's bits;
   kernel 2  `register_packed_votes_cuda_swar` -> `csrc/vote_swar.cu`,
             the port of `_vote_kernel_swar`: the SWAR window fold on
             4-record words, then the closed-form confidence.
+
+Each C entry takes the 16-records-a-thread SWAR fast path the two
+kernels share (`csrc/ingest_fast.cuh`) where T % 16 == 0 and the planes
+lie on 16-byte boundaries, and its own general 4-record walk otherwise.
 
 Each wrapper launches its kernel on CUDA tensors (built with nvcc at
 first use, `_build.py`) or raises, and runs its plain PyTorch version on
 CPU tensors.  The plain versions are the reference engines themselves
 (`voterecord.register_packed_votes` and `register_packed_votes_swar`,
 delivered-neutral consider semantics), which the kernels are held
-against on the card.  Both kernels take any N and T (kernel 2 and
-kernel 1's general path walk the flat ``[N, T]`` planes): the reference
+against on the card.  Both kernels take any N and T (their general
+paths walk the flat ``[N, T]`` planes): the reference
 launchers' tiling errors and the dispatcher's fall-through for
 untileable shapes have no counterpart.
 

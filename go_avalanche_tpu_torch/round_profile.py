@@ -47,13 +47,15 @@ SPANS = ("poll_mask", "sample_peers", "gossip_admission", "gather_prefs",
 # The port's kernels, by a part of their symbol, and the span that
 # launches each.  A kernel launched through ctypes has no aten op above
 # it, so the profiler counts its device time under no span; it is added
-# to its span here.  `vote_u8_kernel<` is vote_u8's fast path (one
-# symbol per k and consider-pack form), `vote_u8_kernel_any` its general
-# path.
+# to its span here.  Each kernel matches exactly one key:
+# `vote_u8_kernel<` / `vote_swar_kernel<` are the ingest kernels' fast
+# path (one symbol per k and consider-pack form), `..._kernel_any` their
+# general path.
 PORT_KERNELS = {"mega_round_kernel": "fused_round",
                 "vote_u8_kernel<": "ingest_votes",
                 "vote_u8_kernel_any": "ingest_votes",
-                "vote_swar_kernel": "ingest_votes"}
+                "vote_swar_kernel<": "ingest_votes",
+                "vote_swar_kernel_any": "ingest_votes"}
 
 
 def card_label() -> str:

@@ -54,3 +54,29 @@ def test_check_arg_refuses_what_a_kernel_cannot_read():
                          torch.uint8, (4, 7), cpu, 4)
     with pytest.raises(ValueError, match="records on meta"):
         _build.check_arg(x, "x", torch.uint8, (4, 8), torch.device("meta"))
+
+
+def _kernel_symbols():
+    """Every `__global__` kernel of csrc/, as its symbol reads in a
+    profile: `name<` for a template, `name(` otherwise."""
+    kernel = re.compile(r"(template\s*<[^>]*>\s*)?__global__\s+void\s+"
+                        r"(?:__launch_bounds__\([^)]*\)\s*)?(\w+)\s*\(")
+    for src in sorted([*_build.CSRC_DIR.glob("*.cu"),
+                       *_build.CSRC_DIR.glob("*.cuh")]):
+        for template, name in kernel.findall(src.read_text()):
+            yield name + ("<" if template else "(")
+
+
+def test_profile_attributes_each_kernel_to_exactly_one_key():
+    """`round_profile.PORT_KERNELS` adds a kernel's time to its span once
+    per key its symbol matches: each kernel must match exactly one key,
+    and each key some kernel."""
+    from go_avalanche_tpu_torch.round_profile import PORT_KERNELS
+
+    symbols = list(_kernel_symbols())
+    assert {"mega_round_kernel<", "vote_u8_kernel<", "vote_u8_kernel_any(",
+            "vote_swar_kernel<", "vote_swar_kernel_any("} <= set(symbols)
+    for symbol in symbols:
+        assert len([k for k in PORT_KERNELS if k in symbol]) == 1, symbol
+    for key in PORT_KERNELS:
+        assert any(key in symbol for symbol in symbols), key

@@ -107,7 +107,7 @@ INGEST_CASES = {
     "k1w3q2": (dict(k=1, window=3, quorum=2), 64, 512),
     "k5w6q4score1": (dict(k=5, window=6, quorum=4, finalization_score=1),
                      64, 512),
-    "t1180": (dict(), 40, 1180),        # T % 16 != 0: vote_u8's general path
+    "t1180": (dict(), 40, 1180),        # T % 16 != 0: the general path
 }
 INGEST_KERNELS = {
     "vote_u8": (pv.register_packed_votes_cuda,
@@ -180,8 +180,9 @@ def test_ingest_kernel_matches_plain_version(kernel, case, pack_form, masked,
 def test_ingest_kernel_matches_plain_version_off_16_bytes(kernel, pack_form,
                                                           cuda):
     """Record planes and mask 4 records into their storage (4 bytes for
-    the uint8 planes, 8 for confidence): vote_u8 must refuse its fast
-    path, which reads 16-byte chunks, and still give the plain bits."""
+    the uint8 planes, 8 for confidence): each kernel must refuse its
+    fast path, which reads 16-byte chunks, and still give the plain
+    bits."""
     cfg = AvalancheConfig()
     recs, yes, cons, mask = _ingest_inputs(np.random.default_rng(7), 64, 512,
                                            cfg, cuda, pack_form, True,
@@ -194,31 +195,34 @@ def test_ingest_kernel_matches_plain_version_off_16_bytes(kernel, pack_form,
         assert torch.equal(g, w)
 
 
-def _vote_u8_symbols(recs, yes, cons, cfg, mask):
-    """The device kernels one vote_u8 launch ran, by the profiler."""
+def _ingest_symbols(kernel, recs, yes, cons, cfg, mask):
+    """The device kernels one launch of ingest kernel `kernel` ran, by the
+    profiler."""
     from torch.profiler import ProfilerActivity, profile
 
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        pv.register_packed_votes_cuda(recs, yes, cons, cfg.k, cfg, mask)
+        INGEST_KERNELS[kernel][0](recs, yes, cons, cfg.k, cfg, mask)
         torch.cuda.synchronize()
-    return [e.key for e in prof.key_averages() if "vote_u8" in e.key]
+    return [e.key for e in prof.key_averages() if kernel in e.key]
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("kernel", sorted(INGEST_KERNELS))
 @pytest.mark.parametrize("n,t,offset,fast", [
     (64, 512, 0, True), (40, 96, 0, True), (40, 1180, 0, False),
     (33, 1001, 0, False), (64, 512, 4, False)])
-def test_vote_u8_takes_its_fast_path_where_it_can(n, t, offset, fast, cuda):
+def test_ingest_kernel_takes_its_fast_path_where_it_can(kernel, n, t, offset,
+                                                        fast, cuda):
     """T % 16 == 0 with 16-byte aligned planes and the round's stride-0
-    consider pack takes `vote_u8_kernel<K, ...>`; anything else the
-    general `vote_u8_kernel_any`."""
+    consider pack takes `<kernel>_kernel<K, ...>`; anything else the
+    general `<kernel>_kernel_any`."""
     cfg = AvalancheConfig(k=3, window=3, quorum=2)
     args = _ingest_inputs(np.random.default_rng(n * t), n, t, cfg, cuda,
                           "stride0", True, offset)
-    symbols = _vote_u8_symbols(*args[:3], cfg, args[3])
+    symbols = _ingest_symbols(kernel, *args[:3], cfg, args[3])
     assert len(symbols) == 1, symbols
-    assert ("vote_u8_kernel_any" in symbols[0]) != fast, symbols
-    assert ("vote_u8_kernel<3" in symbols[0]) == fast, symbols
+    assert (f"{kernel}_kernel_any" in symbols[0]) != fast, symbols
+    assert (f"{kernel}_kernel<3" in symbols[0]) == fast, symbols
 
 
 @pytest.mark.cuda
