@@ -27,7 +27,15 @@ package is missing.  Phases, each printing JSON lines:
                ingest engines: leaf-equal, timed, compared with the
                reference's recorded result, launch counts;
   6. timing  — each kernel alone at the main path's shape, against its
-               plain version and its bound.
+               plain version and its bound;
+  7. baselines — BASELINE configs 0, 1, 3 and 4 (`workload.config*`)
+               through `avalanche.run`, `snowball.run` and `dag.run` on
+               both ingest engines, config 4 also on the megakernel:
+               leaf-equal across engines, each result compared with the
+               reference's recorded one, ms per round, launches per
+               kernel and per path the C entries chose, and peak
+               memory; then each ingest kernel alone at Snowball's
+               [1000, 1].
 
 The second-to-last line is the kernels summary, the last line
 ``{"ok": true, "device": {...}}``.  Any failure raises and exits
@@ -317,6 +325,7 @@ def reset_launches() -> None:
     megakernel.launches = 0
     for name in pv.launches:
         pv.launches[name] = 0
+        pv.path_launches[name] = {"fast": 0, "any": 0}
 
 
 def read_launches() -> dict:
@@ -324,6 +333,13 @@ def read_launches() -> dict:
     from go_avalanche_tpu_torch.ops import pallas_vote as pv
 
     return {"megakernel": megakernel.launches, **pv.launches}
+
+
+def read_path_launches() -> dict:
+    """Each ingest kernel's launches by the path its C entry took."""
+    from go_avalanche_tpu_torch.ops import pallas_vote as pv
+
+    return {name: dict(paths) for name, paths in pv.path_launches.items()}
 
 
 def run_main_path(n: int, t: int, timed_rounds: int, device="cuda") -> dict:
@@ -480,6 +496,219 @@ def run_dag(n: int, t: int, device="cuda") -> dict:
             "peak_mem_gib": torch.cuda.max_memory_allocated() / 2**30}
 
 
+# Config 3's EQUIVOCATE runs to its gate at the quick shape (512 x 64,
+# 400 rounds), on the JAX package's own result there: at 100000 x 512 its
+# per-draw coin planes through the int64 threefry cost ~0.5 s a round,
+# ~10 minutes for 600 rounds on both engines (PERF.md section 4).  The
+# full shape runs this many rounds on each engine, timed and leaf-equal,
+# to keep that cost measured.
+EQUIVOCATE_FULL_ROUNDS = 3
+
+
+def ingest_path(t: int) -> str:
+    """Which path of an ingest kernel a round with T txs should take:
+    T % 16 == 0 its fast path (`<kernel>_kernel<K, CONS_ROW>`), anything
+    else its general path (`<kernel>_kernel_any`).  The rounds' planes
+    are fresh allocations and their packs row broadcasts, so T decides;
+    the baselines phase holds the C entries' own choice
+    (`read_path_launches`) to this.  Snowball ingests [N, 1] records."""
+    return "fast" if t % 16 == 0 else "any"
+
+
+def timed_run(run, *args, **kwargs):
+    """``(result, device ms)`` of one call, by CUDA events."""
+    import torch
+
+    begin = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    begin.record()
+    out = run(*args, **kwargs)
+    end.record()
+    torch.cuda.synchronize()
+    return out, begin.elapsed_time(end)
+
+
+def finality_stats(finalized_at) -> dict:
+    done = finalized_at[finalized_at >= 0]
+    return {"finality_median": finality_median(finalized_at),
+            "finality_min": int(done.min()), "finality_max": int(done.max())}
+
+
+def check_result(name: str, got: dict, want: dict) -> None:
+    picked = {key: got[key] for key in want}
+    if picked != want:
+        raise AssertionError(f"{name}: {picked} != the reference's {want}")
+
+
+def run_engines(name: str, run, start, cfgs: dict, rounds_of, equal):
+    """Run `start` on every engine config of `cfgs` with `run`; checks
+    the finals leaf-equal to the first and returns ``(final, ms per
+    round per engine, rounds per engine)``."""
+    finals, ms, rounds = {}, {}, {}
+    for engine, cfg in cfgs.items():
+        finals[engine], total_ms = timed_run(run, start, cfg)
+        rounds[engine] = rounds_of(finals[engine])
+        ms[engine] = total_ms / max(rounds[engine], 1)
+    first = next(iter(cfgs))
+    for engine in cfgs:
+        if rounds[engine] != rounds[first]:
+            raise AssertionError(f"{name}: rounds differ {rounds}")
+        equal(finals[engine], finals[first], f"{name} {engine} vs {first}")
+    return finals[first], ms, rounds
+
+
+def baseline_engines(cfg, megakernel: bool = False) -> dict:
+    """engine -> config: phased u8 and swar32, and the megakernel."""
+    cfgs = {"u8": dataclasses.replace(cfg, ingest_engine="u8"),
+            "swar32": dataclasses.replace(cfg, ingest_engine="swar32")}
+    if megakernel:
+        cfgs["megakernel"] = dataclasses.replace(cfg,
+                                                 round_engine="megakernel")
+    return cfgs
+
+
+def run_baselines(quick: bool = False, device="cuda") -> dict:
+    """Phase 7: BASELINE configs 0, 1, 3 and 4 through the port's entry
+    points on every engine, each compared with the reference's recorded
+    result (`workload.REFERENCE`; at a quick shape the JAX package's own,
+    `workload.REFERENCE_QUICK`).  Launch counts are reset just before
+    and read just after; every launch must belong to a counted round,
+    and each ingest kernel's launches must split between its paths as
+    `ingest_path` expects."""
+    import torch
+
+    from go_avalanche_tpu_torch import workload
+    from go_avalanche_tpu_torch.models import avalanche as av
+    from go_avalanche_tpu_torch.models import dag, snowball
+    from go_avalanche_tpu_torch.ops import voterecord as vr
+
+    def av_rounds(s):
+        return int(s.round)
+
+    def dag_rounds(s):
+        return int(s.base.round)
+
+    def reference(name: str, small: bool) -> dict:
+        return (workload.REFERENCE_QUICK if small
+                else workload.REFERENCE)[name]
+
+    configs = {}
+    expect = {"vote_u8": 0, "vote_swar": 0, "megakernel": 0}
+    by_path = {"vote_u8": {"fast": 0, "any": 0},
+               "vote_swar": {"fast": 0, "any": 0}}
+    kernel_of = {"u8": "vote_u8", "swar32": "vote_swar",
+                 "megakernel": "megakernel"}
+    torch.cuda.synchronize()
+    reset_launches()
+
+    def record(name, result, ms, rounds, reference, t):
+        torch.cuda.synchronize()
+        for engine, r in rounds.items():
+            expect[kernel_of[engine]] += r
+            if engine != "megakernel":
+                by_path[kernel_of[engine]][ingest_path(t)] += r
+        configs[name] = {**result, "reference": reference,
+                         "ms_per_round": ms, "rounds_per_engine": rounds,
+                         "ingest_path": ingest_path(t),
+                         "peak_mem_gib":
+                             torch.cuda.max_memory_allocated() / 2**30}
+        torch.cuda.reset_peak_memory_stats()
+
+    # config 0: the reference example, 100 x 100
+    torch.cuda.reset_peak_memory_stats()
+    start, cfg = workload.config0_state(device=device)
+    final, ms, rounds = run_engines(
+        "config0", lambda s, c: av.run(s, c, max_rounds=2000, device=device),
+        start, baseline_engines(cfg), av_rounds, assert_states_equal)
+    fin = vr.has_finalized(final.records.confidence, cfg)
+    result = {"rounds": av_rounds(final),
+              "nodes_fully_finalized": int(fin.all(dim=1).sum()),
+              **finality_stats(final.finalized_at)}
+    check_result("config0", result, reference("config0", quick))
+    record("config0", result, ms, rounds, reference("config0", quick),
+           start.records.votes.shape[1])
+
+    # config 1: single-decree Snowball, 1000 nodes
+    start, cfg = workload.config1_state(quick, device=device)
+    final, ms, rounds = run_engines(
+        "config1",
+        lambda s, c: snowball.run(s, c, max_rounds=1000, device=device),
+        start, baseline_engines(cfg), av_rounds, assert_states_equal)
+    fin = vr.has_finalized(final.records.confidence, cfg)
+    pref = vr.is_accepted(final.records.confidence)
+    result = {"rounds": av_rounds(final),
+              "finalized_fraction": float(fin.float().mean()),
+              "agreed_one_value": bool(fin.any()) and (
+                  bool(pref[fin].all()) or not bool(pref[fin].any())),
+              **finality_stats(final.finalized_at)}
+    check_result("config1", result, reference("config1", quick))
+    record("config1", result, ms, rounds, reference("config1", quick), 1)
+
+    # config 3: the byzantine mix over the conflict DAG, FLIP at full
+    # size, EQUIVOCATE at its quick shape
+    for strategy in ("flip", "equivocate"):
+        small = quick or strategy == "equivocate"
+        start, cfg = workload.config3_states(small, device=device)[strategy]
+        n, t, max_rounds = workload.config3_shape(small)
+        name = f"config3_{strategy}"
+        final, ms, rounds = run_engines(
+            name, lambda s, c: dag.run(s, c, max_rounds=max_rounds,
+                                       device=device),
+            start, baseline_engines(cfg), dag_rounds,
+            assert_dag_states_equal)
+        conf = final.base.records.confidence
+        fin_acc = vr.has_finalized(conf, cfg) & vr.is_accepted(conf)
+        honest = ~final.base.byzantine
+        result = {"nodes": n, "txs": t, "rounds": dag_rounds(final),
+                  "honest_sets_resolved": float(
+                      (dag.winners_per_set(fin_acc[honest], 2) == 1)
+                      .float().mean())}
+        if strategy == "flip":
+            result.update(finality_stats(final.base.finalized_at))
+        check_result(name, result, reference(name, small))
+        record(name, result, ms, rounds, reference(name, small), t)
+
+    if not quick:
+        start, cfg = workload.config3_states(device=device)["equivocate"]
+        n, t, _ = workload.config3_shape()
+        name = "config3_equivocate_full_shape"
+        final, ms, rounds = run_engines(
+            name, lambda s, c: dag.run(s, c,
+                                       max_rounds=EQUIVOCATE_FULL_ROUNDS,
+                                       device=device),
+            start, baseline_engines(cfg), dag_rounds,
+            assert_dag_states_equal)
+        result = {"nodes": n, "txs": t, "rounds": dag_rounds(final)}
+        check_result(name, result, {"rounds": EQUIVOCATE_FULL_ROUNDS})
+        record(name, result, ms, rounds, None, t)
+
+    # config 4: churn + latency-weighted sampling, also on the megakernel
+    start, cfg = workload.config4_state(quick, device=device)
+    final, ms, rounds = run_engines(
+        "config4", lambda s, c: av.run(s, c, max_rounds=2000, device=device),
+        start, baseline_engines(cfg, megakernel=True), av_rounds,
+        assert_states_equal)
+    fin = vr.has_finalized(final.records.confidence, cfg)
+    result = {"rounds": av_rounds(final),
+              "unfinalized_records": int((~fin).sum()),
+              "finalized_fraction": float(fin.double().mean()),
+              **finality_stats(final.finalized_at)}
+    check_result("config4", result, reference("config4", quick))
+    record("config4", result, ms, rounds, reference("config4", quick),
+           start.records.votes.shape[1])
+
+    launches = read_launches()
+    if launches != expect:
+        raise AssertionError(f"baseline launches {launches} != rounds per "
+                             f"kernel {expect}")
+    paths = read_path_launches()
+    if paths != by_path:
+        raise AssertionError(f"baseline launches by path {paths} != the "
+                             f"rounds' shapes' {by_path}")
+    return {"configs": configs, "launches": launches,
+            "launches_by_ingest_path": paths}
+
+
 def time_megakernel(n: int, t: int, device="cuda") -> dict:
     """Phase 6, megakernel: the kernel alone at the main path's shape,
     checked against and timed beside its plain version."""
@@ -507,10 +736,29 @@ def time_megakernel(n: int, t: int, device="cuda") -> dict:
             "bound_ms": bound_ms, "bound_by": bound_by}
 
 
+def device_ms_by_symbol(fn, reps: int, part: str) -> dict:
+    """Device ms per call of every kernel whose symbol holds `part`,
+    from a `torch.profiler` trace of `reps` calls of `fn`: the time the
+    card ran the kernel, without the host's cost of launching it."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    return {r.key: r.self_device_time_total / 1e3 / reps
+            for r in prof.key_averages()
+            if part in r.key and r.self_device_time_total > 0}
+
+
 def time_ingest(name: str, n: int, t: int, device="cuda") -> dict:
     """Phase 6, ingest kernels: kernel `name` alone at the main path's
     shape and inputs (the stride-0 consider pack, a polled mask),
-    checked against and timed beside its plain version."""
+    checked against and timed beside its plain version.  `ms` is CUDA
+    events around back-to-back calls (the wrapper's host cost shows
+    where the launch is short); `device_ms` is the profiler's device
+    time of the kernel's symbol."""
     import torch
 
     from go_avalanche_tpu_torch import workload
@@ -527,10 +775,17 @@ def time_ingest(name: str, n: int, t: int, device="cuda") -> dict:
     for _ in range(3):
         kernel(*args[:3], cfg.k, cfg, args[3])
     kernel_ms = time_ms(lambda: kernel(*args[:3], cfg.k, cfg, args[3]), 20)
+    symbols = device_ms_by_symbol(
+        lambda: kernel(*args[:3], cfg.k, cfg, args[3]), 20, f"{name}_kernel")
+    if len(symbols) != 1:
+        raise AssertionError(f"{name} at {(n, t)}: expected one kernel "
+                             f"symbol in the trace, got {symbols}")
     plain_ms = time_ms(lambda: plain(*args[:3], cfg.k, cfg, args[3]), 3)
     bound_ms, bound_by = ingest_bound(n, t, cfg.k)
     torch.cuda.empty_cache()
-    return {"max_abs_err": err, "ms": kernel_ms, "plain_ms": plain_ms,
+    (symbol, device_ms), = symbols.items()
+    return {"max_abs_err": err, "ms": kernel_ms, "device_ms": device_ms,
+            "symbol": symbol, "plain_ms": plain_ms,
             "bound_ms": bound_ms, "bound_by": bound_by}
 
 
@@ -602,6 +857,21 @@ def main() -> int:
     for name, row in timing.items():
         emit({"phase": "timing", "kernel": name, "nodes": FLAGSHIP_NODES,
               "txs": FLAGSHIP_TXS, **row, **label})
+
+    # 7. BASELINE configs 0, 1, 3 and 4
+    baselines = run_baselines()
+    for name, row in baselines["configs"].items():
+        emit({"phase": "baselines", "config": name, **row, **label})
+    emit({"phase": "baselines", "launches": baselines["launches"],
+          "launches_by_ingest_path": baselines["launches_by_ingest_path"],
+          **label})
+    torch.cuda.empty_cache()
+    # the ingest kernels' general path alone at Snowball's [1000, 1]
+    for name in ("vote_u8", "vote_swar"):
+        row = time_ingest(name, 1000, 1)
+        worst[name] = max(worst[name], row["max_abs_err"])
+        emit({"phase": "timing", "kernel": name, "nodes": 1000, "txs": 1,
+              **row, **label})
 
     emit({"kernels": [{
         "name": name,

@@ -145,9 +145,22 @@ class AvalancheConfig:
                              "(confidence counter is uint16 >> 1)")
         if self.k <= 0:
             raise ValueError("k must be positive")
+        if self.weighted_sampling and not self.sample_with_replacement:
+            raise ValueError(
+                "weighted_sampling requires sample_with_replacement: exact "
+                "weighted draws without replacement need per-row Gumbel "
+                "top-k over all N peers (O(N^2) state)")
+        if self.n_clusters < 1:
+            raise ValueError("n_clusters must be >= 1 (1 = no clustering)")
         if self.skip_absent_votes and self.vote_mode is not VoteMode.SEQUENTIAL:
             raise ValueError(
                 "skip_absent_votes applies to the SEQUENTIAL vote mode only")
+        if self.n_clusters > 1 and not self.sample_with_replacement:
+            raise ValueError(
+                "clustered topology requires sample_with_replacement "
+                "(same O(N^2) argument as weighted_sampling)")
+        if not (0.0 <= self.cluster_locality <= 1.0):
+            raise ValueError("cluster_locality must be in [0, 1]")
         if not (0.5 < self.alpha <= 1.0):
             raise ValueError("alpha must be in (0.5, 1.0]")
         if self.ingest_engine not in ("u8", "swar32"):
@@ -164,9 +177,67 @@ class AvalancheConfig:
             raise ValueError(
                 f"latency_mode must be 'none', 'fixed', 'geometric', "
                 f"'weighted' or 'rtt', got {self.latency_mode!r}")
+        self._validate_stake()
         self._validate_adversary()
         self._validate_round_engine()
         self._reject_unported()
+
+    def _validate_stake(self) -> None:
+        """The reference's rules for the stake knobs (its node-registry
+        rules stay with the unported registry)."""
+        modes = ("off", "uniform", "zipf", "explicit")
+        if self.stake_mode not in modes:
+            raise ValueError(
+                f"stake_mode must be one of {', '.join(modes)}, got "
+                f"{self.stake_mode!r}")
+        if self.stake_mode == "zipf":
+            if not (isinstance(self.stake_zipf_s, (int, float))
+                    and not isinstance(self.stake_zipf_s, bool)
+                    and self.stake_zipf_s > 0.0
+                    and math.isfinite(self.stake_zipf_s)):
+                raise ValueError(
+                    f"stake_zipf_s must be a positive finite zipf "
+                    f"exponent, got {self.stake_zipf_s!r}")
+        elif self.stake_zipf_s != 1.0:
+            raise ValueError(
+                f"stake_zipf_s is only read by stake_mode 'zipf', got "
+                f"exponent {self.stake_zipf_s!r} with mode "
+                f"{self.stake_mode!r} — a silently ignored exponent "
+                f"would mislabel the run")
+        if self.stake_mode == "explicit":
+            if self.stake_weights is None:
+                raise ValueError(
+                    "stake_mode 'explicit' needs a stake_weights vector "
+                    "(one positive stake per node)")
+            wts = tuple(self.stake_weights)
+            object.__setattr__(self, "stake_weights", wts)
+            if not wts:
+                raise ValueError("stake_weights must be non-empty")
+            for i, w in enumerate(wts):
+                if isinstance(w, bool) or not isinstance(w, (int, float)) \
+                        or not (w > 0.0) or not math.isfinite(w):
+                    raise ValueError(
+                        f"stake_weights[{i}] must be a positive finite "
+                        f"stake, got {w!r}")
+        elif self.stake_weights is not None:
+            raise ValueError(
+                f"stake_weights is only read by stake_mode 'explicit', "
+                f"got a vector with mode {self.stake_mode!r} — a "
+                f"silently ignored vector would mislabel the run")
+        if self.stake_mode != "off":
+            if not self.sample_with_replacement:
+                raise ValueError(
+                    "stake-weighted sampling requires "
+                    "sample_with_replacement (same O(N^2) Gumbel-top-k "
+                    "argument as weighted_sampling)")
+            if self.latency_mode == "weighted":
+                raise ValueError(
+                    "stake_mode folds the stake vector into the "
+                    "latency_weight sampling-propensity plane at init; "
+                    "latency_mode 'weighted' reads that same plane to "
+                    "derive response latency, which would silently "
+                    "couple delay to stake — use fixed/geometric/rtt "
+                    "latency with stake")
 
     def _validate_adversary(self) -> None:
         """The reference's inert-knob rules for the adversary fields."""
@@ -255,13 +326,6 @@ class AvalancheConfig:
 # Fields the port declares but does not run yet -> the ROADMAP.md
 # Queue 1 item that ports them.
 _UNPORTED = {
-    "sample_with_replacement": "item 8, sample_peers_distinct",
-    "weighted_sampling": "item 8, weighted sampling",
-    "n_clusters": "item 8, clustered topology",
-    "cluster_locality": "item 8, clustered topology",
-    "stake_mode": "item 8, stake",
-    "stake_zipf_s": "item 8, stake",
-    "stake_weights": "item 8, stake",
     "latency_mode": "item 10, async ring",
     "latency_rounds": "item 10, async ring",
     "partition_spec": "item 10, fault script",

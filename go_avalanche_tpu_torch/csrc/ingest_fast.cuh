@@ -196,6 +196,8 @@ inline bool fast_args(const Args& a, FastArgs& f) {
 // outside (0, 0x7FFF], the config's range, included: `closed_form4`'s
 // crossing test needs it), else cudaGetLastError() (0 = launched).  Pack
 // strides are in elements; `mask` may be null (every record updates).
+// `fast_out`, if not null, is set to 1 when the fast path was launched
+// and to 0 when the general walk was, so a caller counts the paths.
 inline int launch(void (*any)(Args), const FastKernels& fast,
                   const void* votes, const void* consider,
                   const void* confidence, const void* yes_pack,
@@ -204,7 +206,7 @@ inline int launch(void (*any)(Args), const FastKernels& fast,
                   long long cons_cs, const void* mask, void* votes_out,
                   void* consider_out, void* confidence_out, void* changed_out,
                   long long n, long long t, int k, int window, int quorum,
-                  int score, void* stream) {
+                  int score, void* stream, int* fast_out) {
   Args a;
   if (!fill_args(a, votes, consider, confidence, yes_pack, yes_rs, yes_cs,
                  consider_pack, cons_rs, cons_cs, mask, votes_out,
@@ -214,7 +216,9 @@ inline int launch(void (*any)(Args), const FastKernels& fast,
     return static_cast<int>(cudaErrorInvalidValue);
   }
   FastArgs f;
-  if (!fast_args(a, f)) return launch(any, a, stream);
+  const bool takes_fast = fast_args(a, f);
+  if (fast_out) *fast_out = takes_fast ? 1 : 0;
+  if (!takes_fast) return launch(any, a, stream);
   const unsigned blocks = (f.chunks + kFastThreads - 1) / kFastThreads;
   fast[k - 1][f.cons.broadcast ? 1 : 0]<<<blocks, kFastThreads, 0,
                                          static_cast<cudaStream_t>(stream)>>>(

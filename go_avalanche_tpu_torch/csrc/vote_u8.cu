@@ -146,10 +146,11 @@ extern "C" int vote_u8(const void* votes, const void* consider,
                        long long cons_cs, const void* mask, void* votes_out,
                        void* consider_out, void* confidence_out,
                        void* changed_out, long long n, long long t, int k,
-                       int window, int quorum, int score, void* stream) {
+                       int window, int quorum, int score, void* stream,
+                       int* fast_out) {
   return ingest::launch(vote_u8_kernel_any, kFast, votes, consider,
                         confidence, yes_pack, yes_rs, yes_cs, consider_pack,
                         cons_rs, cons_cs, mask, votes_out, consider_out,
                         confidence_out, changed_out, n, t, k, window, quorum,
-                        score, stream);
+                        score, stream, fast_out);
 }

@@ -17,8 +17,11 @@ kernel on the card) or the megakernel (`ops/megakernel.py`, one
 hand-written CUDA kernel for the whole round).  Randomness comes from the
 threefry key carried in the state (`prng.py`), split exactly as the
 reference splits it, so both packages walk the same trajectory from the
-same state.  The async ring, fault scripts, adaptive adversary, metrics
-tap and trace plane are not ported (the config rejects them).
+same state.  Peers are drawn by `ops/sampling.draw_peers` (uniform,
+distinct, weighted, clustered or stake-weighted, the stake folded into
+`latency_weight` at `init`).  The async ring, fault scripts, adaptive
+adversary, metrics tap and trace plane are not ported (the config
+rejects them).
 
 The round's phases run under `torch.profiler.record_function` spans with
 the reference's `annotate` names (poll_mask, sample_peers,
@@ -33,7 +36,7 @@ from typing import NamedTuple, Optional, Tuple
 
 import torch
 
-from go_avalanche_tpu_torch import prng
+from go_avalanche_tpu_torch import prng, stake
 from go_avalanche_tpu_torch.config import (AvalancheConfig, DEFAULT_CONFIG,
                                            VoteMode)
 from go_avalanche_tpu_torch.ops import (adversary, exchange, megakernel,
@@ -159,6 +162,12 @@ def init(
     if latency_weights is None:
         latency_weights = torch.ones(n_nodes, dtype=torch.float32,
                                      device=dev)
+    latency_weights = latency_weights.to(dev, torch.float32)
+    if stake.stake_enabled(cfg):
+        # The stake vector folds into the sampling-propensity plane, so
+        # every peer draw is a stake-weighted committee draw.
+        latency_weights = latency_weights * stake.node_stake(cfg, n_nodes,
+                                                             dev)
     n_byz = int(round(cfg.byzantine_fraction * n_nodes))
     score_rank, poll_order, poll_order_inv = score_rank_with_orders(
         scores.to(dev))
@@ -171,7 +180,7 @@ def init(
         poll_order_inv=poll_order_inv,
         byzantine=torch.arange(n_nodes, device=dev) < n_byz,
         alive=torch.ones(n_nodes, dtype=torch.bool, device=dev),
-        latency_weight=latency_weights.to(dev, torch.float32),
+        latency_weight=latency_weights,
         finalized_at=(torch.full((n_nodes, n_txs), -1, dtype=torch.int32,
                                  device=dev) if track_finality else None),
         round=torch.zeros((), dtype=torch.int32, device=dev),
@@ -216,7 +225,8 @@ def round_step(
 
     # --- peer sampling, lies, non-responses.
     with span("sample_peers"):
-        peers, self_draw = draw_peers(k_sample, cfg, n)
+        peers, self_draw = draw_peers(k_sample, cfg, state.latency_weight,
+                                      state.alive, n)
     peers_l = peers.long()
     lie = adversary.lie_mask(k_byz, peers, state.byzantine, cfg)
     responded = state.alive[peers_l]

@@ -209,7 +209,8 @@ def round_step(
                                      base.poll_order, base.poll_order_inv)
 
     with span("sample_peers"):
-        peers, self_draw = draw_peers(k_sample, cfg, n)
+        peers, self_draw = draw_peers(k_sample, cfg, base.latency_weight,
+                                      base.alive, n)
     lie = adversary.lie_mask(k_byz, peers, base.byzantine, cfg)
     responded = base.alive[peers.long()]
     if self_draw is not None:

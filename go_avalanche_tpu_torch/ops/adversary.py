@@ -1,6 +1,8 @@
 """Adversary vote transforms — `go_avalanche_tpu/ops/adversary.py`.
 
-The three static strategies, applied to gathered peer votes:
+The three static strategies, applied to gathered peer votes (`apply_1d`
+for the single-decree models' ``[N, k]`` votes, the plane transforms for
+the multi-target rounds):
 
   FLIP            — lie with the opposite of the peer's true preference;
   EQUIVOCATE      — lie with a fresh coin per (querier, draw, target),
@@ -40,6 +42,22 @@ def minority_color(prefs: torch.Tensor) -> torch.Tensor:
 def minority_plane(prefs: torch.Tensor) -> torch.Tensor:
     """Bool ``[T]`` — per-target minority color over a ``[N, T]`` plane."""
     return prefs.sum(dim=0) * 2 < prefs.shape[0]
+
+
+def apply_1d(key: torch.Tensor, votes: torch.Tensor, lie: torch.Tensor,
+             cfg: AvalancheConfig, prefs: torch.Tensor) -> torch.Tensor:
+    """Adversary transform for the single-decree models: `votes` and
+    `lie` are bool ``[N, k]``, `prefs` the bool ``[N]`` preferences
+    (read by OPPOSE_MAJORITY only).  EQUIVOCATE's coin per (querier,
+    draw) comes from ``fold_in(key, 0x5A)``."""
+    s = cfg.adversary_strategy
+    if s is AdversaryStrategy.FLIP:
+        return votes ^ lie
+    if s is AdversaryStrategy.EQUIVOCATE:
+        coins = prng.bernoulli(prng.fold_in(key, _EQUIVOCATE_FOLD), 0.5,
+                               tuple(votes.shape))
+        return torch.where(lie, coins, votes)
+    return torch.where(lie, minority_color(prefs), votes)
 
 
 def _equivocation_coins(key: torch.Tensor, draw: int, shape) -> torch.Tensor:

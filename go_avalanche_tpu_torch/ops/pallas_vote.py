@@ -27,7 +27,8 @@ untileable shapes have no counterpart.
 `register_packed_votes_fused` is the dispatcher every round calls: it
 picks the wrapper by `cfg.ingest_engine`, and the tensors' device picks
 the route, not a `prefer_pallas` flag.  `launches` counts
-each kernel's launches, so a run can show that it went through them.
+each kernel's launches, so a run can show that it went through them, and
+`path_launches` splits them by the path the C entry chose.
 """
 
 from __future__ import annotations
@@ -45,6 +46,9 @@ from go_avalanche_tpu_torch.ops import voterecord as vr
 # Kernel launches since the last reset, per kernel (set an entry to 0 to
 # start a count).
 launches = {"vote_u8": 0, "vote_swar": 0}
+# The same launches by the path the C entry took: "fast"
+# (`<kernel>_kernel<K, CONS_ROW>`) or "any" (`<kernel>_kernel_any`).
+path_launches = {name: {"fast": 0, "any": 0} for name in launches}
 
 
 def register_packed_votes_plain(state, yes_pack, consider_pack, k: int,
@@ -69,7 +73,8 @@ def _kernel(name: str):
     fn = getattr(_build.load(name), name)
     ll, ptr = ctypes.c_longlong, ctypes.c_void_p
     fn.argtypes = ([ptr] * 4 + [ll, ll] + [ptr] + [ll, ll] + [ptr] * 5
-                   + [ll, ll] + [ctypes.c_int] * 4 + [ptr])
+                   + [ll, ll] + [ctypes.c_int] * 4 + [ptr]
+                   + [ctypes.POINTER(ctypes.c_int)])
     fn.restype = ctypes.c_int
     return fn
 
@@ -106,6 +111,7 @@ def _launch(name: str, state: vr.VoteRecordState, yes_pack: torch.Tensor,
     consider = torch.empty_like(state.consider)
     confidence = torch.empty_like(state.confidence)
     changed = torch.empty((n, t), dtype=torch.bool, device=dev)
+    fast = ctypes.c_int(-1)
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         rc = _kernel(name)(
@@ -115,10 +121,11 @@ def _launch(name: str, state: vr.VoteRecordState, yes_pack: torch.Tensor,
             None if update_mask is None else update_mask.data_ptr(),
             votes.data_ptr(), consider.data_ptr(), confidence.data_ptr(),
             changed.data_ptr(), n, t, k, cfg.window, cfg.quorum,
-            cfg.finalization_score, stream)
+            cfg.finalization_score, stream, ctypes.byref(fast))
     if rc != 0:
         raise RuntimeError(f"{name} launch failed: CUDA error {rc}")
     launches[name] += 1
+    path_launches[name]["fast" if fast.value == 1 else "any"] += 1
     return vr.VoteRecordState(votes, consider, confidence), changed
 
 

@@ -10,8 +10,9 @@ in its *partitionable* mode (`jax_threefry_partitionable=True`):
     output shape; `random_bits` does the same over the sample shape and
     returns ``bits1 ^ bits2``;
   * `fold_in` hashes the counter pair ``(0, data)``;
-  * `randint`, `uniform` and `bernoulli` follow jax's recipes
-    (`jax/_src/random.py`) step for step.
+  * `randint`, `uniform`, `bernoulli` and `normal` follow jax's
+    recipes (`jax/_src/random.py`) step for step; `normal` evaluates
+    XLA's single-precision `erf_inv` polynomial, not `torch.erfinv`.
 
 All uint32 arithmetic runs in int64 masked to 32 bits: torch has no
 shifts or adds on uint32 tensors on the CPU.  Everything stays on the
@@ -104,14 +105,76 @@ def randint(k: torch.Tensor, shape: Sequence[int], minval: int,
     return (offset + minval).to(torch.int32)
 
 
-def uniform(k: torch.Tensor, shape: Sequence[int]) -> torch.Tensor:
-    """`jax.random.uniform` on [0, 1) in float32: the top 23 bits become
-    the mantissa of a float in [1, 2), minus one.  (Other ranges are not
-    ported: XLA fuses jax's scale-and-shift into one rounding, which two
-    torch ops do not reproduce.)"""
-    bits = random_bits(k, shape)
+def uniform(k: torch.Tensor, shape: Sequence[int], minval: float = 0.0,
+            maxval: float = 1.0) -> torch.Tensor:
+    """`jax.random.uniform` on [minval, maxval) in float32: the top 23
+    bits become the mantissa of a float in [1, 2), minus one, then
+    ``max(minval, f * (maxval - minval) + minval)`` with the bounds in
+    float32.  XLA contracts the scale and the shift into one fused
+    multiply-add (one rounding), which float64 reproduces: the product
+    of two float32 values is exact there."""
+    return bits_to_uniform(random_bits(k, shape), minval, maxval)
+
+
+def bits_to_uniform(bits: torch.Tensor, minval: float = 0.0,
+                    maxval: float = 1.0) -> torch.Tensor:
+    """`uniform`'s map from 32 random bits (uint32 values in int64) to
+    a float32 in [minval, maxval); only the top 23 bits are read."""
     floats = ((bits >> 9) | 0x3F800000).to(torch.int32).view(torch.float32)
-    return floats - 1.0
+    floats = floats - 1.0
+    lo = torch.tensor(minval, dtype=torch.float32, device=bits.device)
+    hi = torch.tensor(maxval, dtype=torch.float32, device=bits.device)
+    scaled = floats.double() * (hi - lo).double() + lo.double()
+    return torch.maximum(lo, scaled.float())
+
+
+# `normal`'s uniform draws lie in [nextafter(-1, 0), 1).
+NORMAL_LOW = -1.0 + 2.0 ** -24
+
+# XLA's single-precision erf_inv (Giles' polynomial in w = -log1p(-x^2),
+# one coefficient set for w < 5 and one for the tail).
+_ERF_INV_SMALL = (2.81022636e-08, 3.43273939e-07, -3.5233877e-06,
+                  -4.39150654e-06, 0.00021858087, -0.00125372503,
+                  -0.00417768164, 0.246640727, 1.50140941)
+_ERF_INV_TAIL = (-0.000200214257, 0.000100950558, 0.00134934322,
+                 -0.00367342844, 0.00573950773, -0.0076224613,
+                 0.00943887047, 1.00167406, 2.83297682)
+
+
+def erf_inv(x: torch.Tensor) -> torch.Tensor:
+    """XLA's float32 `erf_inv`, step for step, each Horner step a fused
+    multiply-add as XLA contracts it (float64 product and sum, one
+    rounding to float32).  Its `log1p` and `sqrt` are taken in float64
+    and rounded once, so the CPU and the card give the same bits; they
+    round some inputs differently from XLA:CPU's own approximations, and
+    `tests/test_torch_prng.py` states the largest distance that leaves
+    in `normal`."""
+    w = -torch.log1p((x * -x).double()).float()
+    small = w < 5.0
+    w = torch.where(small, w - 2.5,
+                    torch.sqrt(w.double()).float() - 3.0).double()
+
+    def coefficient(i: int) -> torch.Tensor:
+        return torch.where(small, _ERF_INV_SMALL[i], _ERF_INV_TAIL[i])
+
+    p = coefficient(0)
+    for i in range(1, len(_ERF_INV_SMALL)):
+        p = (coefficient(i).double() + p.double() * w).float()
+    return torch.where(x.abs() == 1.0, x * torch.finfo(torch.float32).max,
+                       p * x)
+
+
+def normal(k: torch.Tensor, shape: Sequence[int]) -> torch.Tensor:
+    """`jax.random.normal` in float32: ``sqrt(2) * erf_inv(u)`` with `u`
+    uniform on ``[nextafter(-1, 0), 1)``."""
+    return bits_to_normal(random_bits(k, shape))
+
+
+def bits_to_normal(bits: torch.Tensor) -> torch.Tensor:
+    """`normal`'s map from 32 random bits to a float32."""
+    u = bits_to_uniform(bits, NORMAL_LOW, 1.0)
+    return torch.tensor(math.sqrt(2), dtype=torch.float32,
+                        device=bits.device) * erf_inv(u)
 
 
 def bernoulli(k: torch.Tensor, p: float,

@@ -10,11 +10,14 @@ without them:
 Tolerance 0: records and `changed` compared bit for bit.
 """
 
+import dataclasses
+
 import numpy as np
 import pytest
 import torch
 
-from go_avalanche_tpu_torch.config import AdversaryStrategy, AvalancheConfig
+from go_avalanche_tpu_torch.config import (AdversaryStrategy, AvalancheConfig,
+                                           VoteMode)
 from go_avalanche_tpu_torch.models import avalanche as av
 from go_avalanche_tpu_torch.models import dag
 from go_avalanche_tpu_torch import prng
@@ -215,14 +218,18 @@ def test_ingest_kernel_takes_its_fast_path_where_it_can(kernel, n, t, offset,
                                                         fast, cuda):
     """T % 16 == 0 with 16-byte aligned planes and the round's stride-0
     consider pack takes `<kernel>_kernel<K, ...>`; anything else the
-    general `<kernel>_kernel_any`."""
+    general `<kernel>_kernel_any`.  The wrapper's per-path count names
+    the path the profiler saw."""
     cfg = AvalancheConfig(k=3, window=3, quorum=2)
     args = _ingest_inputs(np.random.default_rng(n * t), n, t, cfg, cuda,
                           "stride0", True, offset)
+    before = dict(pv.path_launches[kernel])
     symbols = _ingest_symbols(kernel, *args[:3], cfg, args[3])
     assert len(symbols) == 1, symbols
     assert (f"{kernel}_kernel_any" in symbols[0]) != fast, symbols
     assert (f"{kernel}_kernel<3" in symbols[0]) == fast, symbols
+    path = "fast" if fast else "any"
+    assert pv.path_launches[kernel] == {**before, path: before[path] + 1}
 
 
 @pytest.mark.cuda
@@ -254,3 +261,108 @@ def test_dag_round_on_both_kernels_matches_plain_round(cuda):
                         (*ref.base.records, ref.base.finalized_at,
                          ref.base.alive, ref.base.key)):
             assert torch.equal(g.cpu(), w)
+
+
+def _assert_leaves_equal(got, want):
+    for g, w in zip(got, want):
+        if isinstance(w, tuple):
+            _assert_leaves_equal(g, w)
+        else:
+            assert torch.equal(g.cpu(), w.cpu())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("knobs", [
+    dict(), dict(byzantine_fraction=0.2, adversary_strategy=(
+        AdversaryStrategy.EQUIVOCATE), drop_probability=0.1),
+    dict(vote_mode=VoteMode.MAJORITY, churn_probability=0.005, window=3,
+         quorum=2, finalization_score=4)])
+def test_snowball_on_both_kernels_matches_plain_engine(knobs, cuda):
+    """Snowball through ingest kernel 1, kernel 2 (their general path at
+    T = 1) and the CPU's plain engines: leaf-equal trajectories."""
+    from go_avalanche_tpu_torch.models import snowball
+
+    runs = {}
+    for engine, device in (("u8", cuda), ("swar32", cuda),
+                           ("u8", torch.device("cpu"))):
+        cfg = AvalancheConfig(**{"ingest_engine": engine,
+                                 "finalization_score": 16, **knobs})
+        state = snowball.init(prng.key(5, device), 1000, cfg,
+                              yes_fraction=0.7, device=device)
+        counts = dict(pv.launches)
+        runs[(engine, device.type)] = snowball.run_scan(state, cfg, 60,
+                                                        device=device)
+        sequential = cfg.vote_mode is VoteMode.SEQUENTIAL
+        if device.type == "cuda":
+            name = "vote_swar" if engine == "swar32" else "vote_u8"
+            assert pv.launches[name] == counts[name] + 60 * sequential
+    ref_final, ref_tel = runs[("u8", "cpu")]
+    assert int(ref_tel.finalizations.sum()) > 0
+    for final, tel in runs.values():
+        _assert_leaves_equal(tel, ref_tel)
+        _assert_leaves_equal(final, ref_final)
+
+
+@pytest.mark.cuda
+def test_family_on_cuda_matches_cpu(cuda):
+    from go_avalanche_tpu_torch.models import family
+
+    cfg = AvalancheConfig(finalization_score=8, byzantine_fraction=0.1,
+                          drop_probability=0.1)
+    out = {}
+    for device in (cuda, torch.device("cpu")):
+        slush = family.slush_run(family.slush_init(prng.key(1, device), 512,
+                                                   cfg, device=device),
+                                 cfg, 40, device=device)
+        flake = family.snowflake_run(family.snowflake_init(
+            prng.key(2, device), 256, cfg, device=device), cfg, 500,
+            device=device)
+        out[device.type] = (slush, flake)
+    _assert_leaves_equal(out["cuda"], out["cpu"])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n", [100, 4099, 100_000])
+def test_weighted_draws_on_cuda_match_cpu(n, cuda):
+    """The inverse-CDF samplers and the float paths under them (the CDF,
+    `normal`, the zipf stake) give the CPU's bits on the card."""
+    from go_avalanche_tpu_torch import stake
+    from go_avalanche_tpu_torch.ops import sampling
+
+    w = torch.exp(prng.normal(prng.key(42, "cpu"), (n,)) * 0.5)
+    w[::7] = 0.0
+    assert torch.equal(prng.normal(prng.key(42, cuda), (n,)).cpu(),
+                       prng.normal(prng.key(42, "cpu"), (n,)))
+    assert torch.equal(sampling.cumsum_f32(w.to(cuda)).cpu(),
+                       sampling.cumsum_f32(w))
+    zipf = AvalancheConfig(stake_mode="zipf", stake_zipf_s=1.3)
+    assert torch.equal(stake.node_stake(zipf, n, cuda).cpu(),
+                       stake.node_stake(zipf, n))
+    for seed in (0, 1, 7):
+        kc, kh = prng.key(seed, cuda), prng.key(seed, "cpu")
+        draws = (
+            lambda k, x: sampling.sample_peers_weighted(k, x, n, 8),
+            lambda k, x: sampling.sample_peers_hierarchical(k, x, n, 8, 7),
+            lambda k, x: sampling.sample_peers_clustered(k, x, min(n, 4099),
+                                                         8, 5, 0.8),
+            lambda k, x: sampling.sample_peers_distinct(k, n, 8)
+        )
+        for draw in draws:
+            assert torch.equal(draw(kc, w.to(cuda)).cpu(), draw(kh, w))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("engine", ["u8", "swar32", "megakernel"])
+def test_config4_quick_on_cuda_matches_cpu(engine, cuda):
+    from go_avalanche_tpu_torch import workload
+
+    finals = []
+    for device in (cuda, torch.device("cpu")):
+        state, cfg = workload.config4_state(quick=True, device=device)
+        if engine == "megakernel":
+            cfg = dataclasses.replace(cfg, round_engine="megakernel")
+        else:
+            cfg = dataclasses.replace(cfg, ingest_engine=engine)
+        finals.append(av.run(state, cfg, device=device))
+    assert int(finals[1].round) == 17
+    _assert_leaves_equal(finals[0], finals[1])

@@ -26,8 +26,11 @@ MODULES = ["go_avalanche_tpu_torch", "go_avalanche_tpu_torch.config",
            "go_avalanche_tpu_torch.ops.megakernel",
            "go_avalanche_tpu_torch.ops.swar",
            "go_avalanche_tpu_torch.ops.pallas_vote",
+           "go_avalanche_tpu_torch.stake",
            "go_avalanche_tpu_torch.models.avalanche",
            "go_avalanche_tpu_torch.models.dag",
+           "go_avalanche_tpu_torch.models.snowball",
+           "go_avalanche_tpu_torch.models.family",
            "go_avalanche_tpu_torch.workload",
            "go_avalanche_tpu_torch.round_profile"]
 
@@ -109,3 +112,23 @@ def test_round_profile_fails_without_cuda():
         capture_output=True, text=True, timeout=120)
     assert proc.returncode != 0
     assert proc.stdout == ""
+
+
+def test_single_decree_entry_points_default_to_cuda():
+    if torch.cuda.is_available():
+        pytest.skip("this machine has a GPU: the default device works")
+    from go_avalanche_tpu_torch import prng
+    from go_avalanche_tpu_torch.models import family, snowball
+
+    key = prng.key(0, device="cpu")
+    for init in (snowball.init, family.slush_init, family.snowflake_init):
+        with pytest.raises(RuntimeError, match="cuda"):
+            init(key, 8)
+    state = snowball.init(key, 8, device="cpu")
+    for run in (snowball.run, snowball.run_scan):
+        with pytest.raises(RuntimeError, match="cuda"):
+            run(state)
+    with pytest.raises(RuntimeError, match="cuda"):
+        family.slush_run(family.slush_init(key, 8, device="cpu"))
+    with pytest.raises(RuntimeError, match="cuda"):
+        family.snowflake_run(family.snowflake_init(key, 8, device="cpu"))

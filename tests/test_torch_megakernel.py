@@ -187,9 +187,9 @@ def test_config_rejections_match_jax(kwargs, match):
 
 
 @pytest.mark.parametrize("kwargs", [
-    dict(inflight_engine="coalesced"), dict(stake_mode="zipf"),
-    dict(n_clusters=2), dict(weighted_sampling=True),
-    dict(sample_with_replacement=False), dict(latency_mode="fixed"),
+    dict(inflight_engine="coalesced"), dict(stream_retire_cap=8),
+    dict(strict_validation=True), dict(fused_sharded_gossip=True),
+    dict(active_nodes=8), dict(latency_mode="fixed"),
     dict(metrics_every=1), dict(trace_every=1), dict(arrival_mode="poisson"),
     dict(registry_nodes=8), dict(fault_script=(("churn_burst", 1, 0.1),)),
     dict(byzantine_fraction=0.2, adversary_policy="split_vote"),
