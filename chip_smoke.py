@@ -2,6 +2,7 @@
 """On-card smoke run of the PyTorch port (go_avalanche_tpu_torch).
 
     python3 chip_smoke.py
+    python3 chip_smoke.py --config6-full-depth   # config 6 whole, one engine
 
 Needs one NVIDIA GPU (Hopper, sm_90a) with nvcc; exits non-zero, before
 printing any result, where `torch.cuda.is_available()` is false or the
@@ -35,7 +36,27 @@ package is missing.  Phases, each printing JSON lines:
                reference's recorded one, ms per round, launches per
                kernel and per path the C entries chose, and peak
                memory; then each ingest kernel alone at Snowball's
-               [1000, 1].
+               [1000, 1];
+  8. streaming — BASELINE config 5 whole (`backlog.run`, 1024 nodes x
+               4096 slots, 1,000,000 txs) and config 6 at full width
+               and cut depth (`streaming_dag.run_chunked`, 100000 nodes
+               x a 1024-set window of 2-tx sets, 51,200 sets), both on
+               phased-u8 and phased-swar32 against the reference's
+               recorded rounds and outcomes; the sparse retire cap at
+               the window size against the dense run; live traffic
+               (poisson arrivals with backpressure through
+               `backlog.step`) with its arrivals held against a CPU
+               replay of `traffic.arrive`; the node-stream registry
+               (1,000,000 nodes, 16384 active, `node_stream.run_scan`)
+               on all three engines with its churn held against a CPU
+               replay of `churn_swaps`.  Each part prints ms per
+               round, peak memory, launches per kernel and path, and
+               host reads.
+
+With ``--config6-full-depth`` it builds the kernels and runs only BASELINE
+config 6 at full width and full depth (500,000 sets, ~8313 rounds,
+`streaming_dag.run_chunked` on phased-u8) against the reference's
+recorded result, printing progress to stderr.
 
 The second-to-last line is the kernels summary, the last line
 ``{"ok": true, "device": {...}}``.  Any failure raises and exits
@@ -789,6 +810,365 @@ def time_ingest(name: str, n: int, t: int, device="cuda") -> dict:
             "bound_ms": bound_ms, "bound_by": bound_by}
 
 
+# Phase 8's shapes.  Config 6 runs at full width (100000 nodes, a 1024-set
+# window of 2-tx sets) with its backlog cut from 500,000 sets to 51,200
+# (50 waves of the window; the whole backlog would take ~8313 rounds, about
+# ten minutes per engine); every wave settles in ceil(134 / k) = 17 rounds,
+# so the cut run's gate is 50 * 17 = 850 rounds.  The retire-cap check runs
+# 3 waves.
+STREAM_SHAPES = {
+    "full": dict(config6_sets=51_200, cap_sets=3072, traffic_txs=65_536,
+                 traffic_rate=200.0, node_txs=4096, registry=1_000_000,
+                 active=16_384, node_rounds=40),
+    "quick": dict(config6_sets=320, cap_sets=96, traffic_txs=4096,
+                  traffic_rate=12.5, node_txs=256, registry=4096,
+                  active=64, node_rounds=12),
+}
+WAVE_ROUNDS = 17
+STREAM_MAX_ROUNDS = 200_000
+
+
+def assert_trees_equal(a, b, where: str) -> None:
+    """Every tensor leaf of two (nested) NamedTuple states equal."""
+    import torch
+
+    if a is None or b is None or not isinstance(a, tuple):
+        if isinstance(a, torch.Tensor):
+            if not torch.equal(a, b):
+                raise AssertionError(f"{where} differs")
+        elif a != b:
+            raise AssertionError(f"{where} differs: {a} != {b}")
+        return
+    for field, x, y in zip(getattr(a, "_fields", range(len(a))), a, b):
+        assert_trees_equal(x, y, f"{where}.{field}")
+
+
+class StreamPart:
+    """One part of phase 8: launch counts, host reads and peak memory
+    from its start, and the rounds each engine ran."""
+
+    def __init__(self, name: str, txs: int):
+        import torch
+
+        from go_avalanche_tpu_torch import sync
+
+        self.name, self.txs = name, txs
+        self.rounds = {}
+        self.ms_per_round = {}
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        reset_launches()
+        sync.reads = 0
+
+    def run(self, engine: str, fn, *args, **kwargs):
+        """Run `fn` timed by CUDA events; `fn` returns (out, rounds)."""
+        (out, rounds), ms = timed_run(fn, *args, **kwargs)
+        self.rounds[engine] = rounds
+        self.ms_per_round[engine] = ms / max(rounds, 1)
+        return out
+
+    def close(self, expect: dict, totals: dict) -> dict:
+        """Check the launches against the rounds each kernel's engine
+        ran (`expect`: kernel -> rounds) and add them to `totals`."""
+        import torch
+
+        from go_avalanche_tpu_torch import sync
+
+        torch.cuda.synchronize()
+        launches, paths = read_launches(), read_path_launches()
+        want = {"vote_u8": 0, "vote_swar": 0, "megakernel": 0, **expect}
+        if launches != want:
+            raise AssertionError(f"{self.name}: launches {launches} != "
+                                 f"rounds per kernel {want}")
+        path = ingest_path(self.txs)
+        want_paths = {k: {"fast": 0, "any": 0, path: want[k]}
+                      for k in ("vote_u8", "vote_swar")}
+        if paths != want_paths:
+            raise AssertionError(f"{self.name}: launches by path {paths} "
+                                 f"!= {want_paths}")
+        for kernel, n in launches.items():
+            totals["launches"][kernel] += n
+        for kernel, by in paths.items():
+            for key, n in by.items():
+                totals["by_path"][kernel][key] += n
+        return {"part": self.name, "rounds_per_engine": self.rounds,
+                "ms_per_round": self.ms_per_round, "launches": launches,
+                "launches_by_ingest_path": paths, "ingest_path": path,
+                "host_reads": sync.reads,
+                "peak_mem_gib": torch.cuda.max_memory_allocated() / 2**30}
+
+
+def run_streaming(quick: bool = False, device="cuda") -> dict:
+    """Phase 8: the streaming schedulers, the traffic plane and the node
+    registry through their entry points on the card (module docstring);
+    each part raises on any gate it misses."""
+    import torch
+
+    from go_avalanche_tpu_torch import prng, sync
+    from go_avalanche_tpu_torch import traffic as tf
+    from go_avalanche_tpu_torch import workload
+    from go_avalanche_tpu_torch.config import AvalancheConfig
+    from go_avalanche_tpu_torch.models import backlog, node_stream
+    from go_avalanche_tpu_torch.models import streaming_dag as sdg
+
+    shape = STREAM_SHAPES["quick" if quick else "full"]
+    reference = workload.REFERENCE_QUICK if quick else workload.REFERENCE
+    totals = {"launches": {"vote_u8": 0, "vote_swar": 0, "megakernel": 0},
+              "by_path": {k: {"fast": 0, "any": 0}
+                          for k in ("vote_u8", "vote_swar")}}
+    engines = {"u8": "vote_u8", "swar32": "vote_swar"}
+    parts = []
+
+    def phased(cfg):
+        return {engine: dataclasses.replace(cfg, ingest_engine=engine)
+                for engine in engines}
+
+    # 1. config 5, whole
+    start, cfg = workload.config5_state(quick, device=device)
+    n5, b5, w5 = workload.config5_shape(quick)
+    part = StreamPart("config5", w5)
+    finals = {}
+    for engine, ecfg in phased(cfg).items():
+        finals[engine] = part.run(
+            engine, lambda s, c: (lambda f: (f, sync.read(f.sim.round)))(
+                backlog.run(s, c, max_rounds=STREAM_MAX_ROUNDS,
+                            device=device)), start, ecfg)
+    assert_trees_equal(finals["u8"], finals["swar32"], "config5 u8 vs swar32")
+    final = finals["u8"]
+    result = {"nodes": n5, "backlog_txs": b5, "window": w5,
+              "rounds": int(final.sim.round),
+              "txs_settled_fraction": float(
+                  final.outputs.settled.double().mean())}
+    check_result("config5", result, reference["config5"])
+    parts.append({**result, "reference": reference["config5"],
+                  **part.close({engines[e]: r
+                                for e, r in part.rounds.items()}, totals)})
+    del start, finals, final
+    torch.cuda.empty_cache()
+
+    # 2. config 6 at full width, cut in depth, by run_chunked
+    sets = shape["config6_sets"]
+    star = dict(workload.QUICK if quick else workload.NORTH_STAR)
+    star["backlog_sets"] = sets
+    start, cfg = workload.northstar_state(**star, device=device)
+    w6 = star["window_sets"] * star["set_cap"]
+    part = StreamPart("config6", w6)
+    finals = {}
+    for engine, ecfg in phased(cfg).items():
+        finals[engine] = part.run(
+            engine, lambda s, c: (lambda f: (f, sync.read(
+                f.dag.base.round)))(sdg.run_chunked(
+                    s, c, max_rounds=STREAM_MAX_ROUNDS, chunk=256,
+                    device=device)), start, ecfg)
+    assert_trees_equal(finals["u8"], finals["swar32"], "config6 u8 vs swar32")
+    summary = sdg.resolution_summary(finals["u8"])
+    waves = -(-sets // star["window_sets"])
+    want = {**reference["config6"], "rounds": waves * WAVE_ROUNDS}
+    result = {"nodes": star["nodes"], "window_sets": star["window_sets"],
+              "set_cap": star["set_cap"], "backlog_sets": sets,
+              "full_backlog_sets": (workload.QUICK if quick
+                                    else workload.NORTH_STAR)["backlog_sets"],
+              "depth_cut": f"backlog cut to {sets} sets ({waves} waves) to "
+                           f"fit the script's time limit; width unchanged",
+              "rounds": int(finals["u8"].dag.base.round), **summary}
+    check_result("config6", result, want)
+    parts.append({**result, "reference": want,
+                  **part.close({engines[e]: r
+                                for e, r in part.rounds.items()}, totals)})
+    del start, finals
+    torch.cuda.empty_cache()
+
+    # 2b. the sparse retire cap at the window size against the dense run
+    star["backlog_sets"] = shape["cap_sets"]
+    start, cfg = workload.northstar_state(**star, device=device)
+    part = StreamPart("config6_retire_cap", w6)
+    runs = {"dense": cfg,
+            "retire_cap": dataclasses.replace(
+                cfg, stream_retire_cap=star["window_sets"])}
+    finals = {}
+    for name, rcfg in runs.items():
+        finals[name] = part.run(
+            name, lambda s, c: (lambda f: (f, sync.read(
+                f.dag.base.round)))(sdg.run(
+                    s, c, max_rounds=STREAM_MAX_ROUNDS, device=device)),
+            start, rcfg)
+    assert_trees_equal(finals["dense"], finals["retire_cap"],
+                       "retire cap vs dense")
+    cap_rounds = -(-shape["cap_sets"] // star["window_sets"]) * WAVE_ROUNDS
+    if part.rounds["dense"] != cap_rounds:
+        raise AssertionError(f"retire-cap check: {part.rounds} rounds, "
+                             f"expected {cap_rounds}")
+    parts.append({"backlog_sets": shape["cap_sets"],
+                  "stream_retire_cap": star["window_sets"],
+                  **part.close({"vote_u8": sum(part.rounds.values())},
+                               totals)})
+    del start, finals
+    torch.cuda.empty_cache()
+
+    # 3. live traffic at config 5's width
+    tcfg = AvalancheConfig(gossip=False, max_element_poll=w5,
+                           arrival_mode="poisson",
+                           arrival_rate=shape["traffic_rate"],
+                           arrival_backpressure=(0.7, 0.95))
+    queue = backlog.make_backlog(prng.randint(
+        prng.key(1, device), (shape["traffic_txs"],), 0, 1 << 20))
+    start = backlog.init(prng.key(0, device), n5, w5, queue, tcfg,
+                         device=device)
+    part = StreamPart("traffic", w5)
+
+    def traffic_run(state, cfg):
+        rows = []
+        rounds = sync.read(state.sim.round)
+        while (rounds < STREAM_MAX_ROUNDS
+               and not sync.read(backlog.drained(state, cfg))):
+            state, tel = backlog.step(state, cfg)
+            rows.append(tel)
+            rounds += 1
+        final = backlog._retire_and_refill(state, cfg, refill=False)[0]
+        return (final, backlog.stack_tree(rows)), rounds
+
+    runs = {}
+    for engine, ecfg in phased(tcfg).items():
+        runs[engine] = part.run(engine, traffic_run, start, ecfg)
+    assert_trees_equal(runs["u8"], runs["swar32"], "traffic u8 vs swar32")
+    final, tel = runs["u8"]
+    out = final.outputs
+    if not bool(out.settled.all()):
+        raise AssertionError("traffic: not every tx settled")
+    ingraph = tf.latency_percentiles(final.traffic)
+    host = tf.latency_percentiles_host(
+        final.traffic.arrival_round.cpu().numpy(),
+        out.settle_round.cpu().numpy(),
+        out.settled.cpu().numpy().astype("int64"),
+        tcfg.arrival_latency_buckets)
+    if {k: ingraph[k] for k in host} != host:
+        raise AssertionError(f"traffic: in-graph percentiles {ingraph} != "
+                             f"the host's {host}")
+    # The arrivals again on the CPU, fed the card's occupancy series (a
+    # step's arrival draw reads the occupancy the previous step left).
+    arrivals = tel.traffic.arrivals.cpu().tolist()
+    occupied = [0] + tel.occupied.cpu().tolist()[:-1]
+    replay = tf.init_traffic(tcfg, prng.key(0, "cpu"), shape["traffic_txs"])
+    for r, (want_n, occ) in enumerate(zip(arrivals, occupied)):
+        replay, got_n = tf.arrive(
+            replay, tcfg, torch.tensor(r, dtype=torch.int32),
+            torch.tensor(occ, dtype=torch.int32), w5)
+        if int(got_n) != want_n:
+            raise AssertionError(f"traffic: round {r} drew {want_n} "
+                                 f"arrivals on the card, {int(got_n)} in "
+                                 f"the CPU replay")
+    if not torch.equal(replay.arrival_round,
+                       final.traffic.arrival_round.cpu()):
+        raise AssertionError("traffic: arrival rounds differ from the "
+                             "CPU replay")
+    parts.append({"nodes": n5, "window": w5,
+                  "backlog_txs": shape["traffic_txs"],
+                  "arrival_rate": shape["traffic_rate"],
+                  "arrival_backpressure": [0.7, 0.95],
+                  "rounds": part.rounds["u8"], **ingraph,
+                  "arrivals_replayed_on_cpu": len(arrivals),
+                  **part.close({engines[e]: r
+                                for e, r in part.rounds.items()}, totals)})
+    del start, runs, final, tel
+    torch.cuda.empty_cache()
+
+    # 4. the node-stream registry on all three engines
+    ncfg = AvalancheConfig(stake_mode="zipf", stake_zipf_s=1.0,
+                           registry_nodes=shape["registry"],
+                           active_nodes=shape["active"],
+                           node_churn_rate=1e-3,
+                           max_element_poll=max(4096, shape["node_txs"]))
+    start = node_stream.init(prng.key(0, device), shape["node_txs"], ncfg,
+                             device=device)
+    part = StreamPart("node_stream", shape["node_txs"])
+    n_rounds = shape["node_rounds"]
+    runs = {}
+    for engine, ecfg in {**phased(ncfg), "megakernel": dataclasses.replace(
+            ncfg, round_engine="megakernel")}.items():
+        runs[engine] = part.run(
+            engine, lambda s, c: (node_stream.run_scan(
+                s, c, n_rounds=n_rounds, device=device), n_rounds),
+            start, ecfg)
+    for engine in ("swar32", "megakernel"):
+        assert_trees_equal(runs["u8"], runs[engine], f"node stream u8 vs "
+                                                     f"{engine}")
+    final, tel = runs["u8"]
+    departed = int(tel.departed.sum())
+    slot = final.slot_node
+    if (int(torch.unique(slot).numel()) != shape["active"]
+            or int(final.resident.sum()) != shape["active"]
+            or not bool(final.resident[slot.long()].all())):
+        raise AssertionError("node stream: the window is not full")
+    if not int(final.churned_in) == int(final.churned_out) == departed:
+        raise AssertionError("node stream: churn counters disagree")
+    # The churn draws again on the CPU from the card's initial registry
+    # planes: they read no consensus state.
+    replay = node_stream.move_tree(start._replace(sim=None),
+                                   torch.device("cpu"))
+    for r in range(n_rounds):
+        swap, new_slot, resident, n_swapped, key = (
+            node_stream.churn_swaps(replay, ncfg))
+        if int(n_swapped) != int(tel.departed[r]):
+            raise AssertionError(f"node stream: round {r} swapped "
+                                 f"{int(tel.departed[r])} rows on the card,"
+                                 f" {int(n_swapped)} in the CPU replay")
+        replay = replay._replace(slot_node=new_slot, resident=resident,
+                                 churn_key=key)
+    for field in ("slot_node", "resident", "churn_key"):
+        if not torch.equal(getattr(replay, field),
+                           getattr(final, field).cpu()):
+            raise AssertionError(f"node stream: {field} differs from the "
+                                 f"CPU replay")
+    parts.append({"registry_nodes": shape["registry"],
+                  "active_nodes": shape["active"], "txs": shape["node_txs"],
+                  "rounds": n_rounds, "departed": departed,
+                  **node_stream.window_summary(final, ncfg),
+                  **part.close({"vote_u8": n_rounds, "vote_swar": n_rounds,
+                                "megakernel": n_rounds}, totals)})
+    return {"parts": parts, "launches": totals["launches"],
+            "launches_by_ingest_path": totals["by_path"]}
+
+
+def run_config6_full_depth(device="cuda") -> dict:
+    """BASELINE config 6 whole: 100000 nodes x 500,000 2-tx sets through
+    a 1024-set window by `run_chunked` on phased-u8, gated on the
+    reference's recorded result; launches and host reads counted."""
+    import torch
+
+    from go_avalanche_tpu_torch import sync, workload
+    from go_avalanche_tpu_torch.models import streaming_dag as sdg
+
+    start, cfg = workload.northstar_state(**workload.NORTH_STAR,
+                                          device=device)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_launches()
+    sync.reads = 0
+    t0 = time.perf_counter()
+
+    def progress(rounds, state):
+        print(f"config6: round {rounds}, {int(state.next_idx)} sets "
+              f"admitted, {time.perf_counter() - t0:.0f} s", file=sys.stderr,
+              flush=True)
+
+    final, ms = timed_run(sdg.run_chunked, start, cfg,
+                          max_rounds=STREAM_MAX_ROUNDS, chunk=256,
+                          progress=progress, device=device)
+    rounds = int(final.dag.base.round)
+    result = {"rounds": rounds, **sdg.resolution_summary(final)}
+    check_result("config6_full_depth", result, workload.REFERENCE["config6"])
+    launches = read_launches()
+    if launches != {"megakernel": 0, "vote_u8": rounds, "vote_swar": 0}:
+        raise AssertionError(f"config6 launches {launches} != {rounds} "
+                             f"rounds on vote_u8")
+    return {**result, "reference": workload.REFERENCE["config6"],
+            **workload.NORTH_STAR, "engine": "u8", "ms_per_round": ms / rounds,
+            "wall_s": ms / 1e3, "launches": launches,
+            "launches_by_ingest_path": read_path_launches(),
+            "host_reads": sync.reads,
+            "peak_mem_gib": torch.cuda.max_memory_allocated() / 2**30}
+
+
 KERNEL_ROWS = {          # name -> (source, the TPU kernel it replaces)
     "megakernel": ("go_avalanche_tpu_torch/csrc/megakernel.cu",
                    "go_avalanche_tpu/ops/megakernel.py:95"),
@@ -833,6 +1213,14 @@ def main() -> int:
                         if "registers" in ln or "spill" in ln]})
     emit({"phase": "build", "wall_seconds": time.perf_counter() - t0})
 
+    if "--config6-full-depth" in sys.argv[1:]:
+        emit({"phase": "config6_full_depth", **run_config6_full_depth(),
+              **label})
+        emit({"ok": True, "device": {"platform": "gpu",
+                                     "kind": torch.cuda.get_device_name(0),
+                                     "count": torch.cuda.device_count()}})
+        return 0
+
     # 3. kernels against their plain versions, the ingest kernels also at
     # the DAG path's shape (the flagship's is checked in phase 6)
     worst = {"megakernel": check_kernel_cases(),
@@ -872,6 +1260,15 @@ def main() -> int:
         worst[name] = max(worst[name], row["max_abs_err"])
         emit({"phase": "timing", "kernel": name, "nodes": 1000, "txs": 1,
               **row, **label})
+    torch.cuda.empty_cache()
+
+    # 8. the streaming schedulers, traffic and the node registry
+    streaming = run_streaming()
+    for row in streaming["parts"]:
+        emit({"phase": "streaming", **row, **label})
+    emit({"phase": "streaming", "launches": streaming["launches"],
+          "launches_by_ingest_path": streaming["launches_by_ingest_path"],
+          **label})
 
     emit({"kernels": [{
         "name": name,

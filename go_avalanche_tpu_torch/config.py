@@ -120,6 +120,12 @@ class AvalancheConfig:
     churn_probability: float = 0.0
     skip_absent_votes: bool = False
 
+    def arrivals_enabled(self) -> bool:
+        """True when the live-traffic arrival plane (`traffic.py`) is on:
+        the streaming schedulers carry a `TrafficState` and admission is
+        gated on arrived work."""
+        return self.arrival_mode != "off"
+
     def async_queries(self) -> bool:
         """True when the reference would turn its in-flight query engine
         on: a latency distribution, or any fault event other than a churn
@@ -167,6 +173,9 @@ class AvalancheConfig:
             raise ValueError(
                 f"ingest_engine must be 'u8' or 'swar32', "
                 f"got {self.ingest_engine!r}")
+        if self.stream_retire_cap is not None and self.stream_retire_cap < 1:
+            raise ValueError("stream_retire_cap must be >= 1 (None "
+                             "disables the cap)")
         if self.inflight_engine not in ("walk", "walk_earlyout",
                                         "coalesced"):
             raise ValueError(
@@ -177,14 +186,131 @@ class AvalancheConfig:
             raise ValueError(
                 f"latency_mode must be 'none', 'fixed', 'geometric', "
                 f"'weighted' or 'rtt', got {self.latency_mode!r}")
+        self._validate_arrival()
         self._validate_stake()
         self._validate_adversary()
         self._validate_round_engine()
         self._reject_unported()
 
+    def _validate_arrival(self) -> None:
+        """The reference's rules for the live-traffic knobs: inert or
+        out-of-range arrival configs are rejected at construction."""
+        modes = ("off", "poisson", "bursty", "diurnal", "external")
+        if self.arrival_mode not in modes:
+            raise ValueError(
+                f"arrival_mode must be one of {', '.join(modes)}, got "
+                f"{self.arrival_mode!r}")
+        if self.arrival_mode == "off":
+            if self.arrival_rate != 0.0:
+                raise ValueError(
+                    f"arrival_rate is only read when arrival_mode is on, "
+                    f"got rate {self.arrival_rate!r} with mode 'off' — a "
+                    f"silently ignored rate would mislabel the run")
+            if self.arrival_backpressure is not None:
+                raise ValueError(
+                    "arrival_backpressure is only read when arrival_mode "
+                    "is on (occupancy throttles the arrival draw); with "
+                    "mode 'off' it would be silently ignored")
+            if self.arrival_cluster_weights is not None:
+                raise ValueError(
+                    "arrival_cluster_weights is only read when "
+                    "arrival_mode is on (it scales the in-graph arrival "
+                    "draw per region); with mode 'off' it would be "
+                    "silently ignored")
+            return
+        if self.arrival_mode == "external":
+            if self.arrival_rate != 0.0:
+                raise ValueError(
+                    f"arrival_mode 'external' draws nothing in-graph "
+                    f"(arrivals are pushed via traffic.push_arrivals); "
+                    f"got arrival_rate {self.arrival_rate!r} — use a "
+                    f"schedule mode for in-graph offered load")
+            if self.arrival_backpressure is not None:
+                raise ValueError(
+                    "arrival_backpressure throttles the in-graph "
+                    "arrival DRAW, which arrival_mode 'external' never "
+                    "performs (pushed arrivals are admitted as-is) — "
+                    "a silently inert backpressure band would mislabel "
+                    "the run as closed-loop")
+        elif not (self.arrival_rate > 0.0):
+            raise ValueError(
+                f"arrival_mode {self.arrival_mode!r} needs "
+                f"arrival_rate > 0 (mean admission units per round), "
+                f"got {self.arrival_rate!r}")
+        if self.arrival_mode in ("bursty", "diurnal"):
+            if self.arrival_period < 2:
+                raise ValueError(
+                    f"arrival_mode {self.arrival_mode!r} needs "
+                    f"arrival_period >= 2 rounds (the modulation cycle), "
+                    f"got {self.arrival_period}")
+        if self.arrival_mode == "bursty":
+            if not (self.arrival_burst_factor > 1.0):
+                raise ValueError(
+                    f"bursty arrivals need arrival_burst_factor > 1 "
+                    f"(otherwise the schedule is plain poisson), got "
+                    f"{self.arrival_burst_factor!r}")
+            if not (0.0 < self.arrival_duty < 1.0):
+                raise ValueError(
+                    f"arrival_duty must be in (0, 1) (the burst fraction "
+                    f"of each cycle), got {self.arrival_duty!r}")
+        if self.arrival_mode == "diurnal" and not (
+                0.0 <= self.arrival_depth <= 1.0):
+            raise ValueError(
+                f"arrival_depth must be in [0, 1] (sinusoid modulation "
+                f"depth), got {self.arrival_depth!r}")
+        if self.arrival_backpressure is not None:
+            bp = tuple(self.arrival_backpressure)
+            object.__setattr__(self, "arrival_backpressure", bp)
+            if len(bp) != 2:
+                raise ValueError(
+                    f"arrival_backpressure is (lo, hi) occupancy "
+                    f"fractions, got {bp!r}")
+            lo, hi = bp
+            for v in bp:
+                if isinstance(v, bool) or not isinstance(v, (int, float)):
+                    raise ValueError(
+                        f"arrival_backpressure bounds must be numbers, "
+                        f"got {bp!r}")
+            if not (0.0 <= lo < hi <= 1.0):
+                raise ValueError(
+                    f"arrival_backpressure needs 0 <= lo < hi <= 1 "
+                    f"(full rate below lo, fully throttled above hi), "
+                    f"got {bp!r}")
+        if self.arrival_cluster_weights is not None:
+            if self.arrival_mode == "external":
+                raise ValueError(
+                    "arrival_cluster_weights scales the in-graph arrival "
+                    "DRAW, which arrival_mode 'external' never performs "
+                    "(pushed arrivals are admitted as-is) — a silently "
+                    "inert skew would mislabel the run as hot-region "
+                    "traffic")
+            if self.n_clusters < 2:
+                raise ValueError(
+                    "arrival_cluster_weights needs a clustered topology "
+                    "(n_clusters > 1): the per-region admission blocks "
+                    "derive from the same cluster partition as the node "
+                    "clusters — with one cluster the skew is inert")
+            wts = tuple(self.arrival_cluster_weights)
+            object.__setattr__(self, "arrival_cluster_weights", wts)
+            if len(wts) != self.n_clusters:
+                raise ValueError(
+                    f"arrival_cluster_weights is one rate multiplier per "
+                    f"cluster (n_clusters = {self.n_clusters}), got "
+                    f"{len(wts)} entries")
+            for i, w in enumerate(wts):
+                if isinstance(w, bool) or not isinstance(w, (int, float)) \
+                        or not (w > 0.0) or not math.isfinite(w):
+                    raise ValueError(
+                        f"arrival_cluster_weights[{i}] must be a "
+                        f"positive finite rate multiplier, got {w!r}")
+        if self.arrival_latency_buckets < 2:
+            raise ValueError(
+                f"arrival_latency_buckets must be >= 2 (latencies clamp "
+                f"into [0, buckets)), got {self.arrival_latency_buckets}")
+
     def _validate_stake(self) -> None:
-        """The reference's rules for the stake knobs (its node-registry
-        rules stay with the unported registry)."""
+        """The reference's rules for the stake and node-registry
+        knobs."""
         modes = ("off", "uniform", "zipf", "explicit")
         if self.stake_mode not in modes:
             raise ValueError(
@@ -238,6 +364,46 @@ class AvalancheConfig:
                     "derive response latency, which would silently "
                     "couple delay to stake — use fixed/geometric/rtt "
                     "latency with stake")
+        # --- node registry (models/node_stream.py) ---
+        if (self.registry_nodes > 0) != (self.active_nodes > 0):
+            raise ValueError(
+                f"registry_nodes and active_nodes come together (the "
+                f"node-stream scheduler streams active_nodes resident "
+                f"rows out of a registry_nodes population), got "
+                f"registry_nodes={self.registry_nodes}, "
+                f"active_nodes={self.active_nodes}")
+        if self.registry_nodes < 0 or self.active_nodes < 0:
+            raise ValueError("registry_nodes/active_nodes must be >= 0 "
+                             "(0 disables the node registry)")
+        if self.registry_nodes > 0:
+            if self.stake_mode == "off":
+                raise ValueError(
+                    "the node registry draws its working set "
+                    "STAKE-proportionally — registry_nodes > 0 needs a "
+                    "stake_mode ('uniform' for uniform residency)")
+            if not (self.active_nodes < self.registry_nodes):
+                raise ValueError(
+                    f"active_nodes ({self.active_nodes}) must be "
+                    f"smaller than registry_nodes "
+                    f"({self.registry_nodes}): churn rotates the window "
+                    f"through a non-resident pool, which an "
+                    f"active == registry config leaves empty")
+            if (self.stake_mode == "explicit"
+                    and len(self.stake_weights) != self.registry_nodes):
+                raise ValueError(
+                    f"with the node registry on, stake_weights is the "
+                    f"REGISTRY's stake vector: expected "
+                    f"{self.registry_nodes} entries, got "
+                    f"{len(self.stake_weights)}")
+        if not (0.0 <= self.node_churn_rate <= 1.0):
+            raise ValueError(
+                f"node_churn_rate must be in [0, 1], got "
+                f"{self.node_churn_rate!r}")
+        if self.node_churn_rate > 0.0 and self.registry_nodes == 0:
+            raise ValueError(
+                "node_churn_rate is only read by the node-stream "
+                "scheduler (registry_nodes > 0) — without the registry "
+                "the knob is inert and would mislabel the run")
 
     def _validate_adversary(self) -> None:
         """The reference's inert-knob rules for the adversary fields."""
@@ -334,19 +500,6 @@ _UNPORTED = {
     "inflight_engine": "item 10, async ring",
     "adversary_policy": "item 11, adaptive adversary",
     "adversary_margin": "item 11, adaptive adversary",
-    "stream_retire_cap": "item 12, streaming schedulers",
-    "arrival_mode": "item 12, traffic",
-    "arrival_rate": "item 12, traffic",
-    "arrival_period": "item 12, traffic",
-    "arrival_burst_factor": "item 12, traffic",
-    "arrival_duty": "item 12, traffic",
-    "arrival_depth": "item 12, traffic",
-    "arrival_backpressure": "item 12, traffic",
-    "arrival_cluster_weights": "item 12, traffic",
-    "arrival_latency_buckets": "item 12, traffic",
-    "registry_nodes": "item 12, node_stream registry",
-    "active_nodes": "item 12, node_stream registry",
-    "node_churn_rate": "item 12, node_stream registry",
     "metrics_every": "item 14, metrics tap",
     "trace_every": "item 14, trace plane",
     "fused_sharded_gossip": "item 15, sharded drivers",
@@ -355,5 +508,21 @@ _UNPORTED = {
 
 _FIELD_DEFAULTS = {f.name: f.default
                    for f in dataclasses.fields(AvalancheConfig)}
+
+
+def inner_round_config(cfg: AvalancheConfig) -> AvalancheConfig:
+    """The inner-round config a streaming scheduler passes to its wrapped
+    consensus round: both telemetry taps zeroed, so the scheduler writes
+    one record per round itself.  The taps are ROADMAP.md Queue 1 item
+    14 and the config rejects them, so this returns `cfg` itself on
+    every config the port accepts; it is kept so that the call sites
+    read as the reference's.  The reference's `suppress_taps`: its static
+    analysis (`go_avalanche_tpu/analysis/lint.py`, canonical-spelling)
+    reserves that name to its own module, which the port may not import,
+    so the copy takes this name."""
+    if cfg.metrics_every == 0 and cfg.trace_every == 0:
+        return cfg
+    return dataclasses.replace(cfg, metrics_every=0, trace_every=0)
+
 
 DEFAULT_CONFIG = AvalancheConfig()

@@ -12,7 +12,11 @@ state, the int32 `conflict_set` and the `n_sets` / `set_size` statics.
 `family_state_from_numpy` and `family_state_to_numpy` carry the
 single-decree states (`SnowballState`, `SlushState`, `SnowflakeState`);
 the reference's async ring, fault parameters and trace plane, None in
-the synchronous round, have no counterpart.  Nothing here imports JAX.
+the synchronous round, have no counterpart.  `backlog_state_*`,
+`streaming_dag_state_*` and `node_stream_state_*` carry the streaming
+schedulers' states: the window state, the slot maps, the backlog and
+outputs planes, the traffic plane (or None) and the registry planes.
+Nothing here imports JAX.
 """
 
 from __future__ import annotations
@@ -22,9 +26,11 @@ from typing import Any, Mapping
 import numpy as np
 import torch
 
-from go_avalanche_tpu_torch.models import dag, family, snowball
+from go_avalanche_tpu_torch import traffic as tf
+from go_avalanche_tpu_torch.models import (backlog, dag, family, node_stream,
+                                           snowball, streaming_dag)
 from go_avalanche_tpu_torch.models.avalanche import (AvalancheSimState,
-                                                     to_device)
+                                                     _device, to_device)
 from go_avalanche_tpu_torch.ops.voterecord import VoteRecordState
 
 _DTYPES = {
@@ -147,3 +153,120 @@ def family_state_to_numpy(state):
         else:
             leaves[name] = np_(x)
     return type(state)(**leaves)
+
+
+def _planes(cls, tree, dtypes: dict):
+    """A NamedTuple `cls` of CPU tensors from numpy leaves, by field."""
+    return cls(**{name: _tensor(_field(tree, name), dtypes[name])
+                  for name in cls._fields})
+
+
+def _np_tree(tree):
+    """Every tensor leaf of a (nested) NamedTuple as a numpy array."""
+    if isinstance(tree, torch.Tensor):
+        return tree.detach().cpu().numpy()
+    if isinstance(tree, tuple):
+        return type(tree)(*(_np_tree(x) for x in tree))
+    return tree
+
+
+_OUTPUT_DTYPES = {"settled": torch.bool, "accepted": torch.bool,
+                  "accept_votes": torch.int32, "settle_round": torch.int32,
+                  "admit_round": torch.int32}
+_BACKLOG_DTYPES = {"score": torch.int32, "init_pref": torch.bool,
+                   "valid": torch.bool}
+
+
+def _traffic_from_numpy(tree):
+    if tree is None:
+        return None
+    return tf.TrafficState(
+        key=_key_from_numpy(_field(tree, "key")),
+        arrived_idx=_tensor(_field(tree, "arrived_idx"), torch.int32),
+        arrival_round=_tensor(_field(tree, "arrival_round"), torch.int32),
+        lat_hist=_tensor(_field(tree, "lat_hist"), torch.int32))
+
+
+def _traffic_to_numpy(traffic):
+    if traffic is None:
+        return None
+    out = _np_tree(traffic)
+    return out._replace(key=out.key.astype(np.uint32))
+
+
+def _scheduler_leaves(tree) -> dict:
+    return {name: _tensor(_field(tree, name), torch.int32)
+            for name in ("slot_admit_round", "next_idx")}
+
+
+def backlog_state_from_numpy(tree: Any,
+                             device="cuda") -> backlog.BacklogSimState:
+    """The port's backlog-scheduler state on `device` from the reference
+    state's numpy leaves."""
+    state = backlog.BacklogSimState(
+        sim=state_from_numpy(_field(tree, "sim"), device="cpu"),
+        slot_tx=_tensor(_field(tree, "slot_tx"), torch.int32),
+        backlog=_planes(backlog.Backlog, _field(tree, "backlog"),
+                        _BACKLOG_DTYPES),
+        outputs=_planes(backlog.BacklogOutputs, _field(tree, "outputs"),
+                        _OUTPUT_DTYPES),
+        traffic=_traffic_from_numpy(_field(tree, "traffic")),
+        **_scheduler_leaves(tree))
+    return backlog.move_tree(state, _device(device))
+
+
+def backlog_state_to_numpy(state: backlog.BacklogSimState
+                           ) -> backlog.BacklogSimState:
+    """The backlog-scheduler state's leaves as numpy arrays in the
+    reference dtypes."""
+    return _np_tree(state)._replace(sim=state_to_numpy(state.sim),
+                                    traffic=_traffic_to_numpy(state.traffic))
+
+
+def streaming_dag_state_from_numpy(tree: Any, device="cuda"
+                                   ) -> streaming_dag.StreamingDagState:
+    """The port's streaming conflict-DAG state on `device` from the
+    reference state's numpy leaves."""
+    state = streaming_dag.StreamingDagState(
+        dag=dag_state_from_numpy(_field(tree, "dag"), device="cpu"),
+        slot_set=_tensor(_field(tree, "slot_set"), torch.int32),
+        backlog=_planes(streaming_dag.SetBacklog, _field(tree, "backlog"),
+                        _BACKLOG_DTYPES),
+        outputs=_planes(streaming_dag.SetOutputs, _field(tree, "outputs"),
+                        _OUTPUT_DTYPES),
+        traffic=_traffic_from_numpy(_field(tree, "traffic")),
+        **_scheduler_leaves(tree))
+    return backlog.move_tree(state, _device(device))
+
+
+def streaming_dag_state_to_numpy(state: streaming_dag.StreamingDagState
+                                 ) -> streaming_dag.StreamingDagState:
+    """The streaming conflict-DAG state's leaves as numpy arrays in the
+    reference dtypes."""
+    return _np_tree(state)._replace(dag=dag_state_to_numpy(state.dag),
+                                    traffic=_traffic_to_numpy(state.traffic))
+
+
+def node_stream_state_from_numpy(tree: Any, device="cuda"
+                                 ) -> node_stream.NodeStreamState:
+    """The port's node-stream state on `device` from the reference
+    state's numpy leaves."""
+    state = node_stream.NodeStreamState(
+        sim=state_from_numpy(_field(tree, "sim"), device="cpu"),
+        slot_node=_tensor(_field(tree, "slot_node"), torch.int32),
+        resident=_tensor(_field(tree, "resident"), torch.bool),
+        stake=_tensor(_field(tree, "stake"), torch.float32),
+        init_pref=_tensor(_field(tree, "init_pref"), torch.bool),
+        churn_key=_key_from_numpy(_field(tree, "churn_key")),
+        churned_in=_tensor(_field(tree, "churned_in"), torch.int32),
+        churned_out=_tensor(_field(tree, "churned_out"), torch.int32))
+    return backlog.move_tree(state, _device(device))
+
+
+def node_stream_state_to_numpy(state: node_stream.NodeStreamState
+                               ) -> node_stream.NodeStreamState:
+    """The node-stream state's leaves as numpy arrays in the reference
+    dtypes."""
+    out = _np_tree(state)
+    return out._replace(sim=state_to_numpy(state.sim),
+                        churn_key=out.churn_key.astype(np.uint32))

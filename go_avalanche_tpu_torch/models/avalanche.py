@@ -120,6 +120,14 @@ def stamp_finality(finalized_at, newly_final, round_):
     return torch.where(newly_final & (finalized_at < 0), round_, finalized_at)
 
 
+def reset_finality(finalized_at, take_cols):
+    """Clear stamps for window columns being re-admitted (streaming
+    schedulers); None (tracking off) passes."""
+    if finalized_at is None:
+        return None
+    return torch.where(take_cols[None, :], -1, finalized_at)
+
+
 def score_rank_with_orders(scores: torch.Tensor) -> Tuple:
     """``(score_rank, poll_order, poll_order_inv)`` from raw scores with
     one stable argsort (descending score, ties by index)."""
@@ -163,9 +171,11 @@ def init(
         latency_weights = torch.ones(n_nodes, dtype=torch.float32,
                                      device=dev)
     latency_weights = latency_weights.to(dev, torch.float32)
-    if stake.stake_enabled(cfg):
+    if stake.stake_enabled(cfg) and not stake.registry_enabled(cfg):
         # The stake vector folds into the sampling-propensity plane, so
-        # every peer draw is a stake-weighted committee draw.
+        # every peer draw is a stake-weighted committee draw.  With the
+        # node registry on, row index is not node id: the node-stream
+        # scheduler owns the plane (`models/node_stream.init`).
         latency_weights = latency_weights * stake.node_stake(cfg, n_nodes,
                                                              dev)
     n_byz = int(round(cfg.byzantine_fraction * n_nodes))

@@ -8,8 +8,11 @@ below.  The cases: the flagship round (`workload.flagship_state`,
 16384 x 16384, k=8) on the megakernel, and phased with the u8 and the
 swar32 ingest kernel; the DAG baseline round (`workload.dag_baseline_state`,
 10000 x 10000, 2-tx conflict sets) with each ingest kernel (its first
-twelve rounds, all before any set settles).  The untraced round times
-are `chip_smoke.py`'s.
+twelve rounds, all before any set settles); and one step of BASELINE
+config 6 (`workload.northstar_state`, 100000 nodes x a 1024-set window
+of 2-tx sets, `streaming_dag.step` on u8: retire/refill, then the DAG
+round; its first twelve steps, the first window's).  The untraced round
+times are `chip_smoke.py`'s.
 
   traced_wall_ms  host ms per round inside the trace, synchronised
   busy_ms         device ms per round summed over kernels, copies, sets
@@ -40,10 +43,11 @@ from torch.profiler import ProfilerActivity, profile
 from go_avalanche_tpu_torch import workload
 from go_avalanche_tpu_torch.models import avalanche as av
 from go_avalanche_tpu_torch.models import dag
+from go_avalanche_tpu_torch.models import streaming_dag
 
 ROUNDS = 10
-SPANS = ("poll_mask", "sample_peers", "gossip_admission", "gather_prefs",
-         "fused_round", "ingest_votes")
+SPANS = ("retire_refill", "poll_mask", "sample_peers", "gossip_admission",
+         "gather_prefs", "fused_round", "ingest_votes")
 # The port's kernels, by a part of their symbol, and the span that
 # launches each.  A kernel launched through ctypes has no aten op above
 # it, so the profiler counts its device time under no span; it is added
@@ -80,12 +84,20 @@ def _dag(ingest_engine: str):
     return dag.round_step, state, cfg, nodes, txs
 
 
+def _config6():
+    shape = workload.NORTH_STAR
+    state, cfg = workload.northstar_state(**shape)
+    return (streaming_dag.step, state, cfg, shape["nodes"],
+            shape["window_sets"] * shape["set_cap"])
+
+
 CASES = {
     "flagship megakernel": lambda: _flagship("megakernel"),
     "flagship phased u8": lambda: _flagship(),
     "flagship phased swar32": lambda: _flagship(ingest_engine="swar32"),
     "dag u8": lambda: _dag("u8"),
     "dag swar32": lambda: _dag("swar32"),
+    "config6 u8": _config6,
 }
 
 

@@ -1,5 +1,4 @@
-"""The stake vector — `go_avalanche_tpu/stake.py`, without the node
-registry.
+"""The stake vector and the registry draw — `go_avalanche_tpu/stake.py`.
 
 `node_stake` realizes `cfg.stake_mode` as a float32 stake per node:
 "uniform" (equal stake), "zipf" (node i holds ``1 / (i + 1) ** s``, so
@@ -7,16 +6,19 @@ id 0 is the richest and, with byzantine nodes, the adversary holds the
 top stake) or "explicit" (`cfg.stake_weights`).  `models/avalanche.init`
 folds it into the `latency_weight` sampling-propensity plane, so every
 peer draw of `ops/sampling.draw_peers` becomes a stake-weighted
-committee draw.  The registry's working-set draw (`draw_working_set`)
-belongs to the node-stream scheduler and is not ported.
+committee draw.  `draw_working_set` is the node-stream registry's exact
+stake-proportional draw without replacement (Gumbel top-k).
 """
 
 from __future__ import annotations
 
-from typing import Optional
+import math
+
+from typing import Optional, Tuple
 
 import torch
 
+from go_avalanche_tpu_torch import prng
 from go_avalanche_tpu_torch.config import AvalancheConfig
 
 
@@ -25,13 +27,25 @@ def stake_enabled(cfg: AvalancheConfig) -> bool:
     return cfg.stake_mode != "off"
 
 
+def registry_enabled(cfg: AvalancheConfig) -> bool:
+    """Is the node-axis streaming registry (`models/node_stream.py`) on?"""
+    return cfg.registry_nodes > 0
+
+
+def _device(device) -> torch.device:
+    from go_avalanche_tpu_torch.models.avalanche import _device as resolve
+
+    return resolve(device)
+
+
 def node_stake(cfg: AvalancheConfig, n_nodes: int,
-               device="cpu") -> Optional[torch.Tensor]:
-    """float32 ``[n_nodes]`` per-node stake on `device`; None when
-    `cfg.stake_mode` is "off".  An "explicit" vector must hold one stake
-    per node."""
+               device="cuda") -> Optional[torch.Tensor]:
+    """float32 ``[n_nodes]`` per-node stake on `device` (the card unless
+    the caller asks for the CPU); None when `cfg.stake_mode` is "off".
+    An "explicit" vector must hold one stake per node."""
     if not stake_enabled(cfg):
         return None
+    device = _device(device)
     if cfg.stake_mode == "uniform":
         return torch.ones(n_nodes, dtype=torch.float32, device=device)
     if cfg.stake_mode == "zipf":
@@ -48,3 +62,29 @@ def node_stake(cfg: AvalancheConfig, n_nodes: int,
             f"{n_nodes} nodes")
     return torch.tensor(cfg.stake_weights, dtype=torch.float32,
                         device=device)
+
+
+def draw_working_set(key: torch.Tensor, stake: torch.Tensor, w: int,
+                     mask: Optional[torch.Tensor] = None,
+                     device="cuda") -> Tuple[torch.Tensor, torch.Tensor]:
+    """Draw `w` distinct registry ids stake-proportionally on `device`
+    (exact weighted sampling without replacement: Gumbel top-k).
+
+    Returns ``(ids [w] int32, valid [w] bool)`` in descending perturbed-
+    score order, ties to the lower id as `lax.top_k` breaks them (a
+    stable descending sort).  `valid[i]` is False where fewer than `w`
+    drawable entries exist (zero stake, or excluded by `mask`, bool
+    ``[R]``, True = drawable): those entries score -inf and come last,
+    in id order.  The log-stake and the Gumbel noise are XLA:CPU's
+    float32 bits (`prng.log_f32`, `prng.gumbel`)."""
+    dev = _device(device)
+    stake = stake.to(dev, torch.float32)
+    drawable = stake > 0.0
+    if mask is not None:
+        drawable = drawable & mask.to(dev)
+    log_stake = torch.where(drawable,
+                            prng.log_f32(stake.clamp_min(1e-38)),
+                            torch.full_like(stake, -math.inf))
+    score = log_stake + prng.gumbel(key.to(dev), tuple(stake.shape))
+    top, ids = torch.sort(score, descending=True, stable=True)
+    return ids[:w].to(torch.int32), top[:w] > -math.inf

@@ -24,7 +24,17 @@
   config 4 — `config4_churn_latency` (lines 161-181): 100000 nodes x
              256 txs (512 x 32 quick), latency-weighted sampling over
              log-normal propensities ``exp(normal(key(42)) * 0.5)``,
-             churn 1e-4, `avalanche.run`.
+             churn 1e-4, `avalanche.run`;
+  config 5 — `config5_backlog_scale` (lines 184-200): 1,000,000 backlog
+             txs (4096 quick) through a 4096-slot window (256 quick) of
+             1024 nodes (64 quick), scores ``randint(key(1), 0, 2**20)``,
+             gossip off, the poll cap over the window, `backlog.run`;
+  config 6 — `config6_streaming_conflict` (lines 203-248) through
+             `benchmarks/workload.py`'s north-star builder (lines 20-22,
+             205-249): 100000 nodes x 500,000 2-tx conflict sets (64 x
+             1024 quick) through a 1024-set window (32 quick), scores
+             ``randint(key(1), (sets, 2), 0, 2**20)``, gossip off, the
+             poll cap over the window, `streaming_dag.run_chunked`.
 
 Each config's builder seeds the state with ``key(0)`` as the suite does.
 Config 4's propensities come from the port's `prng.normal`, which is
@@ -42,6 +52,7 @@ port's weights and on jax's, so config 4 is gated on the record.
 
 from __future__ import annotations
 
+import dataclasses
 from typing import Dict, Tuple
 
 import torch
@@ -49,7 +60,8 @@ import torch
 from go_avalanche_tpu_torch import prng
 from go_avalanche_tpu_torch.config import AdversaryStrategy, AvalancheConfig
 from go_avalanche_tpu_torch.models import avalanche as av
-from go_avalanche_tpu_torch.models import dag, snowball
+from go_avalanche_tpu_torch.models import backlog, dag, snowball
+from go_avalanche_tpu_torch.models import streaming_dag
 
 FLAGSHIP_NODES = FLAGSHIP_TXS = 16384
 DAG_NODES = DAG_TXS = 10_000
@@ -97,6 +109,10 @@ REFERENCE = {
     "config3_equivocate": {"rounds": 600, "honest_sets_resolved": 0.0},
     "config4": {"rounds": 17, "unfinalized_records": 40192,
                 "finality_median": 16.0},
+    "config5": {"rounds": 4165, "txs_settled_fraction": 1.0},
+    "config6": {"rounds": 8313, "sets_settled_fraction": 1.0,
+                "sets_one_winner_fraction": 1.0,
+                "settle_latency_median": 17.0, "settle_latency_p90": 17.0},
 }
 
 # The JAX package's own results at the suite's --quick shapes, on the CPU
@@ -111,7 +127,18 @@ REFERENCE_QUICK = {
     "config3_equivocate": {"rounds": 400, "honest_sets_resolved": 0.0},
     "config4": {"rounds": 17, "unfinalized_records": 32,
                 "finality_median": 16.0},
+    "config5": {"rounds": 272, "txs_settled_fraction": 1.0},
+    "config6": {"rounds": 544, "sets_settled_fraction": 1.0,
+                "sets_one_winner_fraction": 1.0,
+                "settle_latency_median": 17.0, "settle_latency_p90": 17.0},
 }
+
+# The north-star streaming conflict-DAG shapes (`benchmarks/workload.py`).
+NORTH_STAR = dict(nodes=100_000, backlog_sets=500_000, set_cap=2,
+                  window_sets=1024)
+QUICK = dict(nodes=64, backlog_sets=1024, set_cap=2, window_sets=32)
+# key(1) draws the scores, key(0) seeds the sim.
+_SCORE_SEED, _SIM_SEED, _SCORE_MAX = 1, 0, 1 << 20
 
 
 def config0_state(device="cuda") -> Tuple[av.AvalancheSimState,
@@ -172,3 +199,51 @@ def config4_state(quick: bool = False, device="cuda",
         weights = config4_weights(n)
     return av.init(prng.key(0, device), n, t, cfg, latency_weights=weights,
                    device=device), cfg
+
+
+def config5_shape(quick: bool = False) -> Tuple[int, int, int]:
+    """``(nodes, backlog txs, window slots)`` of config 5."""
+    return (64, 4096, 256) if quick else (1024, 1_000_000, 4096)
+
+
+def config5_config(window: int) -> AvalancheConfig:
+    return AvalancheConfig(gossip=False, max_element_poll=window)
+
+
+def config5_state(quick: bool = False, device="cuda", n_txs: int = None
+                  ) -> Tuple[backlog.BacklogSimState, AvalancheConfig]:
+    """``(state, cfg)`` of config 5 on `device`; `n_txs` cuts the backlog
+    to its first `n_txs` scores of the same draw."""
+    n, b, w = config5_shape(quick)
+    cfg = config5_config(w)
+    scores = prng.randint(prng.key(_SCORE_SEED, device), (b,), 0, _SCORE_MAX)
+    if n_txs is not None:
+        scores = scores[:n_txs]
+    queue = backlog.make_backlog(scores)
+    return backlog.init(prng.key(_SIM_SEED, device), n, w, queue, cfg,
+                        device=device), cfg
+
+
+def northstar_config(window_sets: int, set_cap: int) -> AvalancheConfig:
+    """Config 6's config: gossip off and the poll cap over the window."""
+    return AvalancheConfig(gossip=False,
+                           max_element_poll=window_sets * set_cap)
+
+
+def northstar_state(nodes: int, backlog_sets: int, set_cap: int,
+                    window_sets: int, track_finality: bool = True,
+                    retire_cap: int = None, device="cuda"
+                    ) -> Tuple[streaming_dag.StreamingDagState,
+                               AvalancheConfig]:
+    """``(state, cfg)`` of the streaming conflict-DAG workload on
+    `device`; `retire_cap` sets `cfg.stream_retire_cap`."""
+    cfg = northstar_config(window_sets, set_cap)
+    if retire_cap is not None:
+        cfg = dataclasses.replace(cfg, stream_retire_cap=retire_cap)
+    scores = prng.randint(prng.key(_SCORE_SEED, device),
+                          (backlog_sets, set_cap), 0, _SCORE_MAX)
+    queue = streaming_dag.make_set_backlog(scores)
+    return streaming_dag.init(prng.key(_SIM_SEED, device), nodes,
+                              window_sets, queue, cfg,
+                              track_finality=track_finality,
+                              device=device), cfg

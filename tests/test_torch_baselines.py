@@ -1,12 +1,14 @@
-"""BASELINE configs 0, 3 and 4 through the port's workload builders and
-entry points, against the JAX package on the same inputs.
+"""BASELINE configs 0, 3, 4, 5 and 6 through the port's workload builders
+and entry points, against the JAX package on the same inputs.
 
 Config 0 runs at its full 100 x 100 shape and must also meet the
 reference's recorded result; configs 3 and 4 run at the suite's
 `--quick` shapes.  Config 4 runs twice: on the reference's own weights
 carried across (`jnp.exp(jax.random.normal(key(42)) * 0.5)`) and on the
 port's (`workload.config4_weights`) handed to the JAX package.  Every
-state leaf must be equal at the end.  Tolerance 0.
+state leaf must be equal at the end.  Configs 5 and 6 run at the
+suite's `--quick` shapes and must also give the JAX package's own result
+there (`workload.REFERENCE_QUICK`).  Tolerance 0.
 """
 
 import dataclasses
@@ -26,7 +28,7 @@ from go_avalanche_tpu_torch import workload
 from go_avalanche_tpu_torch.models import avalanche as tav
 from go_avalanche_tpu_torch.models import dag as tdag
 from go_avalanche_tpu_torch.ops import voterecord as vr
-from test_torch_avalanche import assert_states_equal
+from test_torch_avalanche import _jax_numpy, assert_states_equal
 from test_torch_dag import assert_dag_states_equal
 
 
@@ -121,6 +123,56 @@ def config4_full_shape_gate() -> dict:
                      "finalized_fraction": float(fin.mean()),
                      "finality_median": float(np.median(fat[fat >= 0]))}
     return out
+
+
+def test_config5_quick_matches_jax_and_its_result():
+    from go_avalanche_tpu.models import backlog as jbl
+    from go_avalanche_tpu_torch import convert
+    from go_avalanche_tpu_torch.models import backlog as tbl
+    from test_torch_backlog import assert_trees_equal
+
+    n, b, w = workload.config5_shape(quick=True)
+    jcfg = JaxConfig(gossip=False, max_element_poll=w)
+    jstate = jbl.init(jax.random.key(0), n, w, jbl.make_backlog(
+        jax.random.randint(jax.random.key(1), (b,), 0, 1 << 20)), jcfg)
+    tstate, tcfg = workload.config5_state(quick=True, device="cpu")
+    _fields_equal(jcfg, tcfg)
+    assert_trees_equal(_jax_numpy(jstate),
+                       convert.backlog_state_to_numpy(tstate), "init")
+    jfinal = jax.jit(jbl.run, static_argnames=("cfg", "max_rounds"))(
+        jstate, jcfg, 200_000)
+    tfinal = tbl.run(tstate, tcfg, max_rounds=200_000, device="cpu")
+    assert_trees_equal(_jax_numpy(jfinal),
+                       convert.backlog_state_to_numpy(tfinal), "config 5")
+    got = {"rounds": int(tfinal.sim.round),
+           "txs_settled_fraction": float(
+               tfinal.outputs.settled.double().mean())}
+    assert got == workload.REFERENCE_QUICK["config5"]
+
+
+def test_config6_quick_matches_jax_and_its_result():
+    from benchmarks.workload import QUICK, northstar_state
+    from go_avalanche_tpu.models import streaming_dag as jsd
+    from go_avalanche_tpu_torch import convert
+    from go_avalanche_tpu_torch.models import streaming_dag as tsd
+    from test_torch_backlog import assert_trees_equal
+
+    assert workload.QUICK == QUICK
+    jstate, jcfg = northstar_state(**QUICK)
+    tstate, tcfg = workload.northstar_state(**workload.QUICK, device="cpu")
+    _fields_equal(jcfg, tcfg)
+    assert_trees_equal(_jax_numpy(jstate),
+                       convert.streaming_dag_state_to_numpy(tstate), "init")
+    jfinal = jsd.run_chunked(jstate, jcfg, max_rounds=500_000, chunk=64)
+    tfinal = tsd.run_chunked(tstate, tcfg, max_rounds=500_000, chunk=64,
+                             device="cpu")
+    assert_trees_equal(_jax_numpy(jfinal),
+                       convert.streaming_dag_state_to_numpy(tfinal),
+                       "config 6")
+    summary = tsd.resolution_summary(tfinal)
+    got = {"rounds": int(tfinal.dag.base.round), **summary}
+    want = workload.REFERENCE_QUICK["config6"]
+    assert {key: got[key] for key in want} == want
 
 
 if __name__ == "__main__":

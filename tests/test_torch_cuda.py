@@ -264,11 +264,14 @@ def test_dag_round_on_both_kernels_matches_plain_round(cuda):
 
 
 def _assert_leaves_equal(got, want):
+    assert len(got) == len(want)
     for g, w in zip(got, want):
-        if isinstance(w, tuple):
+        if isinstance(w, (tuple, list)):
             _assert_leaves_equal(g, w)
-        else:
+        elif isinstance(w, torch.Tensor):
             assert torch.equal(g.cpu(), w.cpu())
+        else:           # None, or a static int of the DAG state
+            assert g == w
 
 
 @pytest.mark.cuda
@@ -337,7 +340,7 @@ def test_weighted_draws_on_cuda_match_cpu(n, cuda):
                        sampling.cumsum_f32(w))
     zipf = AvalancheConfig(stake_mode="zipf", stake_zipf_s=1.3)
     assert torch.equal(stake.node_stake(zipf, n, cuda).cpu(),
-                       stake.node_stake(zipf, n))
+                       stake.node_stake(zipf, n, "cpu"))
     for seed in (0, 1, 7):
         kc, kh = prng.key(seed, cuda), prng.key(seed, "cpu")
         draws = (
@@ -366,3 +369,81 @@ def test_config4_quick_on_cuda_matches_cpu(engine, cuda):
         finals.append(av.run(state, cfg, device=device))
     assert int(finals[1].round) == 17
     _assert_leaves_equal(finals[0], finals[1])
+
+
+@pytest.mark.cuda
+def test_prng_logs_gumbel_and_poisson_on_cuda_match_cpu(cuda):
+    """XLA:CPU's float32 log, log1p and lgamma as the port spells them
+    (one float32 operation or one float64-emulated fused multiply-add a
+    step) give the same bits on the card as on the CPU, and so do the
+    Gumbel and Poisson draws."""
+    rng = np.random.default_rng(0)
+    x = torch.from_numpy(np.concatenate([
+        rng.uniform(1e-30, 1.0, 200_000), rng.uniform(1.0, 1e6, 200_000),
+        rng.uniform(-0.5, 0.5, 200_000)]).astype(np.float32))
+    for fn in (prng.log_f32, prng.log1p_f32):      # NaN bits included
+        assert torch.equal(fn(x.to(cuda)).cpu().view(torch.int32),
+                           fn(x).view(torch.int32))
+    g = torch.from_numpy(rng.uniform(0.5, 1e5, 200_000).astype(np.float32))
+    assert torch.equal(prng.lgamma_f32(g.to(cuda)).cpu(), prng.lgamma_f32(g))
+    for seed in range(5):
+        assert torch.equal(prng.gumbel(prng.key(seed, cuda), (100_000,)).cpu(),
+                           prng.gumbel(prng.key(seed, "cpu"), (100_000,)))
+        for rate in (0.0, 3.0, 9.99, 10.0, 200.0, 1e4):
+            lam = torch.tensor(rate, dtype=torch.float32)
+            assert int(prng.poisson(prng.key(seed, cuda), lam.to(cuda))) == \
+                int(prng.poisson(prng.key(seed, "cpu"), lam))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("engine", ["u8", "swar32"])
+def test_streaming_schedulers_on_cuda_match_cpu(engine, cuda):
+    """Configs 5 and 6 at the quick shapes (6 cut to 96 sets), a traffic
+    run and a retire-capped run, on the card and on the CPU: every leaf
+    equal."""
+    from go_avalanche_tpu_torch import workload
+    from go_avalanche_tpu_torch.models import backlog
+    from go_avalanche_tpu_torch.models import streaming_dag as sdg
+
+    finals = []
+    for device in (cuda, torch.device("cpu")):
+        state, cfg = workload.config5_state(quick=True, device=device,
+                                            n_txs=1024)
+        cfg = dataclasses.replace(cfg, ingest_engine=engine)
+        out = [backlog.run(state, cfg, device=device)]
+        traffic = dataclasses.replace(cfg, arrival_mode="poisson",
+                                      arrival_rate=12.0,
+                                      arrival_backpressure=(0.6, 0.9))
+        state = backlog.init(prng.key(0, device), 64, 256,
+                             state.backlog, traffic, device=device)
+        out.append(backlog.run(state, traffic, device=device))
+        shape = dict(workload.QUICK, backlog_sets=96)
+        for cap in (None, 8):
+            state, cfg = workload.northstar_state(**shape, retire_cap=cap,
+                                                  device=device)
+            cfg = dataclasses.replace(cfg, ingest_engine=engine)
+            out.append(sdg.run_chunked(state, cfg, chunk=40, device=device))
+        finals.append(out)
+    _assert_leaves_equal(finals[0], finals[1])
+    assert bool(finals[1][0].outputs.settled.all())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("engine", ["u8", "swar32", "megakernel"])
+def test_node_stream_on_cuda_matches_cpu(engine, cuda):
+    from go_avalanche_tpu_torch.models import node_stream
+
+    cfg = AvalancheConfig(stake_mode="zipf", registry_nodes=4096,
+                          active_nodes=256, node_churn_rate=0.05)
+    if engine == "megakernel":
+        cfg = dataclasses.replace(cfg, round_engine="megakernel")
+    else:
+        cfg = dataclasses.replace(cfg, ingest_engine=engine)
+    finals = []
+    for device in (cuda, torch.device("cpu")):
+        state = node_stream.init(prng.key(2, device), 512, cfg,
+                                 device=device)
+        finals.append(node_stream.run_scan(state, cfg, n_rounds=20,
+                                           device=device))
+    _assert_leaves_equal(finals[0], finals[1])
+    assert int(finals[1][1].departed.sum()) > 0

@@ -102,6 +102,39 @@ def test_entry_points_default_to_cuda():
     with pytest.raises(RuntimeError, match="cuda"):
         av.run(state, max_rounds=1)
 
+    from go_avalanche_tpu_torch import stake
+    from go_avalanche_tpu_torch.config import AvalancheConfig
+    from go_avalanche_tpu_torch.models import (backlog, node_stream,
+                                               streaming_dag)
+
+    key = prng.key(0, device="cpu")
+    zipf = AvalancheConfig(stake_mode="zipf")
+    with pytest.raises(RuntimeError, match="cuda"):
+        stake.node_stake(zipf, 8)
+    with pytest.raises(RuntimeError, match="cuda"):
+        stake.draw_working_set(key, torch.ones(8), 2)
+    queue = backlog.make_backlog(torch.arange(6))
+    sets = streaming_dag.make_set_backlog(torch.arange(8).reshape(4, 2))
+    registry = AvalancheConfig(stake_mode="zipf", registry_nodes=8,
+                               active_nodes=4)
+    for init, args in ((backlog.init, (key, 4, 2, queue)),
+                       (streaming_dag.init, (key, 4, 2, sets)),
+                       (node_stream.init, (key, 4, registry))):
+        with pytest.raises(RuntimeError, match="cuda"):
+            init(*args)
+    runs = {backlog: backlog.init(key, 4, 2, queue, device="cpu"),
+            streaming_dag: streaming_dag.init(key, 4, 2, sets, device="cpu")}
+    for module, state in runs.items():
+        with pytest.raises(RuntimeError, match="cuda"):
+            module.run(state, max_rounds=1)
+        with pytest.raises(RuntimeError, match="cuda"):
+            module.run_scan(state, n_rounds=1)
+    with pytest.raises(RuntimeError, match="cuda"):
+        streaming_dag.run_chunked(runs[streaming_dag], max_rounds=1)
+    state = node_stream.init(key, 4, registry, device="cpu")
+    with pytest.raises(RuntimeError, match="cuda"):
+        node_stream.run_scan(state, registry, n_rounds=1)
+
 
 def test_round_profile_fails_without_cuda():
     if torch.cuda.is_available():

@@ -187,13 +187,36 @@ def test_config_rejections_match_jax(kwargs, match):
 
 
 @pytest.mark.parametrize("kwargs", [
-    dict(inflight_engine="coalesced"), dict(stream_retire_cap=8),
+    dict(inflight_engine="coalesced"),
     dict(strict_validation=True), dict(fused_sharded_gossip=True),
-    dict(active_nodes=8), dict(latency_mode="fixed"),
-    dict(metrics_every=1), dict(trace_every=1), dict(arrival_mode="poisson"),
-    dict(registry_nodes=8), dict(fault_script=(("churn_burst", 1, 0.1),)),
+    dict(latency_mode="fixed"),
+    dict(metrics_every=1), dict(trace_every=1),
+    dict(fault_script=(("churn_burst", 1, 0.1),)),
     dict(byzantine_fraction=0.2, adversary_policy="split_vote"),
 ])
 def test_unported_fields_raise_not_implemented(kwargs):
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         AvalancheConfig(**kwargs)
+
+
+@pytest.mark.parametrize("kwargs", [
+    dict(stream_retire_cap=8), dict(stream_retire_cap=0),
+    dict(active_nodes=8), dict(registry_nodes=8),
+    dict(stake_mode="zipf", registry_nodes=8, active_nodes=4),
+    dict(arrival_mode="poisson"),
+    dict(arrival_mode="poisson", arrival_rate=2.0),
+    dict(arrival_mode="diurnal", arrival_rate=2.0, arrival_period=24,
+         arrival_depth=1.5),
+])
+def test_streaming_fields_validate_as_jax(kwargs):
+    """The streaming schedulers' fields (ROADMAP.md Queue 1 item 12) are
+    ported: each kwargs set is rejected with ValueError by both configs,
+    or accepted by both."""
+    def outcome(config_cls):
+        try:
+            config_cls(**kwargs)
+        except ValueError:
+            return "ValueError"
+        return "accepted"
+
+    assert outcome(AvalancheConfig) == outcome(JaxConfig)

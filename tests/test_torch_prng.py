@@ -152,3 +152,89 @@ def test_normal_matches_jax_by_key_within_stated_ulp(shape):
         got = prng.normal(tk, shape)
         assert got.dtype == torch.float32 and tuple(got.shape) == shape
         assert int(_ulp_distance(want, got.numpy()).max()) <= NORMAL_MAX_ULP
+
+
+# XLA:CPU's float32 log, log1p and lgamma, reproduced step for step
+# (`prng.log_f32`, `log1p_f32`, `lgamma_f32`): equal on every input tried.
+@pytest.mark.parametrize("exponent", [-126, -100, -24, -2, -1, 0, 1, 7, 60,
+                                      127])
+def test_log_f32_matches_xla_on_every_mantissa(exponent):
+    bits = (np.uint32(127 + exponent) << 23) | np.arange(
+        1 << 23, dtype=np.uint32)
+    x = bits.view(np.float32)
+    want = np.asarray(jnp.log(jnp.asarray(x)))
+    got = prng.log_f32(torch.from_numpy(x)).numpy()
+    np.testing.assert_array_equal(want.view(np.int32), got.view(np.int32))
+
+
+def test_log_f32_special_values_match_xla():
+    x = np.array([0.0, -0.0, -1.0, np.inf, -np.inf, np.nan, 1e-40, 1e-38,
+                  2.0 ** -126, 1.0, 3.4e38], np.float32)
+    want = np.asarray(jnp.log(jnp.asarray(x)))
+    got = prng.log_f32(torch.from_numpy(x)).numpy()
+    np.testing.assert_array_equal(np.isnan(want), np.isnan(got))
+    ok = ~np.isnan(want)
+    np.testing.assert_array_equal(want[ok], got[ok])
+
+
+def test_log1p_and_lgamma_f32_match_xla():
+    rng = np.random.default_rng(0)
+    x = np.concatenate([np.linspace(-0.5, 0.5, 400_001, dtype=np.float32),
+                        rng.uniform(-0.99, 1e3, 400_000).astype(np.float32)])
+    np.testing.assert_array_equal(
+        np.asarray(jnp.log1p(jnp.asarray(x))).view(np.int32),
+        prng.log1p_f32(torch.from_numpy(x)).numpy().view(np.int32))
+    g = np.concatenate([np.arange(1, 20_000, dtype=np.float32),
+                        rng.uniform(0.5, 1e5, 400_000).astype(np.float32)])
+    np.testing.assert_array_equal(
+        np.asarray(jax.lax.lgamma(jnp.asarray(g))).view(np.int32),
+        prng.lgamma_f32(torch.from_numpy(g)).numpy().view(np.int32))
+
+
+@pytest.mark.parametrize("shape", [(1,), (5000,), (33, 9)])
+def test_gumbel_matches_jax(shape):
+    for seed in SEEDS:
+        jk, tk = _pair(seed)
+        want = np.asarray(jax.random.gumbel(jk, shape))
+        got = prng.gumbel(tk, shape)
+        assert got.dtype == torch.float32 and tuple(got.shape) == shape
+        np.testing.assert_array_equal(want.view(np.int32),
+                                      got.numpy().view(np.int32))
+
+
+# `jax.random.poisson` on a float32 scalar rate: Knuth below 10, Hörmann's
+# rejection from 10 on, 0 at 0.
+POISSON_RATES = (0.0, 0.5, 3.0, 9.99, 10.0, 200.0, 241.0, 1e4)
+
+
+def poisson_mismatches(rate: float, n_keys: int) -> int:
+    """How many of `n_keys` keys (split from key(0)) give the port a
+    different `poisson` draw from jax's."""
+    keys = jax.random.split(jax.random.key(0), n_keys)
+    want = np.asarray(jax.vmap(
+        lambda k: jax.random.poisson(k, jnp.float32(rate)))(keys))
+    words = np.asarray(jax.random.key_data(keys)).astype(np.int64)
+    lam = torch.tensor(rate, dtype=torch.float32)
+    got = [int(prng.poisson(torch.from_numpy(w), lam)) for w in words]
+    return int((np.asarray(got) != want).sum())
+
+
+@pytest.mark.parametrize("rate", POISSON_RATES)
+def test_poisson_matches_jax(rate):
+    assert poisson_mismatches(rate, 125) == 0
+
+
+def test_poisson_returns_int32_scalar_on_the_keys_device():
+    out = prng.poisson(prng.key(3, "cpu"), torch.tensor(200.0))
+    assert out.dtype == torch.int32 and out.shape == ()
+
+
+if __name__ == "__main__":
+    # JAX_PLATFORMS=cpu PYTHONPATH=.:tests python tests/test_torch_prng.py
+    # The poisson mismatch count over 1000 keys per rate (~1 min on the
+    # CPU; not part of the test run).
+    import json
+
+    jax.config.update("jax_platforms", "cpu")
+    print(json.dumps({str(rate): poisson_mismatches(rate, 1000)
+                      for rate in POISSON_RATES}))

@@ -9,6 +9,7 @@ The trajectories start from one JAX state carried across (its
 """
 
 import jax
+import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
@@ -40,7 +41,7 @@ def _ulp_distance(a, b):
 def test_node_stake_matches_jax_exactly(knobs):
     jcfg, tcfg = JaxConfig(**knobs), AvalancheConfig(**knobs)
     want = jstake.node_stake(jcfg, 5)
-    got = stake.node_stake(tcfg, 5)
+    got = stake.node_stake(tcfg, 5, device="cpu")
     assert stake.stake_enabled(tcfg) == jstake.stake_enabled(jcfg)
     if want is None:
         assert got is None
@@ -55,14 +56,15 @@ def test_node_stake_zipf_within_stated_ulp(s):
     want = np.asarray(jstake.node_stake(JaxConfig(stake_mode="zipf",
                                                   stake_zipf_s=s), n))
     got = stake.node_stake(AvalancheConfig(stake_mode="zipf",
-                                           stake_zipf_s=s), n).numpy()
+                                           stake_zipf_s=s), n,
+                           device="cpu").numpy()
     assert int(_ulp_distance(want, got).max()) <= ZIPF_MAX_ULP
 
 
 def test_explicit_stake_length_is_checked():
     cfg = AvalancheConfig(stake_mode="explicit", stake_weights=(1.0, 2.0))
     with pytest.raises(ValueError, match="one stake per node"):
-        stake.node_stake(cfg, 3)
+        stake.node_stake(cfg, 3, device="cpu")
 
 
 @pytest.mark.parametrize("knobs", [
@@ -108,3 +110,33 @@ def test_stake_trajectory_matches_jax(knobs):
     state = run_both(dict(knobs, max_element_poll=64), 64, 64, 6, seed=5,
                      contested=True)
     assert int(state.round) == 6
+
+
+@pytest.mark.parametrize("mode", ["zipf", "uniform", "masked", "zero_stake",
+                                  "short_pool"])
+def test_draw_working_set_matches_jax(mode):
+    """Gumbel top-k: the same ids in the same order, and the same `valid`
+    lanes where the pool runs short (-inf scores, in id order)."""
+    r, w = 300, 40
+    cfg = JaxConfig(stake_mode="uniform" if mode == "uniform" else "zipf")
+    stake_r = np.array(jstake.node_stake(cfg, r))
+    mask = None
+    if mode == "masked":
+        mask = np.random.default_rng(0).random(r) < 0.6
+    if mode == "zero_stake":
+        stake_r = stake_r.copy()
+        stake_r[::3] = 0.0
+    if mode == "short_pool":
+        mask = np.zeros(r, bool)
+        mask[:25] = True
+    for seed in range(12):
+        jk, tk = jax.random.key(seed), prng.key(seed, "cpu")
+        want = jstake.draw_working_set(
+            jk, stake_r, w, mask=None if mask is None else jnp.asarray(mask))
+        got = stake.draw_working_set(
+            tk, torch.from_numpy(stake_r), w,
+            mask=None if mask is None else torch.from_numpy(mask),
+            device="cpu")
+        for wv, gv in zip(want, got):
+            np.testing.assert_array_equal(np.asarray(wv), gv.numpy())
+        assert got[0].dtype == torch.int32
