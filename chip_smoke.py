@@ -40,7 +40,7 @@ package is missing.  Phases, each printing JSON lines:
   8. streaming — BASELINE config 5 whole (`backlog.run`, 1024 nodes x
                4096 slots, 1,000,000 txs) and config 6 at full width
                and cut depth (`streaming_dag.run_chunked`, 100000 nodes
-               x a 1024-set window of 2-tx sets, 51,200 sets), both on
+               x a 1024-set window of 2-tx sets, 25,600 sets), both on
                phased-u8 and phased-swar32 against the reference's
                recorded rounds and outcomes; the sparse retire cap at
                the window size against the dense run; live traffic
@@ -51,7 +51,31 @@ package is missing.  Phases, each printing JSON lines:
                on all three engines with its churn held against a CPU
                replay of `churn_swaps`.  Each part prints ms per
                round, peak memory, launches per kernel and path, and
-               host reads.
+               host reads;
+  9. async   — the in-flight query ring (`ops/inflight.py`, plain
+               PyTorch by the reference's design: it launches none of
+               the kernels).  Latency 0 at 16384 x 16384 on the walk,
+               walk_earlyout and coalesced engines, 3 rounds leaf-equal
+               to the synchronous round on phased-u8 and phased-swar32
+               (which launch the two ingest kernels); the reference
+               bench's `flagship_async` (latency 2, ring depth 7, 10
+               rounds) and `flagship_faults` (a 50/50 partition over
+               rounds [5, 10), a +2 latency spike over [12, 15); 18
+               rounds) at 16384 x 16384 on the three engines, leaf-equal,
+               with the ring counters gated (deliveries 0 in rounds 0-1
+               and N*k after, no expiry; blocked draws exactly in rounds
+               5-9, each coming back as expiries six rounds later); the
+               fault studies of `examples/fault_scenarios.py` at 512 x 64
+               on every engine against the JAX package's record
+               (`workload.FAULT_STUDY_RECORDS`); and the DAG baseline
+               (10000 x 10000, latency 1, to settlement), Snowball
+               (config 1's 1000 nodes, geometric latency), `backlog.run`
+               (config 5's width, latency 1, the coalesced engine, the
+               backlog cut to 8192 txs) and the node stream (1,000,000
+               registry nodes, 16384 active, 3 rounds) under latency,
+               each against a CPU replay of the port (the DAG's replay
+               cut to its first 2 rounds, the first with a delivery).  Each engine prints ms per
+               round (CUDA events), peak memory and host reads.
 
 With ``--config6-full-depth`` it builds the kernels and runs only BASELINE
 config 6 at full width and full depth (500,000 sets, ~8313 rounds,
@@ -811,13 +835,13 @@ def time_ingest(name: str, n: int, t: int, device="cuda") -> dict:
 
 
 # Phase 8's shapes.  Config 6 runs at full width (100000 nodes, a 1024-set
-# window of 2-tx sets) with its backlog cut from 500,000 sets to 51,200
-# (50 waves of the window; the whole backlog would take ~8313 rounds, about
-# ten minutes per engine); every wave settles in ceil(134 / k) = 17 rounds,
-# so the cut run's gate is 50 * 17 = 850 rounds.  The retire-cap check runs
-# 3 waves.
+# window of 2-tx sets) with its backlog cut from 500,000 sets to 25,600
+# (25 waves of the window; the whole backlog would take ~8313 rounds, about
+# ten minutes per engine; phase 9 took the time the other 25 waves had);
+# every wave settles in ceil(134 / k) = 17 rounds, so the cut run's gate is
+# 25 * 17 = 425 rounds.  The retire-cap check runs 3 waves.
 STREAM_SHAPES = {
-    "full": dict(config6_sets=51_200, cap_sets=3072, traffic_txs=65_536,
+    "full": dict(config6_sets=25_600, cap_sets=3072, traffic_txs=65_536,
                  traffic_rate=200.0, node_txs=4096, registry=1_000_000,
                  active=16_384, node_rounds=40),
     "quick": dict(config6_sets=320, cap_sets=96, traffic_txs=4096,
@@ -1169,6 +1193,436 @@ def run_config6_full_depth(device="cuda") -> dict:
             "peak_mem_gib": torch.cuda.max_memory_allocated() / 2**30}
 
 
+# ----------------------------------------------------------------- phase 9
+
+ASYNC_SHAPES = {
+    "full": dict(flagship=(16_384, 16_384), dag=(10_000, 10_000),
+                 snowball_quick=False, backlog_txs=8192, node_txs=4096,
+                 registry=1_000_000, active=16_384, node_rounds=3,
+                 node_churn=1e-3, dag_replay_rounds=2),
+    "quick": dict(flagship=(256, 512), dag=(64, 64), snowball_quick=True,
+                  backlog_txs=512, node_txs=256, registry=4096, active=64,
+                  node_rounds=3, node_churn=0.05, dag_replay_rounds=2),
+}
+ASYNC_ENGINES = ("walk", "walk_earlyout", "coalesced")
+ASYNC_ROUNDS = 10            # flagship_async
+FAULT_ROUNDS = 18            # flagship_faults
+LATENCY0_ROUNDS = 3
+RING_COUNTERS = ("deliveries", "expiries", "ring_occupancy",
+                 "partition_blocked")
+# Latency 1 with the bench lane's timeout (2 * 1 + 2 = 4 rounds).
+LATENCY1 = dict(latency_mode="fixed", latency_rounds=1, time_step_s=1.0,
+                request_timeout_s=3.0)
+
+
+def assert_async_trees_equal(a, b, where: str) -> None:
+    """`assert_trees_equal` across ring layouts: a bool poll-mask plane
+    (walk engines) is packed before it is held against a bit-packed one
+    (coalesced)."""
+    import torch
+
+    from go_avalanche_tpu_torch.ops.bitops import pack_bool_plane
+
+    if isinstance(a, tuple) and type(a).__name__ == "InflightState":
+        pa, pb = a.polled, b.polled
+        if pa.dtype != pb.dtype:
+            pa, pb = [pack_bool_plane(p) if p.dtype == torch.bool else p
+                      for p in (pa, pb)]
+        a, b = a._replace(polled=pa), b._replace(polled=pb)
+    if isinstance(a, tuple) and a is not None:
+        for field, x, y in zip(getattr(a, "_fields", range(len(a))), a, b):
+            assert_async_trees_equal(x, y, f"{where}.{field}")
+        return
+    assert_trees_equal(a, b, where)
+
+
+class AsyncRun:
+    """One engine's run of phase 9: per-round CUDA-event times, peak
+    memory above what was held before it, and the host reads its
+    activity tests made."""
+
+    def __init__(self):
+        import torch
+
+        from go_avalanche_tpu_torch import sync
+
+        torch.cuda.synchronize()
+        self.held = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        sync.reads = 0
+        self.events = []
+
+    def step(self, fn, *args):
+        import torch
+
+        begin = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        begin.record()
+        out = fn(*args)
+        end.record()
+        self.events.append((begin, end))
+        return out
+
+    def close(self, steady_from: int = 0) -> dict:
+        import torch
+
+        from go_avalanche_tpu_torch import sync
+
+        torch.cuda.synchronize()
+        ms = [b.elapsed_time(e) for b, e in self.events]
+        steady = ms[steady_from:] or ms
+        return {"ms_per_round": sum(steady) / len(steady),
+                "ms_per_round_all": sum(ms) / len(ms), "rounds": len(ms),
+                "peak_gib": torch.cuda.max_memory_allocated() / 2**30,
+                "peak_over_held_gib": (torch.cuda.max_memory_allocated()
+                                       - self.held) / 2**30,
+                "host_reads": sync.reads}
+
+
+def run_rounds(start, cfg, n_rounds: int, steady_from: int = 0):
+    """`n_rounds` of `avalanche.round_step`, each timed; returns
+    ``(final state, stacked telemetry, timing row)``."""
+    import torch
+
+    from go_avalanche_tpu_torch.models import avalanche as av
+
+    run = AsyncRun()
+    state, rows = start, []
+    for _ in range(n_rounds):
+        state, tel = run.step(av.round_step, state, cfg)
+        rows.append(tel)
+    tel = av.SimTelemetry(*(torch.stack(col) for col in zip(*rows)))
+    return state, tel, run.close(steady_from)
+
+
+def check_no_launches(where: str) -> dict:
+    launches = read_launches()
+    if any(launches.values()):
+        raise AssertionError(f"{where}: the async path launched kernels "
+                             f"{launches}; it has none by design")
+    return launches
+
+
+def run_async_latency0(n: int, t: int, device="cuda") -> dict:
+    """Latency 0 on each delivery engine, leaf-equal to the synchronous
+    round on phased-u8 and phased-swar32 (which launch the ingest
+    kernels): records, finality stamps, alive, added, key and the
+    telemetry apart from the ring counters."""
+    import torch
+
+    from go_avalanche_tpu_torch import prng, workload
+    from go_avalanche_tpu_torch.models import avalanche as av
+
+    sync_start, u8_cfg = workload.flagship_state(n, t, device=device)
+    reset_launches()
+    refs = {}
+    for name, cfg in (("vote_u8", u8_cfg),
+                      ("vote_swar", dataclasses.replace(
+                          u8_cfg, ingest_engine="swar32"))):
+        refs[name] = run_rounds(sync_start, cfg, LATENCY0_ROUNDS)
+    launches = read_launches()
+    if launches != {"megakernel": 0, "vote_u8": LATENCY0_ROUNDS,
+                    "vote_swar": LATENCY0_ROUNDS}:
+        raise AssertionError(f"latency-0 reference launches {launches}")
+    del sync_start
+    rows = {}
+    for engine in ASYNC_ENGINES:
+        cfg = dataclasses.replace(u8_cfg, latency_mode="fixed",
+                                  latency_rounds=0, time_step_s=1.0,
+                                  request_timeout_s=1.0,
+                                  inflight_engine=engine)
+        start = av.init(prng.key(0, device), n, t, cfg, device=device)
+        reset_launches()
+        final, tel, row = run_rounds(start, cfg, LATENCY0_ROUNDS)
+        check_no_launches(f"latency 0 {engine}")
+        for name, (want, wtel, _) in refs.items():
+            where = f"latency 0 {engine} vs phased {name}"
+            assert_trees_equal(want._replace(inflight=None),
+                               final._replace(inflight=None), where)
+            for field in wtel._fields:
+                if field not in RING_COUNTERS and not torch.equal(
+                        getattr(wtel, field), getattr(tel, field)):
+                    raise AssertionError(f"{where}: telemetry.{field}")
+        rows[engine] = {**row, "deliveries": tel.deliveries.tolist()}
+        del start, final
+    out = {"rounds": LATENCY0_ROUNDS, "reference_launches": launches,
+           "engines": rows,
+           "phased_ms_per_round": {name: r[2]["ms_per_round"]
+                                   for name, r in refs.items()}}
+    del refs
+    torch.cuda.empty_cache()
+    return out
+
+
+def run_async_flagship(n: int, t: int, faults: bool, device="cuda") -> dict:
+    """`flagship_async` (latency 2, depth 7, 10 rounds) or
+    `flagship_faults` (its script, 18 rounds) on the three engines:
+    leaf-equal, ring counters gated, timed per round."""
+    import torch
+
+    from go_avalanche_tpu_torch import workload
+
+    script = workload.FLAGSHIP_FAULTS if faults else None
+    n_rounds = FAULT_ROUNDS if faults else ASYNC_ROUNDS
+    finals, rows = {}, {}
+    reset_launches()
+    for engine in ASYNC_ENGINES:
+        start, cfg = workload.flagship_state(n, t, latency=2,
+                                             inflight_engine=engine,
+                                             faults=script, device=device)
+        if cfg.timeout_rounds() != 6:
+            raise AssertionError("flagship async: timeout is not 6 rounds")
+        final, tel, row = run_rounds(start, cfg, n_rounds, steady_from=2)
+        del start
+        rows[engine] = row
+        finals[engine] = (final, tel)
+        if engine != ASYNC_ENGINES[0]:
+            assert_async_trees_equal(finals[ASYNC_ENGINES[0]], (final, tel),
+                                     f"{engine} vs {ASYNC_ENGINES[0]}")
+            del finals[engine]
+    launches = check_no_launches("flagship async")
+    final, tel = finals[ASYNC_ENGINES[0]]
+    deliveries = tel.deliveries.tolist()
+    expiries = tel.expiries.tolist()
+    blocked = tel.partition_blocked.tolist()
+    k = cfg.k
+    if not faults:
+        if (deliveries[:2] != [0, 0]
+                or deliveries[2:] != [n * k] * (n_rounds - 2)
+                or any(expiries)):
+            raise AssertionError(f"flagship async ring counters: "
+                                 f"deliveries {deliveries}, expiries "
+                                 f"{expiries}")
+    else:
+        if [r for r, b in enumerate(blocked) if b] != [5, 6, 7, 8, 9]:
+            raise AssertionError(f"flagship faults: blocked {blocked}")
+        if (any(expiries[r + 6] != blocked[r] for r in range(n_rounds - 6))
+                or sum(expiries) != sum(blocked)):
+            raise AssertionError(f"flagship faults: expiries {expiries} "
+                                 f"!= blocked {blocked} six rounds later")
+    if int(final.records.votes.sum()) == 0:
+        raise AssertionError("flagship async: no vote reached the windows")
+    out = {"nodes": n, "txs": t, "k": k, "latency": 2, "ring_depth": 7,
+           "rounds": n_rounds, "faults": script, "engines": rows,
+           "deliveries": deliveries, "expiries": expiries,
+           "partition_blocked": blocked,
+           "ring_occupancy": tel.ring_occupancy.tolist(),
+           "launches": launches}
+    del finals, final, tel
+    torch.cuda.empty_cache()
+    return out
+
+
+def run_fault_studies(device="cuda") -> list:
+    """`measure()` and the three scenarios of the fault-study example at
+    512 x 64 on every engine, each against the JAX package's record."""
+    from go_avalanche_tpu_torch import workload
+    from go_avalanche_tpu_torch.models import avalanche as av
+    from go_avalanche_tpu_torch.ops import voterecord as vr
+
+    rows = []
+    reset_launches()
+    for name, want in workload.FAULT_STUDY_RECORDS.items():
+        times = {}
+        for engine in ASYNC_ENGINES:
+            start, cfg, n_rounds = workload.fault_study_state(
+                name, engine, device=device)
+            (final, tel), ms = timed_run(av.run_scan, start, cfg, n_rounds,
+                                         device=device)
+            got = {f: getattr(tel, f).tolist() for f in
+                   ("finalizations", "deliveries", "expiries",
+                    "partition_blocked", "ring_occupancy")}
+            got["finalized_fraction"] = float(vr.has_finalized(
+                final.records.confidence, cfg).double().mean())
+            if got != want:
+                bad = [f for f in want if got[f] != want[f]]
+                raise AssertionError(f"fault study {name} on {engine}: "
+                                     f"{bad} differ from the record")
+            times[engine] = ms / n_rounds
+        rows.append({"study": name, "nodes": workload.FAULT_STUDY_SHAPE[0],
+                     "txs": workload.FAULT_STUDY_SHAPE[1],
+                     "rounds": len(want["finalizations"]),
+                     "finalized_fraction": want["finalized_fraction"],
+                     "expiries_total": sum(want["expiries"]),
+                     "blocked_total": sum(want["partition_blocked"]),
+                     "ms_per_round": times})
+    check_no_launches("fault studies")
+    return rows
+
+
+def run_async_models(shape: dict, device="cuda") -> list:
+    """The DAG, Snowball, backlog and node-stream models under latency,
+    each held against a CPU replay of the port on the same seed."""
+    import torch
+
+    from go_avalanche_tpu_torch import prng, sync, workload
+    from go_avalanche_tpu_torch.config import AvalancheConfig
+    from go_avalanche_tpu_torch.models import avalanche as av
+    from go_avalanche_tpu_torch.models import backlog, dag, node_stream
+    from go_avalanche_tpu_torch.models import snowball
+    from go_avalanche_tpu_torch.ops import voterecord as vr
+
+    rows = []
+    cpu = torch.device("cpu")
+
+    # 1. the DAG baseline under fixed latency 1, to settlement
+    t0 = time.perf_counter()
+    n, t = shape["dag"]
+    finals, times = {}, {}
+    reset_launches()
+    for engine in ASYNC_ENGINES:
+        start, cfg = workload.dag_baseline_state(
+            n, t, device=device, inflight_engine=engine, **LATENCY1)
+        run = AsyncRun()
+        state = start
+        while (int(state.base.round) < DAG_MAX_ROUNDS
+               and not bool(dag.settled(state, cfg))):
+            state = run.step(lambda s: dag.round_step(s, cfg)[0], state)
+        times[engine] = run.close()
+        finals[engine] = state
+        if engine == "coalesced":
+            cpu_start = av.move_leaves(start, cpu)
+        del start
+    for engine in ASYNC_ENGINES[1:]:
+        assert_async_trees_equal(finals["walk"], finals[engine],
+                                 f"dag async {engine} vs walk")
+    final = finals["coalesced"]
+    if not bool(dag.settled(final, cfg)):
+        raise AssertionError("dag async did not settle")
+    conf = final.base.records.confidence
+    fin_acc = vr.has_finalized(conf, cfg) & vr.is_accepted(conf)
+    resolved = float((dag.winners_per_set(fin_acc, 2) == 1).float().mean())
+    if resolved != 1.0:
+        raise AssertionError(f"dag async: {resolved} of sets resolved")
+    # The CPU replay is cut to the first rounds: a 10000² round takes
+    # seconds on the CPU.
+    k_replay = shape["dag_replay_rounds"]
+    replay, again = cpu_start, dag.to_device(cpu_start, device)
+    for _ in range(k_replay):
+        replay = dag.round_step(replay, cfg)[0]
+        again = dag.round_step(again, cfg)[0]
+    assert_trees_equal(av.move_leaves(again, cpu), replay,
+                       f"dag async vs its CPU replay at round {k_replay}")
+    rows.append({"model": "dag", "nodes": n, "txs": t, "latency": 1,
+                 "timeout_rounds": cfg.timeout_rounds(),
+                 "rounds": int(final.base.round),
+                 "sets_resolved_fraction": resolved,
+                 "finality_median": finality_median(final.base.finalized_at),
+                 "cpu_replay_rounds": k_replay, "engines": times,
+                 "launches": check_no_launches("dag async"),
+                 "wall_s": time.perf_counter() - t0})
+    del finals, final, again, replay, cpu_start
+    torch.cuda.empty_cache()
+
+    # 2. Snowball at config 1's width under geometric latency
+    t0 = time.perf_counter()
+    knobs = dict(LATENCY1, latency_mode="geometric")
+    finals, times = {}, {}
+    for engine in ASYNC_ENGINES:
+        start, cfg = workload.config1_state(shape["snowball_quick"],
+                                            device=device,
+                                            inflight_engine=engine, **knobs)
+        (final, ms) = timed_run(snowball.run, start, cfg, device=device)
+        finals[engine] = final
+        times[engine] = ms / max(int(final.round), 1)
+    for engine in ASYNC_ENGINES[1:]:
+        assert_trees_equal(finals["walk"], finals[engine],
+                           f"snowball async {engine} vs walk")
+    replay = snowball.run(snowball.to_device(start, cpu), cfg, device="cpu")
+    assert_trees_equal(av.move_leaves(finals["coalesced"], cpu), replay,
+                       "snowball async vs its CPU replay")
+    final = finals["coalesced"]
+    fin = vr.has_finalized(final.records.confidence, cfg)
+    pref = vr.is_accepted(final.records.confidence)
+    rows.append({"model": "snowball", "nodes": int(fin.numel()),
+                 "latency_mode": "geometric", "latency_rounds": 1,
+                 "rounds": int(final.round),
+                 "finalized_fraction": float(fin.float().mean()),
+                 "agreed_one_value": bool((pref == pref[0]).all()),
+                 "cpu_replay_rounds": int(replay.round),
+                 "ms_per_round": times,
+                 "launches": check_no_launches("snowball async"),
+                 "wall_s": time.perf_counter() - t0})
+
+    # 3. backlog.run at config 5's width, coalesced, backlog cut
+    t0 = time.perf_counter()
+    n5, _, w5 = workload.config5_shape(shape["snowball_quick"])
+    start, cfg = workload.config5_state(
+        shape["snowball_quick"], device=device, n_txs=shape["backlog_txs"],
+        inflight_engine="coalesced", **LATENCY1)
+    sync.reads = 0
+    final, ms = timed_run(backlog.run, start, cfg, max_rounds=STREAM_MAX_ROUNDS,
+                          device=device)
+    reads = sync.reads
+    replay = backlog.run(backlog.move_tree(start, cpu), cfg, device="cpu")
+    assert_trees_equal(backlog.move_tree(final, cpu), replay,
+                       "backlog async vs its CPU replay")
+    if not bool(final.outputs.settled.all()):
+        raise AssertionError("backlog async: not every tx settled")
+    rounds = int(final.sim.round)
+    rows.append({"model": "backlog", "nodes": n5, "window": w5,
+                 "backlog_txs": shape["backlog_txs"], "latency": 1,
+                 "engine": "coalesced", "rounds": rounds,
+                 "ms_per_round": ms / rounds, "host_reads": reads,
+                 "cpu_replay_rounds": int(replay.sim.round),
+                 "launches": check_no_launches("backlog async"),
+                 "wall_s": time.perf_counter() - t0})
+    del start, final, replay
+    torch.cuda.empty_cache()
+
+    # 4. the node stream under latency 1 (rows cleared from the ring)
+    t0 = time.perf_counter()
+    ncfg = AvalancheConfig(stake_mode="zipf", registry_nodes=shape["registry"],
+                           active_nodes=shape["active"],
+                           node_churn_rate=shape["node_churn"],
+                           inflight_engine="coalesced",
+                           max_element_poll=max(4096, shape["node_txs"]),
+                           **LATENCY1)
+    start = node_stream.init(prng.key(0, device), shape["node_txs"], ncfg,
+                             device=device)
+    n_rounds = shape["node_rounds"]
+    (final, tel), ms = timed_run(node_stream.run_scan, start, ncfg,
+                                 n_rounds=n_rounds, device=device)
+    replay, rtel = node_stream.run_scan(node_stream.move_tree(start, cpu),
+                                        ncfg, n_rounds=n_rounds, device="cpu")
+    assert_trees_equal(av.move_leaves((final, tel), cpu), (replay, rtel),
+                       "node stream async vs its CPU replay")
+    if int(tel.departed.sum()) == 0 or int(tel.round.deliveries.sum()) == 0:
+        raise AssertionError("node stream async: no churn or no delivery")
+    rows.append({"model": "node_stream", "registry_nodes": shape["registry"],
+                 "active_nodes": shape["active"], "txs": shape["node_txs"],
+                 "latency": 1, "engine": "coalesced", "rounds": n_rounds,
+                 "departed": int(tel.departed.sum()),
+                 "ms_per_round": ms / n_rounds, "cpu_replay_rounds": n_rounds,
+                 "launches": check_no_launches("node stream async"),
+                 "wall_s": time.perf_counter() - t0})
+    del start, final, replay
+    torch.cuda.empty_cache()
+    return rows
+
+
+def run_async(quick: bool = False, device="cuda") -> dict:
+    """Phase 9: the async query ring (module docstring); each part's
+    rows carry its wall seconds (host clock, CPU replays included)."""
+    shape = ASYNC_SHAPES["quick" if quick else "full"]
+    n, t = shape["flagship"]
+    parts = {"latency0": lambda: run_async_latency0(n, t, device),
+             "flagship_async": lambda: run_async_flagship(n, t, False,
+                                                          device),
+             "flagship_faults": lambda: run_async_flagship(n, t, True,
+                                                           device),
+             "fault_studies": lambda: run_fault_studies(device),
+             "models": lambda: run_async_models(shape, device)}
+    out = {}
+    for name, part in parts.items():
+        t0 = time.perf_counter()
+        rows = part()
+        wall = time.perf_counter() - t0
+        out[name] = ([{**r, "part_wall_s": wall} for r in rows]
+                     if isinstance(rows, list) else {**rows, "wall_s": wall})
+    return out
+
+
 KERNEL_ROWS = {          # name -> (source, the TPU kernel it replaces)
     "megakernel": ("go_avalanche_tpu_torch/csrc/megakernel.cu",
                    "go_avalanche_tpu/ops/megakernel.py:95"),
@@ -1269,6 +1723,12 @@ def main() -> int:
     emit({"phase": "streaming", "launches": streaming["launches"],
           "launches_by_ingest_path": streaming["launches_by_ingest_path"],
           **label})
+    torch.cuda.empty_cache()
+
+    # 9. the async query ring
+    for part, row in run_async().items():
+        for r in (row if isinstance(row, list) else [row]):
+            emit({"phase": "async", "part": part, **r, **label})
 
     emit({"kernels": [{
         "name": name,

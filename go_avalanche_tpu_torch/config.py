@@ -47,6 +47,71 @@ ADVERSARY_POLICIES = ("off", "split_vote", "withhold_near_quorum",
                       "stake_eclipse", "timing")
 
 
+# Fault-script event schema: kind -> positional field names after the
+# kind tag, the one source for both spellings (tuple arity in
+# `_validate_fault_script`, JSON object keys in `fault_script_from_json`).
+# Every event is a plain tuple, so the config stays hashable, and every
+# window is END-EXCLUSIVE ([start, end), like `partition_spec`).  The
+# stochastic kinds carry a [lo, hi] range (inclusive) in every field; the
+# realized values are drawn once per simulation from its init key
+# (`ops/inflight.draw_fault_params`), and their windows are
+# [start, start + length).
+_FAULT_EVENT_FIELDS = {
+    "partition": ("start", "end", "frac"),
+    "regional_outage": ("start", "end", "cluster"),
+    "latency_spike": ("start", "end", "extra_rounds"),
+    "churn_burst": ("round", "frac"),
+    "stochastic_partition": ("start", "length", "frac"),
+    "stochastic_spike": ("start", "length", "extra_rounds"),
+    "stochastic_regional_outage": ("start", "length", "cluster"),
+}
+
+# The event kinds whose parameters are drawn at init rather than fixed in
+# the script; they are exempt from the static overlap check (realized cut
+# masks OR and spike extras add, so overlaps compose deterministically).
+_STOCHASTIC_KINDS = ("stochastic_partition", "stochastic_spike",
+                     "stochastic_regional_outage")
+
+
+def fault_script_from_json(data) -> Tuple[Tuple, ...]:
+    """Parse a JSON-decoded fault script into the `cfg.fault_script`
+    tuple spelling; structural errors only (ranges, overlaps and topology
+    are `AvalancheConfig`'s to check).  Events are ``[kind, ...]`` lists
+    or ``{"kind": ..., <fields>}`` objects, freely mixed.  Raises
+    `ValueError` naming the offending index."""
+    if not isinstance(data, (list, tuple)):
+        raise ValueError(
+            f"a fault script is a JSON LIST of events, got "
+            f"{type(data).__name__}")
+    events = []
+    for i, ev in enumerate(data):
+        if isinstance(ev, dict):
+            kind = ev.get("kind")
+            if kind not in _FAULT_EVENT_FIELDS:
+                raise ValueError(
+                    f"event[{i}]: unknown event kind {kind!r}; known "
+                    f"kinds: {', '.join(sorted(_FAULT_EVENT_FIELDS))}")
+            fields = _FAULT_EVENT_FIELDS[kind]
+            extra = set(ev) - {"kind", *fields}
+            missing = [f for f in fields if f not in ev]
+            if missing or extra:
+                raise ValueError(
+                    f"event[{i}]: {kind} events carry fields "
+                    f"{', '.join(fields)}"
+                    + (f" — missing {', '.join(missing)}" if missing
+                       else "")
+                    + (f" — unknown {', '.join(sorted(extra))}" if extra
+                       else ""))
+            events.append((kind,) + tuple(ev[f] for f in fields))
+        elif isinstance(ev, (list, tuple)):
+            events.append(tuple(ev))
+        else:
+            raise ValueError(
+                f"event[{i}]: an event is a [kind, ...] list or a "
+                f"{{'kind': ...}} object, got {type(ev).__name__}")
+    return tuple(events)
+
+
 @dataclasses.dataclass(frozen=True)
 class AvalancheConfig:
     """All protocol constants of the reference plus simulator knobs.
@@ -126,14 +191,63 @@ class AvalancheConfig:
         gated on arrived work."""
         return self.arrival_mode != "off"
 
-    def async_queries(self) -> bool:
-        """True when the reference would turn its in-flight query engine
-        on: a latency distribution, or any fault event other than a churn
-        burst (partitions, outages and spikes, fixed or stochastic)."""
+    def fault_events(self) -> Tuple[Tuple, ...]:
+        """The merged fault script: `partition_spec` (the one-event
+        spelling) first, then `fault_script` in order.  Every consumer of
+        the fault model reads this."""
         events = tuple(self.fault_script or ())
-        return (self.latency_mode != "none"
-                or self.partition_spec is not None
-                or any(ev[0] != "churn_burst" for ev in events))
+        if self.partition_spec is not None:
+            events = (("partition",) + tuple(self.partition_spec),) + events
+        return events
+
+    def cut_events(self) -> Tuple[Tuple, ...]:
+        """Static events that sever (querier, responder) pairs:
+        partitions and regional outages (`ops/inflight.partition_cut`)."""
+        return tuple(e for e in self.fault_events()
+                     if e[0] in ("partition", "regional_outage"))
+
+    def spike_events(self) -> Tuple[Tuple, ...]:
+        """Static latency_spike events: extra latency on queries sent
+        during the window (`ops/inflight.apply_latency_spikes`)."""
+        return tuple(e for e in self.fault_events()
+                     if e[0] == "latency_spike")
+
+    def stochastic_cut_events(self) -> Tuple[Tuple, ...]:
+        """stochastic_partition events, realized per simulation."""
+        return tuple(e for e in self.fault_events()
+                     if e[0] == "stochastic_partition")
+
+    def stochastic_spike_events(self) -> Tuple[Tuple, ...]:
+        """stochastic_spike events, realized per simulation."""
+        return tuple(e for e in self.fault_events()
+                     if e[0] == "stochastic_spike")
+
+    def stochastic_region_events(self) -> Tuple[Tuple, ...]:
+        """stochastic_regional_outage events, realized per simulation."""
+        return tuple(e for e in self.fault_events()
+                     if e[0] == "stochastic_regional_outage")
+
+    def stochastic_events(self) -> Tuple[Tuple, ...]:
+        """All stochastic events in script order, the order in which
+        `ops/inflight.draw_fault_params` folds their index into its
+        stream."""
+        return tuple(e for e in self.fault_events()
+                     if e[0] in _STOCHASTIC_KINDS)
+
+    def churn_burst_events(self) -> Tuple[Tuple, ...]:
+        """churn_burst events: one-shot alive-toggle impulses
+        (`ops/inflight.apply_churn_bursts`), the one kind that needs no
+        in-flight ring."""
+        return tuple(e for e in self.fault_events()
+                     if e[0] == "churn_burst")
+
+    def async_queries(self) -> bool:
+        """True when the in-flight query ring (`ops/inflight.py`) is on:
+        a latency distribution, or any cut, spike or stochastic fault
+        event (churn bursts alone need no ring)."""
+        return (self.latency_mode != "none" or bool(self.cut_events())
+                or bool(self.spike_events())
+                or bool(self.stochastic_events()))
 
     def timeout_rounds(self) -> int:
         """First round-age at which an outstanding query expires (the
@@ -186,11 +300,259 @@ class AvalancheConfig:
             raise ValueError(
                 f"latency_mode must be 'none', 'fixed', 'geometric', "
                 f"'weighted' or 'rtt', got {self.latency_mode!r}")
+        if self.latency_rounds < 0:
+            raise ValueError("latency_rounds must be >= 0")
+        if self.partition_spec is not None:
+            if len(self.partition_spec) != 3:
+                raise ValueError("partition_spec is (round_start, "
+                                 "round_end, split_frac)")
+            object.__setattr__(self, "partition_spec",
+                               tuple(self.partition_spec))
+            start, end, frac = self.partition_spec
+            if start == end:
+                raise ValueError(
+                    f"partition_spec window [{start}, {end}) is "
+                    f"zero-length: windows are END-EXCLUSIVE, so a "
+                    f"start == end cut never fires — rounds must "
+                    f"satisfy 0 <= start < end")
+            if not (0 <= start < end):
+                raise ValueError("partition_spec rounds must satisfy "
+                                 "0 <= start < end (end-exclusive "
+                                 "window)")
+            if not (0.0 < frac < 1.0):
+                raise ValueError("partition_spec split_frac must be in "
+                                 "(0, 1)")
+        self._validate_fault_script()
+        self._validate_rtt_matrix()
         self._validate_arrival()
         self._validate_stake()
         self._validate_adversary()
         self._validate_round_engine()
+        self._validate_async()
         self._reject_unported()
+
+    def _validate_async(self) -> None:
+        """The reference's rules for the latency mode, the RTT matrix and
+        the in-flight ring's depth."""
+        if self.latency_mode == "rtt":
+            if self.rtt_matrix is None:
+                raise ValueError(
+                    "latency_mode 'rtt' needs an rtt_matrix (a "
+                    "C x C tuple of per-cluster-pair latencies in "
+                    "rounds, C == n_clusters)")
+        elif self.rtt_matrix is not None:
+            raise ValueError(
+                f"rtt_matrix is only read by latency_mode 'rtt', got "
+                f"latency_mode {self.latency_mode!r} — a silently "
+                f"ignored matrix would mislabel the run")
+        if not self.async_queries():
+            return
+        if self.vote_mode is not VoteMode.SEQUENTIAL:
+            raise ValueError(
+                "the async query engine applies to the SEQUENTIAL "
+                "vote mode only (MAJORITY reduces all k draws at "
+                "once, which has no per-draw delivery time)")
+        if self.timeout_rounds() < 1:
+            raise ValueError(
+                f"async queries need timeout_rounds() >= 1, got "
+                f"{self.timeout_rounds()} from request_timeout_s="
+                f"{self.request_timeout_s} / time_step_s="
+                f"{self.time_step_s}: a non-positive timeout makes "
+                f"EVERY query expire before any response can "
+                f"deliver, so a run-until-settled loop spins "
+                f"forever")
+        if self.timeout_rounds() > 64:
+            raise ValueError(
+                f"async queries need timeout_rounds() <= 64 (the "
+                f"in-flight ring depth), got "
+                f"{self.timeout_rounds()} from request_timeout_s="
+                f"{self.request_timeout_s} / time_step_s="
+                f"{self.time_step_s}; lower request_timeout_s or "
+                f"raise time_step_s (e.g. time_step_s=1.0, "
+                f"request_timeout_s=7.0 for an 8-round timeout)")
+
+    def _validate_fault_script(self) -> None:
+        """Reject malformed, out-of-range or overlapping fault events at
+        construction, with the reference's messages."""
+        if self.fault_script is None:
+            return
+
+        def _canon(ev):
+            # Stochastic range fields may arrive as lists; the script
+            # must stay hashable.
+            ev = tuple(ev)
+            if ev and ev[0] in _STOCHASTIC_KINDS:
+                return (ev[0],) + tuple(
+                    tuple(f) if isinstance(f, (list, tuple)) else f
+                    for f in ev[1:])
+            return ev
+
+        script = tuple(_canon(e) for e in self.fault_script)
+        object.__setattr__(self, "fault_script", script)
+        for i, ev in enumerate(script):
+            if not ev or ev[0] not in _FAULT_EVENT_FIELDS:
+                raise ValueError(
+                    f"fault_script[{i}]: unknown event kind "
+                    f"{ev[0] if ev else ev!r}; known kinds: "
+                    f"{', '.join(sorted(_FAULT_EVENT_FIELDS))}")
+            kind = ev[0]
+            fields = _FAULT_EVENT_FIELDS[kind]
+            if len(ev) != 1 + len(fields):
+                raise ValueError(
+                    f"fault_script[{i}]: {kind} events are "
+                    f"(kind, {', '.join(fields)}), got {len(ev)} fields")
+            if kind == "churn_burst":
+                _, round_, frac = ev
+                if int(round_) != round_ or round_ < 0:
+                    raise ValueError(
+                        f"fault_script[{i}]: churn_burst round must be "
+                        f"a non-negative integer, got {round_!r}")
+                if not (0.0 < frac <= 1.0):
+                    raise ValueError(
+                        f"fault_script[{i}]: churn_burst frac must be "
+                        f"in (0, 1], got {frac!r}")
+                continue
+            if kind in _STOCHASTIC_KINDS:
+                self._validate_stochastic_event(i, ev)
+                continue
+            _, start, end, param = ev
+            if int(start) != start or int(end) != end:
+                raise ValueError(
+                    f"fault_script[{i}]: {kind} start/end must be "
+                    f"integer rounds, got ({start!r}, {end!r})")
+            if start == end:
+                raise ValueError(
+                    f"fault_script[{i}]: {kind} window [{start}, {end}) "
+                    f"is zero-length: windows are END-EXCLUSIVE, so a "
+                    f"start == end event never fires — use "
+                    f"0 <= start < end")
+            if not (0 <= start < end):
+                raise ValueError(
+                    f"fault_script[{i}]: {kind} rounds must satisfy "
+                    f"0 <= start < end (end-exclusive window), got "
+                    f"[{start}, {end})")
+            if kind == "partition" and not (0.0 < param < 1.0):
+                raise ValueError(
+                    f"fault_script[{i}]: partition split_frac must be "
+                    f"in (0, 1), got {param!r}")
+            if kind == "regional_outage":
+                if self.n_clusters < 2:
+                    raise ValueError(
+                        f"fault_script[{i}]: regional_outage needs a "
+                        f"clustered topology (n_clusters > 1), got "
+                        f"n_clusters={self.n_clusters}")
+                if int(param) != param or not (0 <= param
+                                               < self.n_clusters):
+                    raise ValueError(
+                        f"fault_script[{i}]: regional_outage cluster "
+                        f"must be an integer in [0, "
+                        f"{self.n_clusters}), got {param!r}")
+            if kind == "latency_spike" and (int(param) != param
+                                            or param < 1):
+                raise ValueError(
+                    f"fault_script[{i}]: latency_spike extra_rounds "
+                    f"must be an integer >= 1, got {param!r}")
+        # Two same-kind static events (same cluster for outages) active
+        # in one round are ambiguous, so the merged script rejects them;
+        # different clusters or kinds compose freely.
+        windows: dict = {}
+        for ev in self.fault_events():
+            kind = ev[0]
+            if kind in _STOCHASTIC_KINDS:
+                continue
+            if kind == "churn_burst":
+                key, span = (kind,), (ev[1], ev[1] + 1)
+            elif kind == "regional_outage":
+                key, span = (kind, ev[3]), (ev[1], ev[2])
+            else:
+                key, span = (kind,), (ev[1], ev[2])
+            for other in windows.setdefault(key, []):
+                if span[0] < other[1] and other[0] < span[1]:
+                    raise ValueError(
+                        f"fault_script: overlapping {kind} events"
+                        f"{' for cluster ' + str(ev[3]) if kind == 'regional_outage' else ''}"
+                        f" — [{other[0]}, {other[1]}) and [{span[0]}, "
+                        f"{span[1]}) are both active in round "
+                        f"{max(other[0], span[0])} (partition_spec "
+                        f"counts as a partition event)")
+            windows[key].append(span)
+
+    def _validate_stochastic_event(self, i: int, ev: Tuple) -> None:
+        """One stochastic event: every field a (lo, hi) range with
+        lo <= hi; start, length and extra rounds integers, frac a float
+        range inside (0, 1)."""
+        kind = ev[0]
+        fields = _FAULT_EVENT_FIELDS[kind]
+
+        def _range(name, value, *, integer, lo_min):
+            if (not isinstance(value, tuple) or len(value) != 2):
+                raise ValueError(
+                    f"fault_script[{i}]: {kind} {name} must be a "
+                    f"[lo, hi] range, got {value!r}")
+            lo, hi = value
+            for v in (lo, hi):
+                if isinstance(v, bool) or not isinstance(v, (int, float)):
+                    raise ValueError(
+                        f"fault_script[{i}]: {kind} {name} bounds must "
+                        f"be numbers, got {value!r}")
+                if integer and int(v) != v:
+                    raise ValueError(
+                        f"fault_script[{i}]: {kind} {name} bounds must "
+                        f"be integers, got {value!r}")
+            if not (lo_min <= lo <= hi):
+                raise ValueError(
+                    f"fault_script[{i}]: {kind} {name} range must "
+                    f"satisfy {lo_min} <= lo <= hi, got {value!r}")
+
+        _range(fields[0], ev[1], integer=True, lo_min=0)       # start
+        _range(fields[1], ev[2], integer=True, lo_min=1)       # length
+        if kind == "stochastic_regional_outage":
+            if self.n_clusters < 2:
+                raise ValueError(
+                    f"fault_script[{i}]: stochastic_regional_outage "
+                    f"needs a clustered topology (n_clusters > 1), got "
+                    f"n_clusters={self.n_clusters}")
+            _range(fields[2], ev[3], integer=True, lo_min=0)   # cluster
+            if ev[3][1] >= self.n_clusters:
+                raise ValueError(
+                    f"fault_script[{i}]: stochastic_regional_outage "
+                    f"cluster range must stay inside [0, "
+                    f"{self.n_clusters}), got {ev[3]!r}")
+            return
+        if kind == "stochastic_partition":
+            lo, hi = (ev[3] if isinstance(ev[3], tuple) and len(ev[3]) == 2
+                      else (None, None))
+            for v in (lo, hi):
+                if isinstance(v, bool) or not isinstance(v, (int, float)):
+                    lo = None
+                    break
+            if lo is None or not (0.0 < lo <= hi < 1.0):
+                raise ValueError(
+                    f"fault_script[{i}]: stochastic_partition frac must "
+                    f"be a [lo, hi] range inside (0, 1), got {ev[3]!r}")
+        else:                                                  # spike
+            _range(fields[2], ev[3], integer=True, lo_min=1)
+
+    def _validate_rtt_matrix(self) -> None:
+        """The cluster-pair RTT matrix must be square, match the
+        clustered topology, and carry non-negative integer rounds."""
+        if self.rtt_matrix is None:
+            return
+        matrix = tuple(tuple(row) for row in self.rtt_matrix)
+        object.__setattr__(self, "rtt_matrix", matrix)
+        c = self.n_clusters
+        if len(matrix) != c or any(len(row) != c for row in matrix):
+            raise ValueError(
+                f"rtt_matrix must be n_clusters x n_clusters = "
+                f"{c} x {c} (one row per querier cluster), got "
+                f"{len(matrix)} row(s) of lengths "
+                f"{[len(r) for r in matrix]}")
+        for i, row in enumerate(matrix):
+            for j, entry in enumerate(row):
+                if int(entry) != entry or entry < 0:
+                    raise ValueError(
+                        f"rtt_matrix[{i}][{j}] must be a non-negative "
+                        f"integer latency in rounds, got {entry!r}")
 
     def _validate_arrival(self) -> None:
         """The reference's rules for the live-traffic knobs: inert or
@@ -454,14 +816,18 @@ class AvalancheConfig:
                 "windowed ingest to fuse")
         if self.async_queries():
             raise ValueError(
-                "round_engine 'megakernel' covers the synchronous round "
-                "only: the in-flight ring delivers votes ACROSS rounds, "
-                "outside the one fused kernel")
+                "round_engine 'megakernel' covers the synchronous "
+                "round only: the in-flight ring (latency_mode / "
+                "partition_spec / fault_script events) delivers votes "
+                "ACROSS rounds, outside the one fused program — run "
+                "the async lanes on round_engine 'phased'")
         if self.inflight_engine != "walk":
             raise ValueError(
                 f"inflight_engine {self.inflight_engine!r} set with "
-                f"round_engine 'megakernel': the kernel covers the sync "
-                f"round, so the delivery-engine knob is inert")
+                f"round_engine 'megakernel': the kernel covers the "
+                f"sync round, so the delivery-engine knob is inert "
+                f"and would mislabel the A/B lane — leave it at "
+                f"'walk' (the default)")
         if self.skip_absent_votes:
             raise ValueError(
                 "round_engine 'megakernel' does not implement the "
@@ -492,12 +858,6 @@ class AvalancheConfig:
 # Fields the port declares but does not run yet -> the ROADMAP.md
 # Queue 1 item that ports them.
 _UNPORTED = {
-    "latency_mode": "item 10, async ring",
-    "latency_rounds": "item 10, async ring",
-    "partition_spec": "item 10, fault script",
-    "fault_script": "item 10, fault script",
-    "rtt_matrix": "item 10, async ring",
-    "inflight_engine": "item 10, async ring",
     "adversary_policy": "item 11, adaptive adversary",
     "adversary_margin": "item 11, adaptive adversary",
     "metrics_every": "item 14, metrics tap",

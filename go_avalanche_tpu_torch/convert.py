@@ -10,9 +10,13 @@ weights, and the key as two uint32 words.  `dag_state_from_numpy` and
 `dag_state_to_numpy` do the same for the conflict-DAG state: its base
 state, the int32 `conflict_set` and the `n_sets` / `set_size` statics.
 `family_state_from_numpy` and `family_state_to_numpy` carry the
-single-decree states (`SnowballState`, `SlushState`, `SnowflakeState`);
-the reference's async ring, fault parameters and trace plane, None in
-the synchronous round, have no counterpart.  `backlog_state_*`,
+single-decree states (`SnowballState`, `SlushState`, `SnowflakeState`).
+The async ring (`inflight`: int32 peers and latencies, bool responded
+and lie masks, and the poll-mask plane, bool or bit-packed uint8) and
+the realized stochastic fault parameters (`fault_params`, int32
+vectors) travel with the avalanche, DAG and Snowball states, and so
+with every scheduler state that wraps one; None stays None.  The
+reference's trace plane has no counterpart.  `backlog_state_*`,
 `streaming_dag_state_*` and `node_stream_state_*` carry the streaming
 schedulers' states: the window state, the slot maps, the backlog and
 outputs planes, the traffic plane (or None) and the registry planes.
@@ -31,6 +35,7 @@ from go_avalanche_tpu_torch.models import (backlog, dag, family, node_stream,
                                            snowball, streaming_dag)
 from go_avalanche_tpu_torch.models.avalanche import (AvalancheSimState,
                                                      _device, to_device)
+from go_avalanche_tpu_torch.ops.inflight import FaultParams, InflightState
 from go_avalanche_tpu_torch.ops.voterecord import VoteRecordState
 
 _DTYPES = {
@@ -62,6 +67,44 @@ def _key_from_numpy(words) -> torch.Tensor:
     return torch.from_numpy(np.asarray(words, np.uint32).astype(np.int64))
 
 
+def _optional(tree: Any, name: str):
+    """Leaf `name`, or None where the tree has no such field."""
+    if isinstance(tree, Mapping):
+        return tree.get(name)
+    return getattr(tree, name, None)
+
+
+_RING_DTYPES = {"peers": torch.int32, "lat": torch.int32,
+                "responded": torch.bool, "lie": torch.bool}
+
+
+def _ring_from_numpy(tree):
+    """The async ring from numpy leaves; the poll-mask plane keeps its
+    layout (bool, or uint8 bit-packed for the coalesced engine)."""
+    if tree is None:
+        return None
+    polled = np.array(_field(tree, "polled"))
+    return InflightState(
+        **{name: _tensor(_field(tree, name), dtype)
+           for name, dtype in _RING_DTYPES.items()},
+        polled=torch.from_numpy(polled))
+
+
+def _fault_params_from_numpy(tree):
+    if tree is None:
+        return None
+    return FaultParams(**{name: _tensor(_field(tree, name), torch.int32)
+                          for name in FaultParams._fields})
+
+
+def _async_from_numpy(tree) -> dict:
+    """The `inflight` and `fault_params` leaves of a reference state."""
+    return dict(
+        inflight=_ring_from_numpy(_optional(tree, "inflight")),
+        fault_params=_fault_params_from_numpy(
+            _optional(tree, "fault_params")))
+
+
 def state_from_numpy(tree: Any, device="cuda") -> AvalancheSimState:
     """The port's state on `device` from the reference state's numpy
     leaves."""
@@ -70,7 +113,8 @@ def state_from_numpy(tree: Any, device="cuda") -> AvalancheSimState:
               for name, dtype in _DTYPES.items()}
     return to_device(AvalancheSimState(
         records=_records_from_numpy(_field(tree, "records")),
-        key=_key_from_numpy(_field(tree, "key")), **leaves), device)
+        key=_key_from_numpy(_field(tree, "key")), **leaves,
+        **_async_from_numpy(tree)), device)
 
 
 def state_to_numpy(state: AvalancheSimState) -> AvalancheSimState:
@@ -85,6 +129,8 @@ def state_to_numpy(state: AvalancheSimState) -> AvalancheSimState:
                                 np_(rec.confidence).view(np.uint16)),
         **{name: np_(getattr(state, name)) for name in _DTYPES},
         key=np_(state.key).astype(np.uint32),
+        inflight=_np_tree(state.inflight),
+        fault_params=_np_tree(state.fault_params),
     )
 
 
@@ -127,6 +173,8 @@ def family_state_from_numpy(model: str, tree: Any, device="cuda"):
             leaves[name] = _records_from_numpy(_field(tree, name))
         elif name == "key":
             leaves[name] = _key_from_numpy(_field(tree, name))
+        elif name in ("inflight", "fault_params"):
+            leaves[name] = _async_from_numpy(tree)[name]
         else:
             leaves[name] = _tensor(_field(tree, name), _FAMILY_DTYPES[name])
     state = cls(**leaves)
@@ -151,7 +199,7 @@ def family_state_to_numpy(state):
         elif name == "key":
             leaves[name] = np_(x).astype(np.uint32)
         else:
-            leaves[name] = np_(x)
+            leaves[name] = _np_tree(x)
     return type(state)(**leaves)
 
 

@@ -10,7 +10,11 @@ ingest cycle on dense ``[nodes, txs]`` tensors:
     gather peer preferences + adversary / drop transforms
     k-vote window ingest        (RegisterVotes)
 
-`cfg.round_engine` selects the phased path (exchange as plain PyTorch,
+With `cfg.async_queries()` the round stamps each poll with a latency
+(and the fault script's spikes and cuts), enqueues it into the in-flight
+ring carried in the state, and delivers whatever the ring holds for this
+round through `ops/inflight.deliver_multi_engine` (plain PyTorch, as in
+the reference); otherwise `cfg.round_engine` selects the phased path (exchange as plain PyTorch,
 then the window ingest of `cfg.ingest_engine` through
 `ops/pallas_vote.register_packed_votes_fused`, a hand-written CUDA
 kernel on the card) or the megakernel (`ops/megakernel.py`, one
@@ -19,9 +23,8 @@ threefry key carried in the state (`prng.py`), split exactly as the
 reference splits it, so both packages walk the same trajectory from the
 same state.  Peers are drawn by `ops/sampling.draw_peers` (uniform,
 distinct, weighted, clustered or stake-weighted, the stake folded into
-`latency_weight` at `init`).  The async ring, fault scripts, adaptive
-adversary, metrics tap and trace plane are not ported (the config
-rejects them).
+`latency_weight` at `init`).  The adaptive adversary, metrics tap and
+trace plane are not ported (the config rejects them).
 
 The round's phases run under `torch.profiler.record_function` spans with
 the reference's `annotate` names (poll_mask, sample_peers,
@@ -39,8 +42,8 @@ import torch
 from go_avalanche_tpu_torch import prng, stake
 from go_avalanche_tpu_torch.config import (AvalancheConfig, DEFAULT_CONFIG,
                                            VoteMode)
-from go_avalanche_tpu_torch.ops import (adversary, exchange, megakernel,
-                                        pallas_vote)
+from go_avalanche_tpu_torch.ops import (adversary, exchange, inflight,
+                                        megakernel, pallas_vote)
 from go_avalanche_tpu_torch.ops import voterecord as vr
 from go_avalanche_tpu_torch.ops.bitops import pack_bool_plane, popcount8
 from go_avalanche_tpu_torch.ops.sampling import draw_peers
@@ -49,8 +52,8 @@ span = torch.profiler.record_function
 
 
 class AvalancheSimState(NamedTuple):
-    """Whole-network state; the reference's leaves minus the async ring,
-    fault parameters and trace plane (always None in the sync round)."""
+    """Whole-network state; the reference's leaves minus the trace
+    plane."""
 
     records: vr.VoteRecordState   # [N, T] uint8 / uint8 / int16 (u16 bits)
     added: torch.Tensor           # bool [N, T] — node reconciles target
@@ -64,10 +67,14 @@ class AvalancheSimState(NamedTuple):
     finalized_at: Optional[torch.Tensor]  # int32 [N, T]; -1 until final
     round: torch.Tensor           # int32 scalar
     key: torch.Tensor             # int64 [2] threefry key words
+    inflight: Optional[inflight.InflightState] = None  # the async ring,
+                                  # present iff cfg.async_queries()
+    fault_params: Optional[inflight.FaultParams] = None  # realized
+                                  # stochastic fault events, or None
 
 
 class SimTelemetry(NamedTuple):
-    """Per-round int32 scalars, the reference's fields; the async-ring
+    """Per-round int32 scalars, the reference's fields; the ring
     counters are zero in the synchronous round."""
 
     polls: torch.Tensor
@@ -93,16 +100,21 @@ def _device(device) -> torch.device:
     return dev
 
 
+def move_leaves(tree, device):
+    """Every tensor leaf of a (nested) tuple or NamedTuple on `device`;
+    None and plain ints pass."""
+    if isinstance(tree, torch.Tensor):
+        return tree.to(device)
+    if isinstance(tree, tuple):
+        leaves = (move_leaves(x, device) for x in tree)
+        return type(tree)(*leaves) if hasattr(tree, "_fields") else tuple(
+            leaves)
+    return tree
+
+
 def to_device(state: AvalancheSimState, device) -> AvalancheSimState:
     """Move every state leaf to `device`."""
-    dev = _device(device)
-
-    def move(x):
-        return None if x is None else x.to(dev)
-
-    return AvalancheSimState(
-        vr.VoteRecordState(*(move(x) for x in state.records)),
-        *(move(x) for x in state[1:]))
+    return move_leaves(state, _device(device))
 
 
 def contested_init_pref(seed: int, n_nodes: int, n_txs: int,
@@ -195,6 +207,10 @@ def init(
                                  device=dev) if track_finality else None),
         round=torch.zeros((), dtype=torch.int32, device=dev),
         key=key.to(dev, torch.int64),
+        inflight=(inflight.init_ring(cfg, n_nodes, n_txs, device=dev)
+                  if inflight.enabled(cfg) else None),
+        fault_params=inflight.draw_fault_params(
+            cfg, key.to(dev, torch.int64), n_nodes),
     )
 
 
@@ -260,20 +276,36 @@ def round_step(
             gossip_writes = _count(heard)
             added = added | new_adds
 
-    # --- gather peer preferences.
+    # --- gather peer preferences (at delivery time under async queries).
     megakernel_round = cfg.round_engine == "megakernel"
+    async_round = inflight.enabled(cfg)
     with span("gather_prefs"):
         prefs = vr.is_accepted(state.records.confidence)
         packed_prefs = pack_bool_plane(prefs)
         minority_t = adversary.minority_plane(prefs)
-        if not megakernel_round:
+        if not (megakernel_round or async_round):
             yes_pack, consider_pack = exchange.gather_vote_packs(
                 packed_prefs, peers, responded, lie, k_byz, cfg, minority_t,
                 t)
 
-    # --- ingest: the megakernel, or the phased window ingest.
+    # --- ingest: the async ring, the megakernel, or the phased ingest.
+    ring = state.inflight
     with span("fused_round" if megakernel_round else "ingest_votes"):
-        if megakernel_round:
+        if async_round:
+            # Stamp this round's polls with latencies, the fault
+            # script's spikes and cuts, enqueue them, and deliver what
+            # the ring holds for this round.  (The adaptive adversary's
+            # latency stamps are ROADMAP.md Queue 1 item 11.)
+            lat = inflight.draw_latency(k_sample, cfg, peers,
+                                        state.latency_weight, n)
+            lat = inflight.apply_faults(lat, cfg, state.round, 0, peers, n,
+                                        state.fault_params)
+            ring = inflight.enqueue(state.inflight, state.round, peers, lat,
+                                    responded, lie, polled)
+            records, changed, votes_applied = inflight.deliver_multi_engine(
+                ring, state.records, cfg, packed_prefs, minority_t, k_byz,
+                state.round, t, live_rows=state.alive)
+        elif megakernel_round:
             records, changed = megakernel.fused_round(
                 state.records, packed_prefs, peers, responded, lie,
                 minority_t, polled, cfg)
@@ -306,22 +338,28 @@ def round_step(
     alive = state.alive
     if cfg.churn_probability > 0.0:
         alive = alive ^ prng.bernoulli(k_churn, cfg.churn_probability, (n,))
+    alive = inflight.apply_churn_bursts(alive, cfg, state.round, k_churn)
 
+    rt = inflight.ring_telemetry(ring, cfg, state.round)
+    cut = (inflight.partition_cut(cfg, state.round, 0, peers, n,
+                                  state.fault_params)
+           if async_round else None)
     telemetry = SimTelemetry(
         polls=_count(polled),
         votes_applied=votes_applied.to(torch.int32),
         flips=_count(changed & ~newly_final),
         finalizations=_count(newly_final),
         admissions=admissions,
-        deliveries=zero,
-        expiries=zero,
-        ring_occupancy=zero,
-        partition_blocked=zero,
+        deliveries=rt.deliveries,
+        expiries=rt.expiries,
+        ring_occupancy=rt.occupancy,
+        partition_blocked=zero if cut is None else _count(cut),
         gossip_writes=gossip_writes,
     )
     new_state = state._replace(records=records, added=added, alive=alive,
                                finalized_at=finalized_at,
-                               round=state.round + 1, key=k_next)
+                               round=state.round + 1, key=k_next,
+                               inflight=ring)
     return new_state, telemetry
 
 

@@ -12,9 +12,10 @@ before every step.
 
 With `cfg.arrivals_enabled()` the state carries the live-traffic plane
 (`traffic.py`): admission is gated on the arrived watermark and retiring
-slots record their arrival -> settle latency.  The async ring
-(`ops/inflight.clear_columns`, ROADMAP.md Queue 1 item 10) and the
-metrics and trace taps (item 14) are not ported; the config rejects them.
+slots record their arrival -> settle latency.  Under async queries the
+freed columns leave every pending ring entry's poll mask
+(`ops/inflight.clear_columns`).  The metrics and trace taps (ROADMAP.md
+Queue 1 item 14) are not ported; the config rejects them.
 """
 
 from __future__ import annotations
@@ -28,6 +29,7 @@ from go_avalanche_tpu_torch import traffic as tf
 from go_avalanche_tpu_torch.config import (AvalancheConfig, DEFAULT_CONFIG,
                                            inner_round_config)
 from go_avalanche_tpu_torch.models import avalanche as av
+from go_avalanche_tpu_torch.ops import inflight
 from go_avalanche_tpu_torch.ops import voterecord as vr
 
 span = torch.profiler.record_function
@@ -240,9 +242,10 @@ def _retire_and_refill(state: BacklogSimState, cfg: AvalancheConfig,
     new_sim = sim._replace(
         records=records, added=added, valid=valid, score_rank=score_rank,
         poll_order=poll_order, poll_order_inv=poll_order_inv,
-        finalized_at=av.reset_finality(sim.finalized_at, take))
-    # (The reference also clears the freed columns from the async ring's
-    # pending polls: the ring is ROADMAP.md Queue 1 item 10.)
+        finalized_at=av.reset_finality(sim.finalized_at, take),
+        # Responses still in flight for a retired slot must not land on
+        # its new occupant.
+        inflight=inflight.clear_columns(sim.inflight, settled | take))
     return BacklogSimState(
         sim=new_sim,
         slot_tx=new_tx,

@@ -15,8 +15,12 @@ detects, reshapes to ``[N, S, c]``.  The preference order is the u16
 confidence word, which the int16 storage reads negative from 0x8000 on,
 so every max, min and argmax runs on the widened int32 word.  The round
 ingests through `ops/pallas_vote.register_packed_votes_fused`, as the
-avalanche round does.  The async ring, adaptive adversary, metrics tap
-and trace plane are not ported (the config rejects them).
+avalanche round does; under `cfg.async_queries()` the round enqueues its
+polls into the in-flight ring and delivers through
+`ops/inflight.deliver_multi_engine` instead, responses voting the
+responder's preferred-in-set plane as of the delivery round's start.  The
+adaptive adversary, metrics tap and trace plane are not ported (the
+config rejects them).
 """
 
 from __future__ import annotations
@@ -28,7 +32,8 @@ import torch
 from go_avalanche_tpu_torch import prng
 from go_avalanche_tpu_torch.config import AvalancheConfig, DEFAULT_CONFIG
 from go_avalanche_tpu_torch.models import avalanche as av
-from go_avalanche_tpu_torch.ops import adversary, exchange, pallas_vote
+from go_avalanche_tpu_torch.ops import (adversary, exchange, inflight,
+                                        pallas_vote)
 from go_avalanche_tpu_torch.ops import voterecord as vr
 from go_avalanche_tpu_torch.ops.bitops import pack_bool_plane, popcount8
 from go_avalanche_tpu_torch.ops.sampling import draw_peers
@@ -228,15 +233,32 @@ def round_step(
                                      state.n_sets)
         minority_t = adversary.minority_plane(prefs)
         packed_prefs = pack_bool_plane(prefs)
-        yes_pack, consider_pack = exchange.gather_vote_packs(
-            packed_prefs, peers, responded, lie, k_byz, cfg, minority_t, t)
+        async_round = inflight.enabled(cfg)
+        if not async_round:
+            yes_pack, consider_pack = exchange.gather_vote_packs(
+                packed_prefs, peers, responded, lie, k_byz, cfg, minority_t,
+                t)
 
+    ring = base.inflight
     with span("ingest_votes"):
-        records, changed = pallas_vote.register_packed_votes_fused(
-            base.records, yes_pack, consider_pack, cfg.k, cfg,
-            update_mask=polled)
-        votes_applied = (popcount8(consider_pack).to(torch.int32)
-                         * polled).sum()
+        if async_round:
+            # (The adaptive adversary's latency stamps are ROADMAP.md
+            # Queue 1 item 11.)
+            lat = inflight.draw_latency(k_sample, cfg, peers,
+                                        base.latency_weight, n)
+            lat = inflight.apply_faults(lat, cfg, base.round, 0, peers, n,
+                                        base.fault_params)
+            ring = inflight.enqueue(base.inflight, base.round, peers, lat,
+                                    responded, lie, polled)
+            records, changed, votes_applied = inflight.deliver_multi_engine(
+                ring, base.records, cfg, packed_prefs, minority_t, k_byz,
+                base.round, t, live_rows=base.alive)
+        else:
+            records, changed = pallas_vote.register_packed_votes_fused(
+                base.records, yes_pack, consider_pack, cfg.k, cfg,
+                update_mask=polled)
+            votes_applied = (popcount8(consider_pack).to(torch.int32)
+                             * polled).sum()
 
     fin_after = vr.has_finalized(records.confidence, cfg)
     newly_final = fin_after & ~fin
@@ -246,23 +268,28 @@ def round_step(
     alive = base.alive
     if cfg.churn_probability > 0.0:
         alive = alive ^ prng.bernoulli(k_churn, cfg.churn_probability, (n,))
+    alive = inflight.apply_churn_bursts(alive, cfg, base.round, k_churn)
 
     zero = torch.zeros((), dtype=torch.int32, device=peers.device)
+    rt = inflight.ring_telemetry(ring, cfg, base.round)
+    cut = (inflight.partition_cut(cfg, base.round, 0, peers, n,
+                                  base.fault_params)
+           if async_round else None)
     telemetry = av.SimTelemetry(
         polls=av._count(polled),
         votes_applied=votes_applied.to(torch.int32),
         flips=av._count(changed & ~newly_final),
         finalizations=av._count(newly_final),
         admissions=zero,
-        deliveries=zero,
-        expiries=zero,
-        ring_occupancy=zero,
-        partition_blocked=zero,
+        deliveries=rt.deliveries,
+        expiries=rt.expiries,
+        ring_occupancy=rt.occupancy,
+        partition_blocked=zero if cut is None else av._count(cut),
         gossip_writes=zero,
     )
     new_base = base._replace(records=records, alive=alive,
                              finalized_at=finalized_at,
-                             round=base.round + 1, key=k_next)
+                             round=base.round + 1, key=k_next, inflight=ring)
     return state._replace(base=new_base), telemetry
 
 

@@ -12,9 +12,10 @@ from the registry prior.  The window stays full: a departure with no
 drawable replacement is cancelled.
 
 The churn stream folds its own key off the sim's init key, so the
-consensus draws never move.  The async ring (`ops/inflight.clear_rows`,
-ROADMAP.md Queue 1 item 10) and the metrics and trace taps (item 14) are
-not ported; the config rejects them.  The telemetry's resident-stake
+consensus draws never move.  Under async queries the swapped rows leave
+the ring as queriers and as polled peers (`ops/inflight.clear_rows`).
+The metrics and trace taps (ROADMAP.md Queue 1 item 14) are not ported;
+the config rejects them.  The telemetry's resident-stake
 fraction sums in float64 and rounds once, so the CPU and the card agree;
 XLA:CPU's float32 sum takes its own order (ROADMAP.md Queue 3).
 """
@@ -31,6 +32,7 @@ from go_avalanche_tpu_torch.config import (AvalancheConfig, DEFAULT_CONFIG,
                                            inner_round_config)
 from go_avalanche_tpu_torch.models import avalanche as av
 from go_avalanche_tpu_torch.models.backlog import move_tree, stack_tree
+from go_avalanche_tpu_torch.ops import inflight
 from go_avalanche_tpu_torch.ops import voterecord as vr
 
 # The registry-churn stream's key is fold_in(sim init key, this).
@@ -159,9 +161,10 @@ def churn(state: NodeStreamState, cfg: AvalancheConfig
                       else torch.where(rows, -1, sim.finalized_at)),
         latency_weight=state.stake[new_slot.long()],
         byzantine=_registry_byzantine(cfg, r, swap.device)[new_slot.long()],
-        alive=swap | sim.alive)
-    # (The reference also clears the swapped rows from the async ring:
-    # ROADMAP.md Queue 1 item 10.)
+        alive=swap | sim.alive,
+        # Responses still in flight for a departed node must not land on,
+        # or be answered in the name of, its replacement.
+        inflight=inflight.clear_rows(sim.inflight, swap, peer_rows=swap))
     return state._replace(
         sim=new_sim, slot_node=new_slot, resident=resident,
         churn_key=k_next, churned_in=state.churned_in + n_swapped,

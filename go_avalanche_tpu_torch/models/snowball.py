@@ -12,25 +12,28 @@ through `ops/pallas_vote.register_packed_votes_fused` on an ``[N, 1]``
 view of the records, which launches the ingest kernel of
 `cfg.ingest_engine` on the card.  The MAJORITY mode reduces the k votes
 to one chit per round (`voterecord.register_vote`).  Randomness is the
-reference's: the state's threefry key split five ways per round.  The
-async ring, fault parameters and trace plane are not ported (the config
-rejects what would need them), and a node whose record finalized keeps
+reference's: the state's threefry key split five ways per round.  Under
+`cfg.async_queries()` the round enqueues its polls into the in-flight
+ring (a bool ``[D, N]`` poll mask) and the response gather and adversary
+transform move to delivery time (`ops/inflight.deliver_1d_engine`).  The
+trace plane is not ported, and a node whose record finalized keeps
 answering with its final preference, as in the reference.
 """
 
 from __future__ import annotations
 
 import math
-from typing import NamedTuple, Tuple
+from typing import NamedTuple, Optional, Tuple
 
 import torch
 
 from go_avalanche_tpu_torch import prng
 from go_avalanche_tpu_torch.config import (AvalancheConfig, DEFAULT_CONFIG,
                                            VoteMode)
-from go_avalanche_tpu_torch.models.avalanche import _device
-from go_avalanche_tpu_torch.ops import adversary, pallas_vote
+from go_avalanche_tpu_torch.models.avalanche import _device, move_leaves
+from go_avalanche_tpu_torch.ops import adversary, inflight, pallas_vote
 from go_avalanche_tpu_torch.ops import voterecord as vr
+from go_avalanche_tpu_torch.ops.bitops import pack_draws
 from go_avalanche_tpu_torch.ops.sampling import sample_peers_uniform
 
 
@@ -43,10 +46,12 @@ class SnowballState(NamedTuple):
     finalized_at: torch.Tensor    # int32 [N]; -1 until finalized
     round: torch.Tensor           # int32 scalar
     key: torch.Tensor             # int64 [2] threefry key words
+    inflight: Optional[inflight.InflightState] = None  # the async ring
+    fault_params: Optional[inflight.FaultParams] = None
 
 
 class RoundTelemetry(NamedTuple):
-    """Per-round int32 scalars, the reference's fields; the async-ring
+    """Per-round int32 scalars, the reference's fields; the ring
     counters are zero in the synchronous round."""
 
     flips: torch.Tensor
@@ -60,10 +65,7 @@ class RoundTelemetry(NamedTuple):
 
 def to_device(state: SnowballState, device) -> SnowballState:
     """Move every state leaf to `device`."""
-    dev = _device(device)
-    return SnowballState(vr.VoteRecordState(*(x.to(dev)
-                                              for x in state.records)),
-                         *(x.to(dev) for x in state[1:]))
+    return move_leaves(state, _device(device))
 
 
 def init(key: torch.Tensor, n_nodes: int,
@@ -73,7 +75,8 @@ def init(key: torch.Tensor, n_nodes: int,
     the CPU): each node starts yes with probability `yes_fraction`, the
     first ``round(byzantine_fraction * N)`` nodes are byzantine."""
     dev = _device(device)
-    k_pref, k_next = prng.split(key.to(dev, torch.int64))
+    key = key.to(dev, torch.int64)
+    k_pref, k_next = prng.split(key)
     n_byz = int(round(cfg.byzantine_fraction * n_nodes))
     return SnowballState(
         records=vr.init_state(prng.bernoulli(k_pref, yes_fraction,
@@ -84,14 +87,10 @@ def init(key: torch.Tensor, n_nodes: int,
                                 device=dev),
         round=torch.zeros((), dtype=torch.int32, device=dev),
         key=k_next,
+        inflight=(inflight.init_ring(cfg, n_nodes, device=dev)
+                  if inflight.enabled(cfg) else None),
+        fault_params=inflight.draw_fault_params(cfg, key, n_nodes),
     )
-
-
-def _pack(bits: torch.Tensor) -> torch.Tensor:
-    """uint8 ``[N]`` with bit j = column j of the bool ``[N, k]``."""
-    shifts = torch.arange(bits.shape[1], dtype=torch.uint8,
-                          device=bits.device)
-    return (bits.to(torch.uint8) << shifts).sum(dim=1).to(torch.uint8)
 
 
 def _ingest_sequential(records: vr.VoteRecordState, yes_pack, consider_pack,
@@ -133,19 +132,37 @@ def round_step(state: SnowballState, cfg: AvalancheConfig = DEFAULT_CONFIG
 
     fin_before = vr.has_finalized(state.records.confidence, cfg)
     update_mask = ~fin_before & state.alive
-    peer_votes = adversary.apply_1d(k_byz, prefs[peers_l], lie, cfg, prefs)
-    if cfg.vote_mode is VoteMode.SEQUENTIAL:
-        records, changed = _ingest_sequential(
-            state.records, _pack(peer_votes), _pack(responded), cfg,
-            update_mask)
+    ring = state.inflight
+    if inflight.enabled(cfg):
+        # The gather and adversary transform run at delivery time.
+        # Snowball has no latency_weight plane: "weighted" latency reads
+        # uniform weights (all 0).  (The adaptive adversary's latency
+        # stamps are ROADMAP.md Queue 1 item 11.)
+        lat = inflight.draw_latency(
+            k_sample, cfg, peers,
+            torch.ones(n, dtype=torch.float32, device=peers.device), n)
+        lat = inflight.apply_faults(lat, cfg, state.round, 0, peers, n,
+                                    state.fault_params)
+        ring = inflight.enqueue(state.inflight, state.round, peers, lat,
+                                responded, lie, update_mask)
+        records, changed = inflight.deliver_1d_engine(
+            ring, state.records, cfg, prefs, k_byz, state.round,
+            live_rows=state.alive)
     else:
-        thresh = math.ceil(cfg.alpha * cfg.k)
-        yes_cnt = (peer_votes & responded).sum(dim=1)
-        no_cnt = (~peer_votes & responded).sum(dim=1)
-        err = torch.where(yes_cnt >= thresh, 0,
-                          torch.where(no_cnt >= thresh, 1, -1))
-        records, changed = vr.register_vote(state.records, err, cfg,
-                                            update_mask)
+        peer_votes = adversary.apply_1d(k_byz, prefs[peers_l], lie, cfg,
+                                        prefs)
+        if cfg.vote_mode is VoteMode.SEQUENTIAL:
+            records, changed = _ingest_sequential(
+                state.records, pack_draws(peer_votes), pack_draws(responded),
+                cfg, update_mask)
+        else:
+            thresh = math.ceil(cfg.alpha * cfg.k)
+            yes_cnt = (peer_votes & responded).sum(dim=1)
+            no_cnt = (~peer_votes & responded).sum(dim=1)
+            err = torch.where(yes_cnt >= thresh, 0,
+                              torch.where(no_cnt >= thresh, 1, -1))
+            records, changed = vr.register_vote(state.records, err, cfg,
+                                                update_mask)
 
     fin_after = vr.has_finalized(records.confidence, cfg)
     newly_final = fin_after & ~fin_before
@@ -155,17 +172,25 @@ def round_step(state: SnowballState, cfg: AvalancheConfig = DEFAULT_CONFIG
     alive = state.alive
     if cfg.churn_probability > 0.0:
         alive = alive ^ prng.bernoulli(k_churn, cfg.churn_probability, (n,))
+    alive = inflight.apply_churn_bursts(alive, cfg, state.round, k_churn)
 
-    zero = torch.zeros((), dtype=torch.int32, device=peers.device)
+    rt = inflight.ring_telemetry(ring, cfg, state.round)
+    cut = (inflight.partition_cut(cfg, state.round, 0, peers, n,
+                                  state.fault_params)
+           if inflight.enabled(cfg) else None)
     telemetry = RoundTelemetry(
         flips=_count(changed & ~newly_final),
         finalizations=_count(newly_final),
         yes_preferences=_count(vr.is_accepted(records.confidence)),
-        deliveries=zero, expiries=zero, ring_occupancy=zero,
-        partition_blocked=zero)
+        deliveries=rt.deliveries, expiries=rt.expiries,
+        ring_occupancy=rt.occupancy,
+        partition_blocked=(torch.zeros((), dtype=torch.int32,
+                                       device=peers.device)
+                           if cut is None else _count(cut)))
     return SnowballState(records=records, byzantine=state.byzantine,
                          alive=alive, finalized_at=finalized_at,
-                         round=state.round + 1, key=k_next), telemetry
+                         round=state.round + 1, key=k_next, inflight=ring,
+                         fault_params=state.fault_params), telemetry
 
 
 def live_unfinished(state: SnowballState,

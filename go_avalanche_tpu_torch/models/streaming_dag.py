@@ -15,8 +15,9 @@ round and rewrites only their columns; when a round's free slots fit
 the cap the trajectory equals the dense path.  `run_chunked` is `run`
 dispatched in `chunk`-round pieces with a `progress` hook; its
 checkpoints belong to ROADMAP.md Queue 1 item 16 and are not ported.
-The async ring (item 10) and the metrics and trace taps (item 14) are
-not ported either; the config rejects them.
+Under async queries the freed columns leave every pending ring entry's
+poll mask (`ops/inflight.clear_columns`).  The metrics and trace taps
+(item 14) are not ported either; the config rejects them.
 """
 
 from __future__ import annotations
@@ -35,6 +36,7 @@ from go_avalanche_tpu_torch.models import dag as dag_model
 from go_avalanche_tpu_torch.models.backlog import (EMPTY_SCORE, NO_TX,
                                                    move_tree, set_drop, span,
                                                    stack_tree)
+from go_avalanche_tpu_torch.ops import inflight
 from go_avalanche_tpu_torch.ops import voterecord as vr
 
 NO_SET = NO_TX   # empty set-slot sentinel (-1)
@@ -306,9 +308,11 @@ def _retire_and_refill(state: StreamingDagState, cfg: AvalancheConfig,
     new_base = base._replace(
         records=records, added=added, valid=valid, score_rank=score_rank,
         poll_order=poll_order, poll_order_inv=poll_order_inv,
-        finalized_at=finalized_at)
-    # (The reference also clears the freed columns from the async ring's
-    # pending polls: the ring is ROADMAP.md Queue 1 item 10.)
+        finalized_at=finalized_at,
+        # Responses still in flight for a retired set-slot must not land
+        # on its new occupant.
+        inflight=inflight.clear_columns(base.inflight,
+                                        (settled | take).repeat_interleave(c)))
     return StreamingDagState(
         dag=state.dag._replace(base=new_base),
         slot_set=new_set,

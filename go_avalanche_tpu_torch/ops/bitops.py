@@ -33,6 +33,14 @@ def pack_bool_plane(x: torch.Tensor) -> torch.Tensor:
     return out
 
 
+def pack_draws(bits: torch.Tensor) -> torch.Tensor:
+    """bool ``[rows, k]`` (k <= 8) -> uint8 ``[rows]``, bit j = draw j."""
+    out = torch.zeros(bits.shape[:1], dtype=torch.uint8, device=bits.device)
+    for j in range(bits.shape[1]):
+        out |= bits[:, j].to(torch.uint8) << j
+    return out
+
+
 def unpack_bool_plane(packed: torch.Tensor, t: int) -> torch.Tensor:
     """Inverse of `pack_bool_plane`: uint8 ``[..., ceil(t/8)]`` -> bool
     ``[..., t]``."""

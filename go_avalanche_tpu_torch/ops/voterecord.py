@@ -415,3 +415,44 @@ def _register_packed_votes_skip(state, yes_pack, present_pack, k: int,
         any_changed |= ch2 & present
     new = VoteRecordState(votes, consider, narrow_confidence(confidence))
     return _masked(state, new, any_changed, update_mask)
+
+
+def register_packed_votes_present(
+    state: VoteRecordState,
+    yes_pack: torch.Tensor,
+    consider_pack: torch.Tensor,
+    present_pack: torch.Tensor,
+    k: int,
+    cfg: AvalancheConfig = DEFAULT_CONFIG,
+    update_mask: Optional[torch.Tensor] = None,
+) -> Tuple[VoteRecordState, torch.Tensor]:
+    """Three-plane ingest of the async query ring (`ops/inflight.py`).
+
+    Per vote slot j the PRESENT bit selects one of three outcomes:
+    present off registers nothing (the query is still in flight, was
+    delivered earlier or was never sent); present on with consider off
+    is a delivered absence (a non-response at its delivery round, or an
+    expiry under the delivered-neutral semantics) that shifts the window
+    with its consider bit off; present on with consider on is a real
+    vote.  With present all ones this equals `register_packed_votes`
+    with ``absent_is_skip=False``.  Plain per-slot `_apply_vote_bits`
+    and a select, as in the reference; all three planes broadcast to the
+    state's shape."""
+    if not (0 < k <= 8):
+        raise ValueError("k must be in (0, 8] for uint8 packing")
+    votes, consider = state.votes, state.consider
+    confidence = widen_confidence(state.confidence)
+    any_changed = torch.zeros(votes.shape, dtype=torch.bool,
+                              device=votes.device)
+    for j in range(k):
+        present = ((present_pack >> j) & 1).to(torch.bool)
+        yes_bit = ((yes_pack >> j) & 1).to(torch.bool)
+        cons_bit = ((consider_pack >> j) & 1).to(torch.bool)
+        v2, c2, conf2, ch2 = _apply_vote_bits(votes, consider, confidence,
+                                              yes_bit, cons_bit, cfg)
+        votes = torch.where(present, v2, votes)
+        consider = torch.where(present, c2, consider)
+        confidence = torch.where(present, conf2, confidence)
+        any_changed |= ch2 & present
+    new = VoteRecordState(votes, consider, narrow_confidence(confidence))
+    return _masked(state, new, any_changed, update_mask)

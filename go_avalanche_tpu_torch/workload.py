@@ -1,11 +1,21 @@
 """The port's workloads, copied (not imported: `benchmarks/` imports JAX).
 
-  flagship — `benchmarks/workload.py`, synchronous lane only: the config
-             and state the reference's `bench.py` times, 16384 nodes x
+  flagship — `benchmarks/workload.py` (lines 29-130): the config and
+             state the reference's `bench.py` times, 16384 nodes x
              16384 txs at its full size, k=8, finalization out of reach
              within a timed window (0x7FFE), gossip off (a pre-seeded
              feed, as in the reference example `main.go:49-53`), the
-             poll cap over every tx, seeded with ``key(0)``;
+             poll cap over every tx, seeded with ``key(0)``; with
+             ``latency > 0`` its async lane (`bench.py --latency`):
+             fixed latency, one-second rounds and the timeout at
+             ``default_timeout_rounds(latency)``, on the chosen delivery
+             engine, optionally under a fault script (the reference's
+             `flagship_faults` program, `FLAGSHIP_FAULTS`);
+  faults   — `examples/fault_scenarios.py`'s studies at their example
+             shape, 512 nodes x 64 txs, contested priors, seed 0:
+             `measure()` (lines 76-116, the partition that heals) and
+             the three `SCENARIOS` (lines 174-240), each with the JAX
+             package's own per-round record (`FAULT_STUDY_RECORDS`);
   DAG      — `benchmarks/baseline_suite.config2_dag`, BASELINE.json's
              "Avalanche DAG: 10k nodes, 10k-tx UTXO conflict graph":
              10000 nodes x 10000 txs in 2-tx double-spend sets
@@ -53,12 +63,13 @@ port's weights and on jax's, so config 4 is gated on the record.
 from __future__ import annotations
 
 import dataclasses
-from typing import Dict, Tuple
+from typing import Dict, Optional, Tuple
 
 import torch
 
 from go_avalanche_tpu_torch import prng
-from go_avalanche_tpu_torch.config import AdversaryStrategy, AvalancheConfig
+from go_avalanche_tpu_torch.config import (AdversaryStrategy, AvalancheConfig,
+                                           fault_script_from_json)
 from go_avalanche_tpu_torch.models import avalanche as av
 from go_avalanche_tpu_torch.models import backlog, dag, snowball
 from go_avalanche_tpu_torch.models import streaming_dag
@@ -67,20 +78,106 @@ FLAGSHIP_NODES = FLAGSHIP_TXS = 16384
 DAG_NODES = DAG_TXS = 10_000
 
 
-def flagship_config(txs: int, k: int = 8,
-                    round_engine: str = "phased") -> AvalancheConfig:
-    """The flagship config for a `txs`-wide network."""
+# The reference's `flagship_faults` script (`benchmarks/hlo_pin.py`): a
+# 50/50 partition over rounds [5, 10), then a +2 latency spike over
+# [12, 15), in the JSON spelling.
+FLAGSHIP_FAULTS = [["partition", 5, 10, 0.5], ["latency_spike", 12, 15, 2]]
+
+
+def default_timeout_rounds(latency_rounds: int) -> int:
+    """The async bench lane's timeout: 2 * latency + 2 rounds — the
+    port's copy of `go_avalanche_tpu/obs/tags.default_timeout_rounds`."""
+    return 2 * latency_rounds + 2
+
+
+def flagship_config(txs: int, k: int = 8, latency: int = 0,
+                    latency_mode: str = "fixed",
+                    timeout_rounds: Optional[int] = None,
+                    inflight_engine: str = "walk",
+                    round_engine: str = "phased",
+                    faults: Optional[list] = None) -> AvalancheConfig:
+    """The flagship config for a `txs`-wide network.  ``latency > 0``
+    selects the async lane: `latency_mode` at `latency` rounds,
+    ``time_step_s=1`` and the timeout at `timeout_rounds` (default
+    `default_timeout_rounds`), on `inflight_engine`; `faults` is a
+    JSON-spelled fault script (`fault_script_from_json`)."""
+    async_kw = {}
+    if latency > 0:
+        tr = (default_timeout_rounds(latency) if timeout_rounds is None
+              else timeout_rounds)
+        if latency_mode == "fixed" and tr <= latency:
+            raise ValueError(
+                f"timeout_rounds={tr} <= latency={latency}: every fixed-"
+                f"latency draw would expire unanswered — the bench lane "
+                f"measures delivery, not a timeout storm")
+        async_kw = dict(latency_mode=latency_mode, latency_rounds=latency,
+                        time_step_s=1.0, request_timeout_s=float(tr - 1),
+                        inflight_engine=inflight_engine)
+    if faults is not None:
+        async_kw["fault_script"] = fault_script_from_json(faults)
     return AvalancheConfig(finalization_score=0x7FFE, k=k, gossip=False,
                            max_element_poll=max(4096, txs),
-                           round_engine=round_engine)
+                           round_engine=round_engine, **async_kw)
 
 
-def flagship_state(nodes: int, txs: int, k: int = 8,
-                   round_engine: str = "phased", device="cuda"
+def flagship_state(nodes: int, txs: int, k: int = 8, latency: int = 0,
+                   device="cuda", **kwargs
                    ) -> Tuple[av.AvalancheSimState, AvalancheConfig]:
-    """``(state, cfg)`` of the flagship workload on `device`."""
-    cfg = flagship_config(txs, k, round_engine)
+    """``(state, cfg)`` of the flagship workload on `device`; `kwargs`
+    pass to `flagship_config`."""
+    cfg = flagship_config(txs, k, latency, **kwargs)
     return av.init(prng.key(0, device), nodes, txs, cfg, device=device), cfg
+
+
+FAULT_STUDY_SHAPE = (512, 64)        # nodes, txs
+FAULT_STUDY_TIMEOUT = 4              # timeout_rounds of every study
+
+
+def fault_study_config(name: str, inflight_engine: str = "walk"
+                       ) -> Tuple[AvalancheConfig, int]:
+    """``(cfg, rounds)`` of a fault study: "measure" (a 50/50 partition
+    over [5, 60), latency 1, 130 rounds), "cascading_outage" (clusters 0
+    and 1 dark over [10, 30) and [20, 40) of 4, 70 rounds), "flaky_isp"
+    (cluster 2 at RTT 3, others 1, spikes +2 over [12, 16) and [30, 34),
+    60 rounds) or "eclipse" (a 12.5% split over [15, 45), 80 rounds);
+    finalization score 48, one-second rounds, timeout 4, delivered by
+    `inflight_engine`."""
+    timing = dict(finalization_score=48, time_step_s=1.0,
+                  request_timeout_s=float(FAULT_STUDY_TIMEOUT - 1),
+                  inflight_engine=inflight_engine)
+    if name == "measure":
+        return AvalancheConfig(latency_mode="fixed", latency_rounds=1,
+                               partition_spec=(5, 60, 0.5), **timing), 130
+    if name == "cascading_outage":
+        return AvalancheConfig(
+            n_clusters=4, latency_mode="fixed", latency_rounds=1,
+            fault_script=(("regional_outage", 10, 30, 0),
+                          ("regional_outage", 20, 40, 1)), **timing), 70
+    if name == "flaky_isp":
+        rtt = tuple(tuple(3 if 2 in (i, j) and i != j else 1
+                          for j in range(4)) for i in range(4))
+        return AvalancheConfig(
+            n_clusters=4, latency_mode="rtt", rtt_matrix=rtt,
+            fault_script=(("latency_spike", 12, 16, 2),
+                          ("latency_spike", 30, 34, 2)), **timing), 60
+    if name == "eclipse":
+        return AvalancheConfig(
+            latency_mode="fixed", latency_rounds=1,
+            fault_script=(("partition", 15, 45, 0.125),), **timing), 80
+    raise ValueError(f"unknown fault study {name!r}")
+
+
+def fault_study_state(name: str, inflight_engine: str = "walk",
+                      device="cuda"
+                      ) -> Tuple[av.AvalancheSimState, AvalancheConfig, int]:
+    """``(state, cfg, rounds)`` of a fault study on `device`: contested
+    per-node priors, seeded with ``key(0)``."""
+    cfg, rounds = fault_study_config(name, inflight_engine)
+    n, t = FAULT_STUDY_SHAPE
+    state = av.init(prng.key(0, device), n, t, cfg,
+                    init_pref=av.contested_init_pref(0, n, t, device),
+                    device=device)
+    return state, cfg, rounds
 
 
 def dag_baseline_config(txs: int) -> AvalancheConfig:
@@ -88,10 +185,11 @@ def dag_baseline_config(txs: int) -> AvalancheConfig:
     return AvalancheConfig(max_element_poll=max(4096, txs))
 
 
-def dag_baseline_state(nodes: int, txs: int, device="cuda"
+def dag_baseline_state(nodes: int, txs: int, device="cuda", **knobs
                        ) -> Tuple[dag.DagSimState, AvalancheConfig]:
-    """``(state, cfg)`` of the DAG baseline on `device`."""
-    cfg = dag_baseline_config(txs)
+    """``(state, cfg)`` of the DAG baseline on `device`; `knobs` replace
+    config fields (the async lane's latency, say)."""
+    cfg = dataclasses.replace(dag_baseline_config(txs), **knobs)
     conflict_set = torch.arange(txs, dtype=torch.int32) // 2
     return dag.init(prng.key(0, device), nodes, conflict_set, cfg,
                     device=device), cfg
@@ -148,11 +246,11 @@ def config0_state(device="cuda") -> Tuple[av.AvalancheSimState,
     return av.init(prng.key(0, device), 100, 100, cfg, device=device), cfg
 
 
-def config1_state(quick: bool = False, device="cuda"
+def config1_state(quick: bool = False, device="cuda", **knobs
                   ) -> Tuple[snowball.SnowballState, AvalancheConfig]:
     """``(state, cfg)`` of config 1: Snowball, 1000 nodes (64 quick),
-    yes_fraction 0.5."""
-    cfg = AvalancheConfig()
+    yes_fraction 0.5; `knobs` set config fields."""
+    cfg = AvalancheConfig(**knobs)
     n = 64 if quick else 1000
     return snowball.init(prng.key(0, device), n, cfg, yes_fraction=0.5,
                          device=device), cfg
@@ -210,12 +308,14 @@ def config5_config(window: int) -> AvalancheConfig:
     return AvalancheConfig(gossip=False, max_element_poll=window)
 
 
-def config5_state(quick: bool = False, device="cuda", n_txs: int = None
+def config5_state(quick: bool = False, device="cuda", n_txs: int = None,
+                  **knobs
                   ) -> Tuple[backlog.BacklogSimState, AvalancheConfig]:
     """``(state, cfg)`` of config 5 on `device`; `n_txs` cuts the backlog
-    to its first `n_txs` scores of the same draw."""
+    to its first `n_txs` scores of the same draw, `knobs` replace config
+    fields."""
     n, b, w = config5_shape(quick)
-    cfg = config5_config(w)
+    cfg = dataclasses.replace(config5_config(w), **knobs)
     scores = prng.randint(prng.key(_SCORE_SEED, device), (b,), 0, _SCORE_MAX)
     if n_txs is not None:
         scores = scores[:n_txs]
@@ -247,3 +347,194 @@ def northstar_state(nodes: int, backlog_sets: int, set_cap: int,
                               window_sets, queue, cfg,
                               track_finality=track_finality,
                               device=device), cfg
+# `FAULT_STUDY_RECORDS`: the JAX package's own run of each fault study
+# (`avalanche.run_scan` on the CPU, seed 0): the per-round ring and
+# finality series and the final finalized fraction.  Every study path is
+# integer, so the record holds on any backend; tests/test_torch_faults.py
+# reproduces it from the JAX package.
+FAULT_STUDY_RECORDS = {
+    "measure": {
+        "finalizations": [
+            0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 1, 0, 0, 0, 0, 0,
+            0, 1, 0, 0, 0, 0, 1, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 1, 5, 1,
+            2, 1, 0, 1, 0, 0, 1, 0, 2, 2, 3, 2, 5, 3, 2, 2, 3, 36, 104, 182,
+            1077, 2957, 5788, 7375, 6555, 4166, 1427, 1032, 845, 369, 395, 360,
+            61, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0,
+            0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0,
+            0, 0, 0, 0, 0, 0, 0, 0, 0, 0
+        ],
+        "deliveries": [
+            0, 4096, 4096, 4096, 4096, 4096, 2094, 2066, 2049, 2030, 2052,
+            2043, 2057, 2101, 2052, 2125, 2008, 2065, 2022, 2053, 2094, 2007,
+            2074, 2072, 2030, 2088, 2003, 2035, 2016, 2085, 2064, 2090, 2070,
+            2055, 2043, 2029, 2026, 1996, 2068, 2060, 2067, 2075, 2049, 2096,
+            2070, 2026, 2086, 2010, 1961, 2049, 2046, 2042, 2030, 2057, 2016,
+            2070, 2053, 2020, 2040, 2141, 2069, 4096, 4096, 4096, 4096, 4096,
+            4096, 4096, 4096, 4096, 4096, 4096, 4096, 4096, 4096, 4096, 4096,
+            4096, 4096, 4096, 4096, 4096, 4096, 4096, 4096, 4096, 4096, 4096,
+            4096, 4096, 4096, 4096, 4096, 4096, 4096, 4096, 4096, 4096, 4096,
+            4096, 4096, 4096, 4096, 4096, 4096, 4096, 4096, 4096, 4096, 4096,
+            4096, 4096, 4096, 4096, 4096, 4096, 4096, 4096, 4096, 4096, 4096,
+            4096, 4096, 4096, 4096, 4096, 4096, 4096, 4096, 4096
+        ],
+        "expiries": [
+            0, 0, 0, 0, 0, 0, 0, 0, 0, 2002, 2030, 2047, 2066, 2044, 2053,
+            2039, 1995, 2044, 1971, 2088, 2031, 2074, 2043, 2002, 2089, 2022,
+            2024, 2066, 2008, 2093, 2061, 2080, 2011, 2032, 2006, 2026, 2041,
+            2053, 2067, 2070, 2100, 2028, 2036, 2029, 2021, 2047, 2000, 2026,
+            2070, 2010, 2086, 2135, 2047, 2050, 2054, 2066, 2039, 2080, 2026,
+            2043, 2076, 2056, 1955, 2027, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0,
+            0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0,
+            0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0,
+            0, 0, 0, 0, 0, 0, 0, 0, 0, 0
+        ],
+        "partition_blocked": [
+            0, 0, 0, 0, 0, 2002, 2030, 2047, 2066, 2044, 2053, 2039, 1995,
+            2044, 1971, 2088, 2031, 2074, 2043, 2002, 2089, 2022, 2024, 2066,
+            2008, 2093, 2061, 2080, 2011, 2032, 2006, 2026, 2041, 2053, 2067,
+            2070, 2100, 2028, 2036, 2029, 2021, 2047, 2000, 2026, 2070, 2010,
+            2086, 2135, 2047, 2050, 2054, 2066, 2039, 2080, 2026, 2043, 2076,
+            2056, 1955, 2027, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0,
+            0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0,
+            0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0,
+            0, 0, 0, 0, 0, 0, 0, 0, 0, 0
+        ],
+        "ring_occupancy": [
+            4096, 4096, 4096, 4096, 4096, 4096, 6098, 8128, 10175, 10239,
+            10253, 10259, 10232, 10183, 10174, 10106, 10199, 10186, 10289,
+            10244, 10215, 10230, 10209, 10231, 10208, 10194, 10263, 10258,
+            10330, 10248, 10219, 10145, 10160, 10169, 10216, 10257, 10286,
+            10333, 10294, 10260, 10189, 10182, 10193, 10164, 10169, 10192,
+            10202, 10262, 10327, 10364, 10328, 10247, 10266, 10255, 10281,
+            10241, 10245, 10241, 10271, 10183, 10134, 8078, 6123, 4096, 4096,
+            4096, 4096, 4096, 4096, 4096, 4096, 4096, 4096, 4096, 4096, 4096,
+            4096, 4096, 4096, 4096, 4096, 4096, 4096, 4096, 4096, 4096, 4096,
+            4096, 4096, 4096, 4096, 4096, 4096, 4096, 4096, 4096, 4096, 4096,
+            4096, 4096, 4096, 4096, 4096, 4096, 4096, 4096, 4096, 4096, 4096,
+            4096, 4096, 4096, 4096, 4096, 4096, 4096, 4096, 4096, 4096, 4096,
+            4096, 4096, 4096, 4096, 4096, 4096, 4096, 4096, 4096, 4096
+        ],
+        "finalized_fraction": 1.0,
+    },
+    "cascading_outage": {
+        "finalizations": [
+            0, 0, 0, 0, 0, 0, 0, 0, 12, 212, 1489, 3488, 4799, 4484, 3370,
+            2749, 2373, 1945, 1508, 1210, 1066, 889, 802, 596, 365, 352, 261,
+            206, 174, 133, 84, 61, 47, 33, 26, 13, 9, 5, 3, 1, 1, 1, 0, 1, 0,
+            0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0,
+            0, 0, 0
+        ],
+        "deliveries": [
+            0, 4065, 4068, 4074, 4070, 4072, 4071, 4071, 4069, 4063, 4070,
+            3667, 3651, 3641, 3675, 3637, 3667, 3653, 3648, 3683, 3659, 3400,
+            3389, 3387, 3363, 3412, 3369, 3372, 3388, 3395, 3320, 3665, 3643,
+            3643, 3621, 3709, 3687, 3677, 3666, 3698, 3662, 4068, 4079, 4065,
+            4076, 4067, 4069, 4060, 4073, 4064, 4068, 4069, 4071, 4069, 4071,
+            4082, 4070, 4074, 4080, 4077, 4068, 4062, 4070, 4073, 4074, 4072,
+            4071, 4074, 4061, 4064
+        ],
+        "expiries": [
+            0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 401, 423, 433, 399, 436,
+            403, 416, 417, 392, 422, 674, 684, 682, 708, 660, 703, 702, 685,
+            672, 749, 402, 418, 418, 442, 368, 384, 386, 404, 380, 404, 0, 0,
+            0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0,
+            0, 0
+        ],
+        "partition_blocked": [
+            0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 401, 423, 433, 399, 436, 403, 416,
+            417, 392, 422, 674, 684, 682, 708, 660, 703, 702, 685, 672, 749,
+            402, 418, 418, 442, 368, 384, 386, 404, 380, 404, 0, 0, 0, 0, 0, 0,
+            0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0,
+            0, 0
+        ],
+        "ring_occupancy": [
+            4096, 4096, 4096, 4096, 4096, 4096, 4096, 4096, 4096, 4096, 4096,
+            4497, 4920, 5353, 5351, 5364, 5334, 5351, 5332, 5321, 5327, 5584,
+            5876, 6136, 6170, 6146, 6167, 6161, 6186, 6155, 6202, 5919, 5665,
+            5334, 5374, 5324, 5290, 5234, 5270, 5266, 5284, 4880, 4500, 4096,
+            4096, 4096, 4096, 4096, 4096, 4096, 4096, 4096, 4096, 4096, 4096,
+            4096, 4096, 4096, 4096, 4096, 4096, 4096, 4096, 4096, 4096, 4096,
+            4096, 4096, 4096, 4096
+        ],
+        "finalized_fraction": 1.0,
+    },
+    "flaky_isp": {
+        "finalizations": [
+            0, 0, 0, 0, 0, 0, 0, 0, 8, 104, 963, 3056, 4678, 486, 434, 3607,
+            2878, 5696, 4019, 1368, 1595, 1151, 791, 539, 380, 279, 224, 135,
+            115, 105, 42, 0, 0, 23, 33, 36, 18, 2, 1, 0, 0, 0, 2, 0, 0, 0, 0,
+            0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0
+        ],
+        "deliveries": [
+            0, 3663, 3647, 4068, 4084, 4105, 4063, 4039, 4023, 4077, 4153,
+            4024, 4048, 437, 404, 3645, 3646, 7303, 7299, 4055, 4087, 4097,
+            4037, 4019, 4087, 4105, 4083, 4049, 4059, 4086, 4033, 412, 446,
+            3685, 3637, 7302, 7329, 4055, 4066, 4083, 4075, 4062, 4072, 4067,
+            4090, 4042, 4057, 4087, 4063, 4093, 4076, 4028, 4085, 4070, 4047,
+            4084, 4079, 4047, 4117, 4093
+        ],
+        "expiries": [
+            0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 429, 428, 447, 443,
+            0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 382, 424, 434, 405, 0, 0,
+            0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0
+        ],
+        "partition_blocked": [
+            0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0,
+            0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0,
+            0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0
+        ],
+        "ring_occupancy": [
+            4096, 4498, 4919, 4925, 4911, 4878, 4886, 4918, 4964, 4950, 4867,
+            4911, 4937, 8596, 12288, 12717, 12716, 9031, 5324, 4901, 4895,
+            4872, 4908, 4958, 4942, 4909, 4898, 4923, 4937, 4918, 4954, 8638,
+            12288, 12670, 12712, 9028, 5303, 4906, 4910, 4905, 4896, 4902,
+            4909, 4907, 4893, 4918, 4930, 4903, 4913, 4884, 4876, 4917, 4903,
+            4902, 4926, 4924, 4915, 4942, 4905, 4889
+        ],
+        "finalized_fraction": 1.0,
+    },
+    "eclipse": {
+        "finalizations": [
+            0, 0, 0, 0, 0, 0, 0, 1, 6, 99, 928, 3582, 7140, 7740, 4542, 2732,
+            2008, 1627, 1181, 455, 109, 30, 10, 3, 1, 0, 0, 0, 0, 0, 0, 0, 0,
+            0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 77, 102, 85, 211, 91, 8, 0,
+            0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0,
+            0, 0, 0, 0, 0
+        ],
+        "deliveries": [
+            0, 4096, 4096, 4096, 4096, 4096, 4096, 4096, 4096, 4096, 4096,
+            4096, 4096, 4096, 4096, 4096, 3156, 3226, 3174, 3183, 3199, 3184,
+            3167, 3191, 3176, 3192, 3197, 3189, 3192, 3220, 3188, 3195, 3156,
+            3199, 3162, 3184, 3222, 3165, 3192, 3214, 3197, 3231, 3205, 3185,
+            3197, 3190, 4096, 4096, 4096, 4096, 4096, 4096, 4096, 4096, 4096,
+            4096, 4096, 4096, 4096, 4096, 4096, 4096, 4096, 4096, 4096, 4096,
+            4096, 4096, 4096, 4096, 4096, 4096, 4096, 4096, 4096, 4096, 4096,
+            4096, 4096, 4096
+        ],
+        "expiries": [
+            0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 940, 870,
+            922, 913, 897, 912, 929, 905, 920, 904, 899, 907, 904, 876, 908,
+            901, 940, 897, 934, 912, 874, 931, 904, 882, 899, 865, 891, 911,
+            899, 906, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0,
+            0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0
+        ],
+        "partition_blocked": [
+            0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 940, 870, 922, 913,
+            897, 912, 929, 905, 920, 904, 899, 907, 904, 876, 908, 901, 940,
+            897, 934, 912, 874, 931, 904, 882, 899, 865, 891, 911, 899, 906, 0,
+            0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0,
+            0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0
+        ],
+        "ring_occupancy": [
+            4096, 4096, 4096, 4096, 4096, 4096, 4096, 4096, 4096, 4096, 4096,
+            4096, 4096, 4096, 4096, 4096, 5036, 5906, 6828, 6801, 6828, 6818,
+            6834, 6842, 6850, 6825, 6819, 6806, 6806, 6783, 6784, 6781, 6845,
+            6834, 6867, 6839, 6816, 6813, 6805, 6813, 6781, 6742, 6751, 6763,
+            6797, 6812, 5901, 5002, 4096, 4096, 4096, 4096, 4096, 4096, 4096,
+            4096, 4096, 4096, 4096, 4096, 4096, 4096, 4096, 4096, 4096, 4096,
+            4096, 4096, 4096, 4096, 4096, 4096, 4096, 4096, 4096, 4096, 4096,
+            4096, 4096, 4096
+        ],
+        "finalized_fraction": 1.0,
+    },
+}

@@ -62,12 +62,24 @@ def assert_states_equal(jstate, tstate, where):
                 assert w.dtype == g.dtype, (where, leaf)
                 np.testing.assert_array_equal(w, g, err_msg=f"{where} {leaf}")
             continue
-        w, g = getattr(want, field), getattr(got, field)
-        if w is None:
-            assert g is None, (where, field)
-            continue
-        assert w.dtype == g.dtype, (where, field, w.dtype, g.dtype)
-        np.testing.assert_array_equal(w, g, err_msg=f"{where} {field}")
+        assert_leaves_equal(getattr(want, field), getattr(got, field),
+                            f"{where} {field}")
+
+
+def assert_leaves_equal(want, got, where):
+    """Two numpy trees (nested NamedTuples, None leaves) equal leaf by
+    leaf, dtypes included."""
+    if want is None:
+        assert got is None, where
+        return
+    if isinstance(want, tuple):
+        assert type(want).__name__ == type(got).__name__, where
+        for name in want._fields:
+            assert_leaves_equal(getattr(want, name), getattr(got, name),
+                                f"{where}.{name}")
+        return
+    assert want.dtype == got.dtype, (where, want.dtype, got.dtype)
+    np.testing.assert_array_equal(want, got, err_msg=where)
 
 
 def run_both(knobs, n, t, rounds, seed=7, contested=False):

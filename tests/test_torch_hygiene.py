@@ -26,6 +26,7 @@ MODULES = ["go_avalanche_tpu_torch", "go_avalanche_tpu_torch.config",
            "go_avalanche_tpu_torch.ops.megakernel",
            "go_avalanche_tpu_torch.ops.swar",
            "go_avalanche_tpu_torch.ops.pallas_vote",
+           "go_avalanche_tpu_torch.ops.inflight",
            "go_avalanche_tpu_torch.stake",
            "go_avalanche_tpu_torch.models.avalanche",
            "go_avalanche_tpu_torch.models.dag",

@@ -187,11 +187,8 @@ def test_config_rejections_match_jax(kwargs, match):
 
 
 @pytest.mark.parametrize("kwargs", [
-    dict(inflight_engine="coalesced"),
     dict(strict_validation=True), dict(fused_sharded_gossip=True),
-    dict(latency_mode="fixed"),
     dict(metrics_every=1), dict(trace_every=1),
-    dict(fault_script=(("churn_burst", 1, 0.1),)),
     dict(byzantine_fraction=0.2, adversary_policy="split_vote"),
 ])
 def test_unported_fields_raise_not_implemented(kwargs):

@@ -18,7 +18,7 @@ from go_avalanche_tpu_torch import convert, prng
 from go_avalanche_tpu_torch import workload
 from go_avalanche_tpu_torch.models import snowball as tsb
 from go_avalanche_tpu_torch.ops import pallas_vote
-from test_torch_avalanche import _configs, _jax_numpy
+from test_torch_avalanche import _configs, _jax_numpy, assert_leaves_equal
 
 CASES = {
     "sequential": dict(),
@@ -48,8 +48,7 @@ def assert_states_equal(jstate, tstate, where):
                 assert a.dtype == b.dtype, (where, leaf)
                 np.testing.assert_array_equal(a, b, err_msg=f"{where} {leaf}")
             continue
-        assert w.dtype == g.dtype, (where, field, w.dtype, g.dtype)
-        np.testing.assert_array_equal(w, g, err_msg=f"{where} {field}")
+        assert_leaves_equal(w, g, f"{where} {field}")
 
 
 def carry(jstate):
