@@ -75,7 +75,26 @@ package is missing.  Phases, each printing JSON lines:
                registry nodes, 16384 active, 3 rounds) under latency,
                each against a CPU replay of the port (the DAG's replay
                cut to its first 2 rounds, the first with a delivery).  Each engine prints ms per
-               round (CUDA events), peak memory and host reads.
+               round (CUDA events), peak memory and host reads;
+ 10. adversary — the adaptive adversary (`adversary_policy`) and the
+               Monte-Carlo fleet (`fleet.py`).  The flagship at
+               16384 x 16384 with 20% byzantine under split_vote,
+               withhold_near_quorum and stake_eclipse (zipf stake), 3
+               rounds on phased-u8 and phased-swar32, leaf-equal, the
+               ingest kernels launched once a round on their fast path,
+               timed beside the policy-off round; the megakernel refusing
+               every policy; `flagship_async` under timing and under
+               withholding on the three delivery engines (walk 3
+               rounds, the others 10), leaf-equal, the withheld draws
+               counted as expiries; every `workload.POLICY_RECORDS` case
+               on every engine it applies to, each equal to the JAX
+               package's record; and the two `workload.FLEET_RECORDS`
+               points (the adversary atlas's most hostile point, 48
+               Snowball trials of 120 rounds; an avalanche phase grid
+               over the policy axis, 4 trials of 4096 x 1024), each row
+               equal to the JAX package's.  Each part prints its wall
+               seconds; the kernels line counts phase 4's launches and
+               phase 10's.
 
 With ``--config6-full-depth`` it builds the kernels and runs only BASELINE
 config 6 at full width and full depth (500,000 sets, ~8313 rounds,
@@ -1623,6 +1642,285 @@ def run_async(quick: bool = False, device="cuda") -> dict:
     return out
 
 
+# ---------------------------------------------------------------- phase 10
+
+ADVERSARY_SHAPES = {"full": (16_384, 16_384), "quick": (256, 512)}
+SYNC_POLICIES = ("split_vote", "withhold_near_quorum", "stake_eclipse")
+ASYNC_POLICIES = ("timing", "withhold_near_quorum")
+POLICY_SYNC_ROUNDS = 3
+# flagship_async under a policy: the walk 3 rounds, the other two 10.
+POLICY_ASYNC_ROUNDS = {"walk": 3, "walk_earlyout": 10, "coalesced": 10}
+POLICY_BYZANTINE = 0.2
+POLICY_TIMEOUT = 6           # the bench lane's 2 * latency 2 + 2
+
+
+def policy_flagship_config(t: int, policy: str, ingest_engine: str = "u8",
+                           **kwargs):
+    """The flagship's config (`workload.flagship_config`; `kwargs` pass
+    to it) on `ingest_engine` at byzantine fraction 0.2 under `policy`
+    ("off" for the control), stake_eclipse over zipf stake."""
+    from go_avalanche_tpu_torch import workload
+
+    knobs = dict(byzantine_fraction=POLICY_BYZANTINE, adversary_policy=policy,
+                 ingest_engine=ingest_engine)
+    if policy == "stake_eclipse":
+        knobs["stake_mode"] = "zipf"
+    return dataclasses.replace(workload.flagship_config(t, **kwargs), **knobs)
+
+
+class Launches:
+    """The kernels' launches, and the ingest kernels' by path, since it
+    was made (counts are never reset inside phase 10)."""
+
+    def __init__(self):
+        self.before, self.paths = read_launches(), read_path_launches()
+
+    def delta(self) -> tuple:
+        now, paths = read_launches(), read_path_launches()
+        return ({k: now[k] - self.before[k] for k in now},
+                {k: {p: n - self.paths[k][p] for p, n in by.items()}
+                 for k, by in paths.items()})
+
+
+def run_policy_sync(n: int, t: int, device="cuda") -> dict:
+    """Part (a): the flagship at byzantine 0.2 under each sync policy
+    and the policy-off control, 3 rounds on phased-u8 and phased-swar32,
+    each timed (ms per round over rounds 1-2, and over all three):
+    leaf-equal states and telemetry, each ingest kernel
+    launched once a round on its fast path; the megakernel refuses every
+    policy with the reference's message."""
+    import torch
+
+    from go_avalanche_tpu_torch import prng
+    from go_avalanche_tpu_torch.models import avalanche as av
+
+    rows = {}
+    for policy in ("off",) + SYNC_POLICIES:
+        cfgs = {"vote_u8": policy_flagship_config(t, policy),
+                "vote_swar": policy_flagship_config(t, policy,
+                                                    ingest_engine="swar32")}
+        if policy != "off":
+            try:
+                dataclasses.replace(cfgs["vote_u8"],
+                                    round_engine="megakernel")
+            except ValueError as err:
+                if "run policy studies on round_engine 'phased'" not in str(
+                        err):
+                    raise
+            else:
+                raise AssertionError(f"the megakernel accepted {policy}")
+        start = av.init(prng.key(0, device), n, t, cfgs["vote_u8"],
+                        device=device)
+        counts = Launches()
+        runs = {name: run_rounds(start, cfg, POLICY_SYNC_ROUNDS,
+                                 steady_from=1)
+                for name, cfg in cfgs.items()}
+        del start
+        launches, paths = counts.delta()
+        (u8, u8_tel, u8_row), (swar, swar_tel, swar_row) = (
+            runs["vote_u8"], runs["vote_swar"])
+        assert_trees_equal(u8, swar, f"{policy}: phased-u8 vs phased-swar32")
+        assert_trees_equal(u8_tel, swar_tel, f"{policy}: telemetry")
+        fast = {"fast": POLICY_SYNC_ROUNDS, "any": 0}
+        if (launches != {"megakernel": 0, "vote_u8": POLICY_SYNC_ROUNDS,
+                         "vote_swar": POLICY_SYNC_ROUNDS}
+                or paths != {"vote_u8": fast, "vote_swar": fast}):
+            raise AssertionError(f"{policy}: launches {launches} by path "
+                                 f"{paths}")
+        if int(u8.records.votes.sum()) == 0:
+            raise AssertionError(f"{policy}: no vote reached the windows")
+        rows[policy] = {
+            "ms_per_round": {"phased_u8": u8_row["ms_per_round"],
+                             "phased_swar32": swar_row["ms_per_round"]},
+            "ms_per_round_all": {"phased_u8": u8_row["ms_per_round_all"],
+                                 "phased_swar32":
+                                     swar_row["ms_per_round_all"]},
+            "peak_gib": max(u8_row["peak_gib"], swar_row["peak_gib"]),
+            "votes_applied": u8_tel.votes_applied.tolist(),
+            "flips": u8_tel.flips.tolist(),
+            "launches": launches, "launches_by_ingest_path": paths}
+        del runs, u8, swar, u8_tel, swar_tel
+        torch.cuda.empty_cache()
+    return {"nodes": n, "txs": t, "byzantine_fraction": POLICY_BYZANTINE,
+            "rounds": POLICY_SYNC_ROUNDS, "policies": rows}
+
+
+def run_policy_async(n: int, t: int, device="cuda") -> dict:
+    """Part (b): `flagship_async` (latency 2, timeout 6) at byzantine 0.2
+    under timing and under withhold_near_quorum on the three delivery
+    engines: leaf-equal after 3 rounds, walk_earlyout and coalesced also
+    after 10; ring counters gated (timing: no expiry under fixed latency;
+    withholding: only the withheld draws expire, at the timeout six
+    rounds after they were sent, so none before round 6 and some by round
+    9: a querier is near its quorum once a delivery filled its window).
+    No kernel launches."""
+    import torch
+
+    from go_avalanche_tpu_torch import prng
+    from go_avalanche_tpu_torch.models import avalanche as av
+
+    counts = Launches()
+    rows = {}
+    for policy in ASYNC_POLICIES:
+        times, at3, at10 = {}, {}, {}
+        for engine in ASYNC_ENGINES:
+            cfg = policy_flagship_config(t, policy, latency=2,
+                                         inflight_engine=engine)
+            if cfg.timeout_rounds() != POLICY_TIMEOUT:
+                raise AssertionError("policy async: timeout is not 6 rounds")
+            state = av.init(prng.key(0, device), n, t, cfg, device=device)
+            run, tels = AsyncRun(), []
+            for r in range(POLICY_ASYNC_ROUNDS[engine]):
+                state, tel = run.step(av.round_step, state, cfg)
+                tels.append(tel)
+                if r == 2:
+                    at3[engine] = (state, av.SimTelemetry(
+                        *(torch.stack(col) for col in zip(*tels))))
+            times[engine] = run.close(steady_from=2)
+            if len(tels) > 3:
+                at10[engine] = (state, av.SimTelemetry(
+                    *(torch.stack(col) for col in zip(*tels))))
+            del state, tels
+            if engine != "walk":
+                assert_async_trees_equal(at3["walk"], at3.pop(engine),
+                                         f"{policy}: {engine} vs walk "
+                                         f"after 3 rounds")
+        assert_async_trees_equal(at10["walk_earlyout"], at10["coalesced"],
+                                 f"{policy}: coalesced vs walk_earlyout "
+                                 f"after 10 rounds")
+        tel = at10["coalesced"][1]
+        expiries = tel.expiries.tolist()
+        if policy == "timing" and any(expiries):
+            raise AssertionError(f"timing: expiries {expiries}")
+        if policy == "withhold_near_quorum" and (
+                any(expiries[:POLICY_TIMEOUT]) or not sum(expiries)):
+            raise AssertionError(f"withholding: expiries {expiries}")
+        if int(at10["coalesced"][0].records.votes.sum()) == 0:
+            raise AssertionError(f"{policy}: no vote reached the windows")
+        rows[policy] = {"engines": times,
+                        **{f: getattr(tel, f).tolist()
+                           for f in ("deliveries", "expiries",
+                                     "ring_occupancy", "votes_applied")}}
+        del at3, at10, tel
+        torch.cuda.empty_cache()
+    launches, _ = counts.delta()
+    if any(launches.values()):
+        raise AssertionError(f"policy async launched kernels {launches}; "
+                             f"the async path has none by design")
+    return {"nodes": n, "txs": t, "byzantine_fraction": POLICY_BYZANTINE,
+            "latency": 2, "timeout_rounds": POLICY_TIMEOUT,
+            "rounds": POLICY_ASYNC_ROUNDS, "policies": rows,
+            "launches": launches}
+
+
+def run_policy_records(device="cuda") -> list:
+    """Part (c): every `workload.POLICY_RECORDS` case on every engine it
+    applies to (the phased engines for a sync case, the three delivery
+    engines for an async one), each equal to the JAX package's record."""
+    from go_avalanche_tpu_torch import workload
+    from go_avalanche_tpu_torch.models import avalanche as av
+    from go_avalanche_tpu_torch.models import dag
+    from go_avalanche_tpu_torch.ops import voterecord as vr
+
+    rows = []
+    for name, want in workload.POLICY_RECORDS.items():
+        counts = Launches()
+        times = {}
+        for engine in workload.policy_engines(name):
+            model, start, cfg = workload.policy_state(name, engine, device)
+            run_scan = dag.run_scan if model == "dag" else av.run_scan
+            (final, tel), ms = timed_run(run_scan, start, cfg,
+                                         n_rounds=workload.POLICY_ROUNDS,
+                                         device=device)
+            records = final.base.records if model == "dag" else final.records
+            got = {"finalizations": tel.finalizations.tolist(),
+                   "votes_applied": tel.votes_applied.tolist()}
+            if "expiries" in want:
+                got["expiries"] = tel.expiries.tolist()
+            got["finalized_fraction"] = float(vr.has_finalized(
+                records.confidence, cfg).double().mean())
+            if got != want:
+                bad = [f for f in want if got[f] != want[f]]
+                raise AssertionError(f"policy record {name} on {engine}: "
+                                     f"{bad} differ from the JAX record")
+            times[engine] = ms / workload.POLICY_ROUNDS
+        launches, paths = counts.delta()
+        rows.append({"case": name, "model": workload.POLICY_CASES[name][0],
+                     "nodes": workload.POLICY_SHAPE[0],
+                     "txs": workload.POLICY_SHAPE[1],
+                     "rounds": workload.POLICY_ROUNDS,
+                     "finalized_fraction": want["finalized_fraction"],
+                     "ms_per_round": times, "launches": launches,
+                     "launches_by_ingest_path": paths})
+    return rows
+
+
+def run_fleet_records(names, device="cuda") -> list:
+    """Part (d): the fleet points `names` of `workload.FLEET_CASES`
+    through `fleet.run_fleet` / `run_phase_grid`, each row equal to the
+    JAX package's (`workload.FLEET_RECORDS`), tag included."""
+    import torch
+
+    from go_avalanche_tpu_torch import fleet, workload
+    from go_avalanche_tpu_torch.config import AvalancheConfig
+    from go_avalanche_tpu_torch.obs.tags import config_tag
+
+    rows = []
+    for name in names:
+        case = workload.FLEET_CASES[name]
+        cfg = AvalancheConfig(**case["knobs"])
+        counts = Launches()
+        t0 = time.perf_counter()
+        if case["grid"] is None:
+            res = fleet.run_fleet(case["model"], cfg, device=device,
+                                  **case["kw"])
+            got = [{**res.summary(), "tag": config_tag(cfg)}]
+        else:
+            got = fleet.run_phase_grid(case["model"], cfg, case["grid"],
+                                       device=device, **case["kw"])
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        got = json.loads(json.dumps(got))
+        if got != workload.FLEET_RECORDS[name]:
+            raise AssertionError(f"fleet {name}: {got} != the JAX rows "
+                                 f"{workload.FLEET_RECORDS[name]}")
+        launches, paths = counts.delta()
+        rounds = case["kw"]["fleet"] * case["kw"]["n_rounds"] * len(got)
+        rows.append({"case": name, "model": case["model"], **case["kw"],
+                     "rows": got, "trial_rounds": rounds,
+                     "ms_per_trial_round": wall * 1e3 / rounds,
+                     "launches": launches,
+                     "launches_by_ingest_path": paths, "wall_s": wall})
+    return rows
+
+
+def run_adversary(quick: bool = False, device="cuda") -> dict:
+    """Phase 10: the adaptive adversary and the Monte-Carlo fleet (module
+    docstring).  Returns each part's rows with its wall seconds, and the
+    phase's launches per kernel and per ingest path."""
+    from go_avalanche_tpu_torch import workload
+
+    n, t = ADVERSARY_SHAPES["quick" if quick else "full"]
+    fleets = (("atlas_hostile",) if quick else tuple(workload.FLEET_CASES))
+    parts = {"sync": lambda: run_policy_sync(n, t, device),
+             "async": lambda: run_policy_async(n, t, device),
+             "records": lambda: run_policy_records(device),
+             "fleet": lambda: run_fleet_records(fleets, device)}
+    reset_launches()
+    out = {}
+    for name, part in parts.items():
+        t0 = time.perf_counter()
+        rows = part()
+        out[name] = {"rows": rows, "wall_s": time.perf_counter() - t0}
+    out["launches"] = read_launches()
+    out["launches_by_ingest_path"] = read_path_launches()
+    for kernel in ("vote_u8", "vote_swar"):
+        if not out["launches_by_ingest_path"][kernel]["fast"]:
+            raise AssertionError(f"phase 10 never launched {kernel} on its "
+                                 f"fast path")
+    return out
+
+
 KERNEL_ROWS = {          # name -> (source, the TPU kernel it replaces)
     "megakernel": ("go_avalanche_tpu_torch/csrc/megakernel.cu",
                    "go_avalanche_tpu/ops/megakernel.py:95"),
@@ -1730,12 +2028,26 @@ def main() -> int:
         for r in (row if isinstance(row, list) else [row]):
             emit({"phase": "async", "part": part, **r, **label})
 
+    # 10. the adaptive adversary and the Monte-Carlo fleet
+    t0 = time.perf_counter()
+    adversary = run_adversary()
+    for part in ("sync", "async", "records", "fleet"):
+        rows = adversary[part]["rows"]
+        for r in (rows if isinstance(rows, list) else [rows]):
+            emit({"phase": "adversary", "part": part, **r,
+                  "part_wall_s": adversary[part]["wall_s"], **label})
+    emit({"phase": "adversary", "launches": adversary["launches"],
+          "launches_by_ingest_path": adversary["launches_by_ingest_path"],
+          "wall_s": time.perf_counter() - t0, **label})
+    torch.cuda.empty_cache()
+
     emit({"kernels": [{
         "name": name,
         "route": "cuda",
         "source": source,
         "replaces": replaces,
-        "launches": main_path["launches"][name],
+        "launches": (main_path["launches"][name]
+                     + adversary["launches"][name]),
         "max_abs_err": max(worst[name], timing[name]["max_abs_err"]),
         "ms": timing[name]["ms"],
         "plain_ms": timing[name]["plain_ms"],

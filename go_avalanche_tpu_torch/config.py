@@ -768,7 +768,10 @@ class AvalancheConfig:
                 "the knob is inert and would mislabel the run")
 
     def _validate_adversary(self) -> None:
-        """The reference's inert-knob rules for the adversary fields."""
+        """The reference's rules for the adversary fields: inert knobs
+        with no byzantine nodes, the margin under withhold_near_quorum
+        only, split_vote with FLIP only, timing with the async engine
+        only, stake_eclipse with a stake mode only."""
         if not (0.0 <= self.byzantine_fraction <= 1.0):
             raise ValueError(
                 f"byzantine_fraction must be in [0, 1], got "
@@ -782,6 +785,13 @@ class AvalancheConfig:
                 f"adversary_policy must be one of "
                 f"{', '.join(ADVERSARY_POLICIES)}, got "
                 f"{self.adversary_policy!r}")
+        if (isinstance(self.adversary_margin, bool)
+                or not isinstance(self.adversary_margin, int)
+                or self.adversary_margin < 0):
+            raise ValueError(
+                f"adversary_margin must be a non-negative integer "
+                f"(window votes short of the quorum), got "
+                f"{self.adversary_margin!r}")
         if self.byzantine_fraction == 0.0:
             inert = []
             if self.adversary_strategy is not AdversaryStrategy.FLIP:
@@ -796,8 +806,42 @@ class AvalancheConfig:
             if inert:
                 raise ValueError(
                     f"{', '.join(inert)} set while byzantine_fraction "
-                    f"== 0: with no byzantine nodes every adversary knob "
-                    f"is inert and would mislabel the run as attacked")
+                    f"== 0: with no byzantine nodes every adversary "
+                    f"knob is inert and would mislabel the run as "
+                    f"attacked — set byzantine_fraction > 0 (the "
+                    f"byzantine mask is drawn at init from it)")
+            return
+        if (self.adversary_margin != 1
+                and self.adversary_policy != "withhold_near_quorum"):
+            raise ValueError(
+                f"adversary_margin is only read by adversary_policy "
+                f"'withhold_near_quorum', got margin "
+                f"{self.adversary_margin} with policy "
+                f"{self.adversary_policy!r} — a silently ignored margin "
+                f"would mislabel the run")
+        if (self.adversary_policy == "split_vote"
+                and self.adversary_strategy is not AdversaryStrategy.FLIP):
+            raise ValueError(
+                f"adversary_policy 'split_vote' OVERRIDES the lie "
+                f"content (lies vote the honest-minority color), so "
+                f"adversary_strategy {self.adversary_strategy.value!r} "
+                f"would be silently ignored and mislabel the run — "
+                f"leave the strategy at its default under split_vote")
+        if self.adversary_policy == "timing" and not self.async_queries():
+            raise ValueError(
+                "adversary_policy 'timing' delays lying responses "
+                "through the in-flight latency plane (ops/inflight.py), "
+                "which the synchronous ideal never builds — select a "
+                "latency_mode (or schedule a cut/spike fault) to turn "
+                "the async engine on")
+        if (self.adversary_policy == "stake_eclipse"
+                and self.stake_mode == "off"):
+            raise ValueError(
+                "adversary_policy 'stake_eclipse' concentrates lies on "
+                "the top-STAKE queriers; with stake_mode 'off' every "
+                "node is weightless and the eclipse set is arbitrary — "
+                "select a stake_mode ('zipf' puts the adversary on top "
+                "stake, the worst case)")
 
     def _validate_round_engine(self) -> None:
         """The whole-round megakernel covers the sync SEQUENTIAL round
@@ -843,7 +887,9 @@ class AvalancheConfig:
             raise ValueError(
                 f"adversary_policy {self.adversary_policy!r} set with "
                 f"round_engine 'megakernel': the adaptive-adversary "
-                f"transforms run between the phases the kernel fuses")
+                f"context transforms run between the phases the "
+                f"kernel fuses — run policy studies on round_engine "
+                f"'phased'")
 
     def _reject_unported(self) -> None:
         for name, item in _UNPORTED.items():
@@ -858,8 +904,6 @@ class AvalancheConfig:
 # Fields the port declares but does not run yet -> the ROADMAP.md
 # Queue 1 item that ports them.
 _UNPORTED = {
-    "adversary_policy": "item 11, adaptive adversary",
-    "adversary_margin": "item 11, adaptive adversary",
     "metrics_every": "item 14, metrics tap",
     "trace_every": "item 14, trace plane",
     "fused_sharded_gossip": "item 15, sharded drivers",

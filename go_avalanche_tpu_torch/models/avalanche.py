@@ -23,8 +23,11 @@ threefry key carried in the state (`prng.py`), split exactly as the
 reference splits it, so both packages walk the same trajectory from the
 same state.  Peers are drawn by `ops/sampling.draw_peers` (uniform,
 distinct, weighted, clustered or stake-weighted, the stake folded into
-`latency_weight` at `init`).  The adaptive adversary, metrics tap and
-trace plane are not ported (the config rejects them).
+`latency_weight` at `init`).  The adaptive adversary's context
+(`ops/adversary.policy_ctx`) is read from the pre-round records after the
+drop draw and threaded through the exchange and the delivery engines.
+The metrics tap and trace plane are not ported (the config rejects
+them).
 
 The round's phases run under `torch.profiler.record_function` spans with
 the reference's `annotate` names (poll_mask, sample_peers,
@@ -123,6 +126,14 @@ def contested_init_pref(seed: int, n_nodes: int, n_txs: int,
     reference's ``bernoulli(key(seed + 1), 0.5, (N, T))``."""
     return prng.bernoulli(prng.key(seed + 1, _device(device)), 0.5,
                           (n_nodes, n_txs))
+
+
+def contested_init_pref_from_key(key: torch.Tensor, n_nodes: int,
+                                 n_txs: int) -> torch.Tensor:
+    """`contested_init_pref` from a key instead of a seed — the fleet's
+    per-trial priors, ``bernoulli(fold_in(key, 0xC0), 0.5, (N, T))`` on
+    the key's device."""
+    return prng.bernoulli(prng.fold_in(key, 0xC0), 0.5, (n_nodes, n_txs))
 
 
 def stamp_finality(finalized_at, newly_final, round_):
@@ -262,6 +273,14 @@ def round_step(
         responded &= ~prng.bernoulli(k_drop, cfg.drop_probability,
                                      tuple(peers.shape))
 
+    # --- adaptive adversary: one context from the pre-round records
+    # (None with the policy off) decides who lies, and whether a lie is
+    # silence instead.
+    pol = adversary.policy_ctx(cfg, state.records, state.byzantine,
+                               state.latency_weight)
+    lie, responded, withheld = adversary.apply_policy_issue(cfg, pol, lie,
+                                                            responded)
+
     # --- gossip-on-poll admission.
     added = state.added
     zero = torch.zeros((), dtype=torch.int32, device=peers.device)
@@ -286,25 +305,25 @@ def round_step(
         if not (megakernel_round or async_round):
             yes_pack, consider_pack = exchange.gather_vote_packs(
                 packed_prefs, peers, responded, lie, k_byz, cfg, minority_t,
-                t)
+                t, pol)
 
     # --- ingest: the async ring, the megakernel, or the phased ingest.
     ring = state.inflight
     with span("fused_round" if megakernel_round else "ingest_votes"):
         if async_round:
-            # Stamp this round's polls with latencies, the fault
-            # script's spikes and cuts, enqueue them, and deliver what
-            # the ring holds for this round.  (The adaptive adversary's
-            # latency stamps are ROADMAP.md Queue 1 item 11.)
+            # Stamp this round's polls with latencies, the policy's
+            # stamps, then the fault script's spikes and cuts, enqueue
+            # them, and deliver what the ring holds for this round.
             lat = inflight.draw_latency(k_sample, cfg, peers,
                                         state.latency_weight, n)
+            lat = adversary.apply_policy_latency(cfg, lat, lie, withheld)
             lat = inflight.apply_faults(lat, cfg, state.round, 0, peers, n,
                                         state.fault_params)
             ring = inflight.enqueue(state.inflight, state.round, peers, lat,
                                     responded, lie, polled)
             records, changed, votes_applied = inflight.deliver_multi_engine(
                 ring, state.records, cfg, packed_prefs, minority_t, k_byz,
-                state.round, t, live_rows=state.alive)
+                state.round, t, live_rows=state.alive, ctx=pol)
         elif megakernel_round:
             records, changed = megakernel.fused_round(
                 state.records, packed_prefs, peers, responded, lie,

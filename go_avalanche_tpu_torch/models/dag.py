@@ -19,8 +19,9 @@ avalanche round does; under `cfg.async_queries()` the round enqueues its
 polls into the in-flight ring and delivers through
 `ops/inflight.deliver_multi_engine` instead, responses voting the
 responder's preferred-in-set plane as of the delivery round's start.  The
-adaptive adversary, metrics tap and trace plane are not ported (the
-config rejects them).
+adaptive adversary's context is built from that plane and the pre-round
+windows before the exchange.  The metrics tap and trace plane are not
+ported (the config rejects them).
 """
 
 from __future__ import annotations
@@ -233,26 +234,32 @@ def round_step(
                                      state.n_sets)
         minority_t = adversary.minority_plane(prefs)
         packed_prefs = pack_bool_plane(prefs)
+        # The adaptive adversary's context: the split tally reads the
+        # preferred-in-set plane (what responders say), the near-quorum
+        # gate the pre-round windows.
+        pol = adversary.policy_ctx(cfg, base.records, base.byzantine,
+                                   base.latency_weight, prefs=prefs)
+        lie, responded, withheld = adversary.apply_policy_issue(
+            cfg, pol, lie, responded)
         async_round = inflight.enabled(cfg)
         if not async_round:
             yes_pack, consider_pack = exchange.gather_vote_packs(
                 packed_prefs, peers, responded, lie, k_byz, cfg, minority_t,
-                t)
+                t, pol)
 
     ring = base.inflight
     with span("ingest_votes"):
         if async_round:
-            # (The adaptive adversary's latency stamps are ROADMAP.md
-            # Queue 1 item 11.)
             lat = inflight.draw_latency(k_sample, cfg, peers,
                                         base.latency_weight, n)
+            lat = adversary.apply_policy_latency(cfg, lat, lie, withheld)
             lat = inflight.apply_faults(lat, cfg, base.round, 0, peers, n,
                                         base.fault_params)
             ring = inflight.enqueue(base.inflight, base.round, peers, lat,
                                     responded, lie, polled)
             records, changed, votes_applied = inflight.deliver_multi_engine(
                 ring, base.records, cfg, packed_prefs, minority_t, k_byz,
-                base.round, t, live_rows=base.alive)
+                base.round, t, live_rows=base.alive, ctx=pol)
         else:
             records, changed = pallas_vote.register_packed_votes_fused(
                 base.records, yes_pack, consider_pack, cfg.k, cfg,

@@ -11,8 +11,10 @@ Both share one poll (`_poll_majorities`: k uniform peers, the adversary
 and the failure model) with the reference's key splits, so a trajectory
 is the reference's bit for bit.  Parameters map as k = cfg.k, alpha =
 cfg.alpha, beta = cfg.finalization_score, and Slush's m = the caller's
-round budget.  The entry points run on the card unless the caller asks
-for the CPU.
+round budget.  The family builds no adversary-policy context, as the
+reference's does not: under `adversary_policy="split_vote"` its poll
+raises the reference's `ValueError`.  The entry points run on the card
+unless the caller asks for the CPU.
 """
 
 from __future__ import annotations

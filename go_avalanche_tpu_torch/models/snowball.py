@@ -129,6 +129,13 @@ def round_step(state: SnowballState, cfg: AvalancheConfig = DEFAULT_CONFIG
     if cfg.drop_probability > 0.0:
         responded &= ~prng.bernoulli(k_drop, cfg.drop_probability,
                                      tuple(peers.shape))
+    # The adaptive adversary's context: a scalar honest split for
+    # split_vote, the per-querier near-quorum gate for withholding;
+    # Snowball carries no stake plane (uniform weights).
+    pol = adversary.policy_ctx(cfg, state.records, state.byzantine, None,
+                               prefs=prefs)
+    lie, responded, withheld = adversary.apply_policy_issue(cfg, pol, lie,
+                                                            responded)
 
     fin_before = vr.has_finalized(state.records.confidence, cfg)
     update_mask = ~fin_before & state.alive
@@ -136,21 +143,21 @@ def round_step(state: SnowballState, cfg: AvalancheConfig = DEFAULT_CONFIG
     if inflight.enabled(cfg):
         # The gather and adversary transform run at delivery time.
         # Snowball has no latency_weight plane: "weighted" latency reads
-        # uniform weights (all 0).  (The adaptive adversary's latency
-        # stamps are ROADMAP.md Queue 1 item 11.)
+        # uniform weights (all 0).
         lat = inflight.draw_latency(
             k_sample, cfg, peers,
             torch.ones(n, dtype=torch.float32, device=peers.device), n)
+        lat = adversary.apply_policy_latency(cfg, lat, lie, withheld)
         lat = inflight.apply_faults(lat, cfg, state.round, 0, peers, n,
                                     state.fault_params)
         ring = inflight.enqueue(state.inflight, state.round, peers, lat,
                                 responded, lie, update_mask)
         records, changed = inflight.deliver_1d_engine(
             ring, state.records, cfg, prefs, k_byz, state.round,
-            live_rows=state.alive)
+            live_rows=state.alive, ctx=pol)
     else:
         peer_votes = adversary.apply_1d(k_byz, prefs[peers_l], lie, cfg,
-                                        prefs)
+                                        prefs, pol)
         if cfg.vote_mode is VoteMode.SEQUENTIAL:
             records, changed = _ingest_sequential(
                 state.records, pack_draws(peer_votes), pack_draws(responded),

@@ -20,6 +20,8 @@ Fused and legacy are bit-exact twins, selected by `cfg.fused_exchange`.
 
 from __future__ import annotations
 
+from typing import Optional
+
 import torch
 
 from go_avalanche_tpu_torch.config import AvalancheConfig
@@ -30,16 +32,19 @@ from go_avalanche_tpu_torch.ops.bitops import pack_bool_plane, unpack_bool_plane
 def fused_vote_packs(packed_prefs: torch.Tensor, peers: torch.Tensor,
                      responded: torch.Tensor, lie: torch.Tensor,
                      key: torch.Tensor, cfg: AvalancheConfig,
-                     minority_t: torch.Tensor, t: int) -> tuple:
+                     minority_t: torch.Tensor, t: int,
+                     ctx: Optional[adversary.PolicyCtx] = None) -> tuple:
     """Single-gather k-vote collection; returns ``(yes_pack,
-    consider_pack)``, the latter a broadcast ``[N, T]`` view."""
+    consider_pack)``, the latter a broadcast ``[N, T]`` view.  `ctx` is
+    the round's adaptive-adversary context (None with the policy off)."""
     n, k = peers.shape
     if not (0 < k <= 8):
         raise ValueError("k must be in (0, 8] for uint8 packing")
     t8 = packed_prefs.shape[-1]
     flat = packed_prefs[peers.reshape(n * k).long()]     # THE one gather
     votes = unpack_bool_plane(flat.reshape(n, k, t8), t)  # [N, k, T]
-    votes = adversary.apply_draw_planes(key, votes, lie, cfg, minority_t)
+    votes = adversary.apply_draw_planes(key, votes, lie, cfg, minority_t,
+                                        ctx)
     yes_pack = torch.zeros((n, t), dtype=torch.uint8, device=peers.device)
     consider = torch.zeros((n,), dtype=torch.uint8, device=peers.device)
     for j in range(k):
@@ -51,21 +56,23 @@ def fused_vote_packs(packed_prefs: torch.Tensor, peers: torch.Tensor,
 def legacy_vote_packs(packed_prefs: torch.Tensor, peers: torch.Tensor,
                       responded: torch.Tensor, lie: torch.Tensor,
                       key: torch.Tensor, cfg: AvalancheConfig,
-                      minority_t: torch.Tensor, t: int) -> tuple:
+                      minority_t: torch.Tensor, t: int,
+                      ctx: Optional[adversary.PolicyCtx] = None) -> tuple:
     """The k-pass engine: one row gather + unpack + adversary per draw."""
     return adversary.pack_adversarial_votes(
         lambda j: unpack_bool_plane(packed_prefs[peers[:, j].long()], t),
-        responded, lie, key, cfg, minority_t)
+        responded, lie, key, cfg, minority_t, ctx)
 
 
 def gather_vote_packs(packed_prefs: torch.Tensor, peers: torch.Tensor,
                       responded: torch.Tensor, lie: torch.Tensor,
                       key: torch.Tensor, cfg: AvalancheConfig,
-                      minority_t: torch.Tensor, t: int) -> tuple:
+                      minority_t: torch.Tensor, t: int,
+                      ctx: Optional[adversary.PolicyCtx] = None) -> tuple:
     """Exchange-engine dispatch on `cfg.fused_exchange`."""
     engine = fused_vote_packs if cfg.fused_exchange else legacy_vote_packs
     return engine(packed_prefs, peers, responded, lie, key, cfg,
-                  minority_t, t)
+                  minority_t, t, ctx)
 
 
 def fused_gossip_heard(peers: torch.Tensor,

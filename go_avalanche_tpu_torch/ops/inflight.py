@@ -42,8 +42,10 @@ round, reading the same preference plane with the same keys
 An inactive age registers nothing on any engine, so each skip is a speed
 choice only.  Everything here is plain PyTorch on the tensors' device;
 no kernel of the JAX package lies on this path (the reference's own
-present-plane ingest is plain jnp).  Item 11 of ROADMAP.md Queue 1 (the
-adaptive adversary's latency stamps and policy context) is not ported.
+present-plane ingest is plain jnp).  Every delivery engine takes the
+issuing round's adversary-policy context (`ctx`, `ops/adversary.py`); the
+timing and withhold policies stamp per-draw latencies, so under them the
+coalesced drain has no single static age.
 """
 
 from __future__ import annotations
@@ -467,7 +469,8 @@ def deliver_multi(ring: InflightState, records: vr.VoteRecordState,
                   minority_t: torch.Tensor, key: torch.Tensor,
                   round_: torch.Tensor, t: int,
                   live_rows: Optional[torch.Tensor] = None,
-                  earlyout: bool = False) -> Tuple:
+                  earlyout: bool = False,
+                  ctx: Optional[adversary.PolicyCtx] = None) -> Tuple:
     """One round's delivery and expiry pass for the multi-target models,
     every age oldest first (``timeout_rounds() .. 0``): delivered
     entries gather `packed_prefs`, the round-start preference plane;
@@ -475,7 +478,8 @@ def deliver_multi(ring: InflightState, records: vr.VoteRecordState,
     stored poll mask minus records finalized in flight and, with
     `live_rows` (the round-start alive plane), dead queriers.  With
     `earlyout` (`deliver_multi_earlyout`) an age with nothing present is
-    skipped.
+    skipped.  `ctx` is the issuing round's adversary-policy context
+    (None with the policy off).
 
     Returns ``(records, changed, votes_applied)``; `votes_applied` is
     the int32 count of delivered non-neutral ingests, wrapped as the
@@ -487,7 +491,7 @@ def deliver_multi(ring: InflightState, records: vr.VoteRecordState,
                                                   earlyout):
         yes_pack, consider_pack = exchange.gather_vote_packs(
             packed_prefs, entry.peers, consider, entry.lie,
-            _delivery_key(key, d), cfg, minority_t, t)
+            _delivery_key(key, d), cfg, minority_t, t, ctx)
         update_mask = _freeze_mask(entry.polled, records, cfg, live_rows)
         records, ch = vr.register_packed_votes_present(
             records, yes_pack, consider_pack, pack_draws(present)[:, None],
@@ -508,7 +512,8 @@ def deliver_1d(ring: InflightState, records: vr.VoteRecordState,
                cfg: AvalancheConfig, prefs: torch.Tensor, key: torch.Tensor,
                round_: torch.Tensor,
                live_rows: Optional[torch.Tensor] = None,
-               earlyout: bool = False) -> Tuple:
+               earlyout: bool = False,
+               ctx: Optional[adversary.PolicyCtx] = None) -> Tuple:
     """`deliver_multi` for single-decree Snowball (``[N]`` records): the
     response gather is a row gather of the round-start ``[N]``
     preferences plus the 1-D adversary transform.  Returns
@@ -519,7 +524,7 @@ def deliver_1d(ring: InflightState, records: vr.VoteRecordState,
                                                   earlyout):
         votes = adversary.apply_1d(_delivery_key(key, d),
                                    prefs[entry.peers.long()], entry.lie,
-                                   cfg, prefs)
+                                   cfg, prefs, ctx)
         update_mask = _freeze_mask(entry.polled, records, cfg, live_rows)
         records, ch = vr.register_packed_votes_present(
             records, pack_draws(votes), pack_draws(consider),
@@ -649,7 +654,8 @@ def deliver_multi_coalesced(ring: InflightState, records: vr.VoteRecordState,
                             cfg: AvalancheConfig, packed_prefs: torch.Tensor,
                             minority_t: torch.Tensor, key: torch.Tensor,
                             round_: torch.Tensor, t: int,
-                            live_rows: Optional[torch.Tensor] = None
+                            live_rows: Optional[torch.Tensor] = None,
+                            ctx: Optional[adversary.PolicyCtx] = None
                             ) -> Tuple:
     """One ring drain for the multi-target models; `deliver_multi`'s
     contract and bits.  The masks come from the whole ring at once
@@ -681,7 +687,7 @@ def deliver_multi_coalesced(ring: InflightState, records: vr.VoteRecordState,
             rows, k, packed_prefs.shape[-1])
         votes_adv = adversary.apply_draw_planes(
             _delivery_key(key, d), unpack_bool_plane(cube, t), entry.lie,
-            cfg, minority_t)                              # [rows, k, T]
+            cfg, minority_t, ctx)                         # [rows, k, T]
         votes_applied = votes_applied + torch.where(
             upd, popcount8(pack_draws(consider_i))[:, None].to(torch.int32),
             0).sum(dtype=torch.int64)
@@ -704,7 +710,8 @@ def deliver_multi_coalesced(ring: InflightState, records: vr.VoteRecordState,
 def deliver_1d_coalesced(ring: InflightState, records: vr.VoteRecordState,
                          cfg: AvalancheConfig, prefs: torch.Tensor,
                          key: torch.Tensor, round_: torch.Tensor,
-                         live_rows: Optional[torch.Tensor] = None) -> Tuple:
+                         live_rows: Optional[torch.Tensor] = None,
+                         ctx: Optional[adversary.PolicyCtx] = None) -> Tuple:
     """`deliver_multi_coalesced` for single-decree Snowball."""
     k = cfg.k
     timeout = cfg.timeout_rounds()
@@ -722,7 +729,7 @@ def deliver_1d_coalesced(ring: InflightState, records: vr.VoteRecordState,
             upd = upd & live_rows
         votes_adv = adversary.apply_1d(_delivery_key(key, d),
                                        prefs[entry.peers.long()], entry.lie,
-                                       cfg, prefs)
+                                       cfg, prefs, ctx)
         yes_cnt = popcount8(votes_w & cons_w)
         cons_cnt = popcount8(cons_w)
         for j in range(k):
@@ -741,27 +748,29 @@ def deliver_multi_engine(ring: InflightState, records: vr.VoteRecordState,
                          cfg: AvalancheConfig, packed_prefs: torch.Tensor,
                          minority_t: torch.Tensor, key: torch.Tensor,
                          round_: torch.Tensor, t: int,
-                         live_rows: Optional[torch.Tensor] = None) -> Tuple:
+                         live_rows: Optional[torch.Tensor] = None,
+                         ctx: Optional[adversary.PolicyCtx] = None) -> Tuple:
     """`cfg.inflight_engine` dispatch of the multi-target delivery pass;
     the same bits whichever engine runs."""
     engine = {"walk": deliver_multi,
               "walk_earlyout": deliver_multi_earlyout,
               "coalesced": deliver_multi_coalesced}[cfg.inflight_engine]
     return engine(ring, records, cfg, packed_prefs, minority_t, key, round_,
-                  t, live_rows=live_rows)
+                  t, live_rows=live_rows, ctx=ctx)
 
 
 def deliver_1d_engine(ring: InflightState, records: vr.VoteRecordState,
                       cfg: AvalancheConfig, prefs: torch.Tensor,
                       key: torch.Tensor, round_: torch.Tensor,
-                      live_rows: Optional[torch.Tensor] = None) -> Tuple:
+                      live_rows: Optional[torch.Tensor] = None,
+                      ctx: Optional[adversary.PolicyCtx] = None) -> Tuple:
     """`cfg.inflight_engine` dispatch of the single-decree delivery
     pass (Snowball)."""
     engine = {"walk": deliver_1d,
               "walk_earlyout": deliver_1d_earlyout,
               "coalesced": deliver_1d_coalesced}[cfg.inflight_engine]
     return engine(ring, records, cfg, prefs, key, round_,
-                  live_rows=live_rows)
+                  live_rows=live_rows, ctx=ctx)
 
 
 class RingTelemetry(NamedTuple):

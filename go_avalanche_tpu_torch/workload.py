@@ -16,6 +16,17 @@
              `measure()` (lines 76-116, the partition that heals) and
              the three `SCENARIOS` (lines 174-240), each with the JAX
              package's own per-round record (`FAULT_STUDY_RECORDS`);
+  policies — the adaptive adversary's exactness cases (`POLICY_CASES`):
+             256 nodes x 64 txs, 20% byzantine, seed 0, 40 rounds, each
+             policy on the avalanche round (and "off"), timing and
+             withholding under geometric latency 2, split_vote on the
+             DAG under it, each with the JAX package's own per-round
+             record (`POLICY_RECORDS`);
+  fleets   — the Monte-Carlo fleet's two points (`FLEET_CASES`): the
+             most hostile point of `examples/adversary_atlas.py` at its
+             defaults and an avalanche phase grid over the policy axis at
+             4096 x 1024, each with the JAX package's rows
+             (`FLEET_RECORDS`);
   DAG      — `benchmarks/baseline_suite.config2_dag`, BASELINE.json's
              "Avalanche DAG: 10k nodes, 10k-tx UTXO conflict graph":
              10000 nodes x 10000 txs in 2-tx double-spend sets
@@ -73,6 +84,7 @@ from go_avalanche_tpu_torch.config import (AdversaryStrategy, AvalancheConfig,
 from go_avalanche_tpu_torch.models import avalanche as av
 from go_avalanche_tpu_torch.models import backlog, dag, snowball
 from go_avalanche_tpu_torch.models import streaming_dag
+from go_avalanche_tpu_torch.obs.tags import default_timeout_rounds
 
 FLAGSHIP_NODES = FLAGSHIP_TXS = 16384
 DAG_NODES = DAG_TXS = 10_000
@@ -82,12 +94,6 @@ DAG_NODES = DAG_TXS = 10_000
 # 50/50 partition over rounds [5, 10), then a +2 latency spike over
 # [12, 15), in the JSON spelling.
 FLAGSHIP_FAULTS = [["partition", 5, 10, 0.5], ["latency_spike", 12, 15, 2]]
-
-
-def default_timeout_rounds(latency_rounds: int) -> int:
-    """The async bench lane's timeout: 2 * latency + 2 rounds — the
-    port's copy of `go_avalanche_tpu/obs/tags.default_timeout_rounds`."""
-    return 2 * latency_rounds + 2
 
 
 def flagship_config(txs: int, k: int = 8, latency: int = 0,
@@ -178,6 +184,90 @@ def fault_study_state(name: str, inflight_engine: str = "walk",
                     init_pref=av.contested_init_pref(0, n, t, device),
                     device=device)
     return state, cfg, rounds
+
+
+# The adaptive adversary's exactness cases: 256 nodes x 64 txs, 20%
+# byzantine, seed 0, 40 rounds.  Sync cases run the avalanche round from
+# contested priors under each policy (and "off", the control); async
+# cases run under geometric latency 2 with the bench lane's timeout
+# (`default_timeout_rounds(2)` = 6 rounds), the DAG case on 2-tx sets
+# from its default priors.  Each is (model, config knobs); the knobs
+# build the JAX package's config as well.
+POLICY_SHAPE = (256, 64)             # nodes, txs
+POLICY_ROUNDS = 40
+_POLICY_ASYNC = dict(latency_mode="geometric", latency_rounds=2,
+                     time_step_s=1.0,
+                     request_timeout_s=float(default_timeout_rounds(2) - 1))
+POLICY_CASES = {
+    "off": ("avalanche", dict(byzantine_fraction=0.2)),
+    "split_vote": ("avalanche", dict(byzantine_fraction=0.2,
+                                     adversary_policy="split_vote")),
+    "withhold_near_quorum": ("avalanche", dict(
+        byzantine_fraction=0.2, adversary_policy="withhold_near_quorum")),
+    "stake_eclipse": ("avalanche", dict(byzantine_fraction=0.2,
+                                        adversary_policy="stake_eclipse",
+                                        stake_mode="zipf")),
+    "async_timing": ("avalanche", dict(byzantine_fraction=0.2,
+                                       adversary_policy="timing",
+                                       **_POLICY_ASYNC)),
+    "async_withhold_near_quorum": ("avalanche", dict(
+        byzantine_fraction=0.2, adversary_policy="withhold_near_quorum",
+        **_POLICY_ASYNC)),
+    "dag_async_split_vote": ("dag", dict(byzantine_fraction=0.2,
+                                         adversary_policy="split_vote",
+                                         **_POLICY_ASYNC)),
+}
+
+
+def policy_engines(name: str) -> Tuple[str, ...]:
+    """The engines a policy case runs on: both ingest kernels for a sync
+    case, the three delivery engines for an async one."""
+    if POLICY_CASES[name][1].get("latency_mode", "none") == "none":
+        return ("u8", "swar32")
+    return ("walk", "walk_earlyout", "coalesced")
+
+
+def policy_state(name: str, engine: str, device="cuda"):
+    """``(model, state, cfg)`` of a policy case on `engine` (an ingest
+    engine for a sync case, a delivery engine for an async one), seeded
+    with ``key(0)``."""
+    model, knobs = POLICY_CASES[name]
+    knobs = dict(knobs)
+    knobs["ingest_engine" if engine in ("u8", "swar32")
+          else "inflight_engine"] = engine
+    cfg = AvalancheConfig(**knobs)
+    n, t = POLICY_SHAPE
+    if model == "dag":
+        return model, dag.init(prng.key(0, device), n,
+                               torch.arange(t, dtype=torch.int32) // 2, cfg,
+                               device=device), cfg
+    return model, av.init(prng.key(0, device), n, t, cfg,
+                          init_pref=av.contested_init_pref(0, n, t, device),
+                          device=device), cfg
+
+
+# The fleet's two chip points.  "atlas_hostile" is the most hostile point
+# of `examples/adversary_atlas.py` at the study's defaults (snowball, 64
+# nodes, fleet 48, 120 rounds, finalization 64, split_vote at byzantine
+# 0.45, k 8, quorum 7, priors 50/50, seed 0); "policy_grid" is one
+# `run_phase_grid` of the avalanche model over the policy axis at byzantine
+# 0.2, contested priors, 4 trials of 4096 x 1024, 30 rounds, finalization
+# 32 (a 4096-wide window takes the ingest kernels' fast path).
+FLEET_CASES = {
+    "atlas_hostile": dict(
+        model="snowball", grid=None,
+        knobs=dict(finalization_score=64, byzantine_fraction=0.45,
+                   adversary_policy="split_vote", k=8, quorum=7),
+        kw=dict(fleet=48, n_nodes=64, n_rounds=120, yes_fraction=0.5,
+                seed=0)),
+    "policy_grid": dict(
+        model="avalanche",
+        grid={"adversary_policy": ["off", "split_vote",
+                                   "withhold_near_quorum"]},
+        knobs=dict(finalization_score=32, byzantine_fraction=0.2),
+        kw=dict(fleet=4, n_nodes=4096, n_txs=1024, n_rounds=30,
+                contested=True, seed=0)),
+}
 
 
 def dag_baseline_config(txs: int) -> AvalancheConfig:
@@ -537,4 +627,231 @@ FAULT_STUDY_RECORDS = {
         ],
         "finalized_fraction": 1.0,
     },
+}
+
+
+# `POLICY_RECORDS`: the JAX package's own run of each policy case on the
+# CPU (`POLICY_CASES`, seed 0): per-round finalizations and votes applied
+# (and expiries for the async cases), and the final finalized fraction.
+# Each record is the result of
+#     cfg = go_avalanche_tpu.config.AvalancheConfig(**POLICY_CASES[name][1])
+#     avalanche.run_scan(avalanche.init(jax.random.key(0), 256, 64, cfg,
+#                        init_pref=avalanche.contested_init_pref(0, 256, 64)),
+#                        cfg, n_rounds=40)
+# (the DAG case: dag.run_scan(dag.init(jax.random.key(0), 256,
+# jnp.arange(64, dtype=jnp.int32) // 2, cfg), cfg, n_rounds=40)), with
+# the fraction as numpy's float64 mean of `voterecord.has_finalized` over
+# the final records.  Every policy path is integer, so the record holds
+# on any backend; tests/test_torch_adversary_policies.py reproduces it
+# from the JAX package.
+POLICY_RECORDS = {
+    "off": {
+        "finalizations": [
+            0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0,
+            1, 5, 9, 8, 34, 55, 68, 110, 228, 293, 492, 569, 769, 777, 1128,
+            1228, 1060, 1121
+        ],
+        "votes_applied": [
+            131072, 131072, 131072, 131072, 131072, 131072, 131072, 131072,
+            131072, 131072, 131072, 131072, 131072, 131072, 131072, 131072,
+            131072, 131072, 131072, 131072, 131072, 131072, 131072, 131064,
+            131024, 130952, 130888, 130616, 130176, 129632, 128752, 126928,
+            124584, 120648, 116096, 109944, 103728, 94704, 84880, 76400
+        ],
+        "finalized_fraction": 0.48553466796875,
+    },
+    "split_vote": {
+        "finalizations": [
+            0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0,
+            0, 0, 0, 0, 0, 0, 0, 0, 1, 0, 0, 4, 3, 3, 6, 7, 14, 21
+        ],
+        "votes_applied": [
+            131072, 131072, 131072, 131072, 131072, 131072, 131072, 131072,
+            131072, 131072, 131072, 131072, 131072, 131072, 131072, 131072,
+            131072, 131072, 131072, 131072, 131072, 131072, 131072, 131072,
+            131072, 131072, 131072, 131072, 131072, 131072, 131072, 131064,
+            131064, 131064, 131032, 131008, 130984, 130936, 130880, 130768
+        ],
+        "finalized_fraction": 0.00360107421875,
+    },
+    "withhold_near_quorum": {
+        "finalizations": [
+            0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0,
+            0, 0, 2, 0, 11, 17, 21, 31, 47, 91, 203, 275, 340, 378, 591, 777,
+            885, 941
+        ],
+        "votes_applied": [
+            131072, 106752, 109952, 109376, 108608, 109568, 110144, 109440,
+            110720, 109376, 109824, 107328, 108928, 108992, 108864, 108608,
+            108800, 111488, 108224, 109952, 110912, 109504, 110336, 110720,
+            110848, 109748, 109872, 109094, 111367, 108314, 110043, 109940,
+            107581, 109909, 102089, 105629, 100855, 96967, 90945, 85098
+        ],
+        "finalized_fraction": 0.2813720703125,
+    },
+    "stake_eclipse": {
+        "finalizations": [
+            0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 1, 5, 44, 177, 380,
+            839, 1225, 1532, 1866, 1764, 1618, 1398, 1175, 861, 775, 631, 462,
+            389, 306, 206, 170, 109, 109, 107
+        ],
+        "votes_applied": [
+            130496, 130304, 130368, 130432, 130752, 130944, 130624, 130432,
+            130368, 130624, 130560, 130624, 130432, 130688, 130560, 130304,
+            130880, 130872, 130576, 130352, 128939, 125576, 119206, 109543,
+            96849, 82070, 68035, 55204, 44141, 34352, 27615, 21646, 16596,
+            12592, 9799, 7163, 5512, 4414, 3607, 2671
+        ],
+        "finalized_fraction": 0.98565673828125,
+    },
+    "async_timing": {
+        "finalizations": [
+            0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0,
+            0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 2, 17, 7, 9, 21
+        ],
+        "votes_applied": [
+            35712, 61184, 73536, 84032, 88704, 124352, 118144, 121984, 124032,
+            124736, 118528, 123328, 117120, 119936, 121856, 122560, 124096,
+            120768, 120768, 122368, 122496, 123264, 125632, 120320, 124096,
+            119360, 121280, 120960, 118720, 120192, 120704, 125440, 118016,
+            125504, 120448, 125694, 118955, 124154, 118887, 122999
+        ],
+        "expiries": [
+            0, 0, 0, 0, 0, 0, 127, 145, 147, 146, 152, 154, 132, 148, 143, 157,
+            138, 153, 152, 143, 137, 133, 132, 138, 157, 159, 141, 161, 143,
+            137, 141, 142, 144, 155, 140, 144, 156, 144, 149, 148
+        ],
+        "finalized_fraction": 0.00341796875,
+    },
+    "async_withhold_near_quorum": {
+        "finalizations": [
+            0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0,
+            0, 0, 0, 0, 0, 0, 0, 0, 1, 0, 0, 0, 5, 10, 13, 34, 11, 20
+        ],
+        "votes_applied": [
+            43776, 74176, 85568, 91072, 93184, 102656, 95680, 96320, 98048,
+            98880, 95104, 101248, 96064, 99968, 99776, 102272, 100480, 98304,
+            97536, 99904, 99840, 99904, 103424, 97088, 101824, 98304, 99584,
+            99520, 96832, 98112, 97595, 102711, 95547, 103165, 97070, 104003,
+            96986, 101516, 98869, 99674
+        ],
+        "expiries": [
+            0, 0, 0, 0, 0, 0, 162, 179, 476, 555, 582, 547, 539, 543, 517, 507,
+            460, 488, 503, 503, 482, 480, 488, 490, 505, 507, 487, 501, 485,
+            487, 488, 486, 493, 504, 488, 512, 529, 473, 504, 458
+        ],
+        "finalized_fraction": 0.0057373046875,
+    },
+    "dag_async_split_vote": {
+        "finalizations": [
+            0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0,
+            0, 0, 0, 0, 0, 0, 0, 0, 0, 64, 0, 64, 128, 384, 192, 320, 256, 320
+        ],
+        "votes_applied": [
+            43776, 74304, 92096, 104704, 110848, 122176, 118464, 119744,
+            120512, 121920, 116672, 119360, 116992, 120064, 120768, 122624,
+            118976, 116608, 118720, 120448, 119872, 120000, 122432, 114304,
+            122112, 120832, 118016, 118016, 116992, 118656, 117504, 123648,
+            115136, 122048, 116992, 121536, 110784, 116544, 108608, 106368
+        ],
+        "expiries": [
+            0, 0, 0, 0, 0, 0, 162, 177, 182, 187, 189, 187, 175, 184, 170, 190,
+            171, 206, 189, 182, 172, 164, 167, 182, 203, 187, 176, 198, 169,
+            178, 183, 178, 182, 198, 174, 181, 207, 181, 183, 183
+        ],
+        "finalized_fraction": 0.10546875,
+    },
+}
+
+
+# `FLEET_RECORDS`: the JAX package's rows for `FLEET_CASES` on the CPU.
+# With cfg = go_avalanche_tpu.config.AvalancheConfig(**case["knobs"]) for
+# case = FLEET_CASES[name], "atlas_hostile" is
+#     res = fleet.run_fleet("snowball", cfg, **case["kw"])
+#     [{**res.summary(), "tag": obs.tag_from_config(cfg)}]
+# and "policy_grid" the rows of
+#     fleet.run_phase_grid("avalanche", cfg, case["grid"], **case["kw"])
+# `chip_smoke.py` reproduces both on the card.
+FLEET_RECORDS = {
+    "atlas_hostile": [
+        {
+            "model": "snowball",
+            "fleet": 48,
+            "rounds": 120,
+            "violations": 0,
+            "p_violation": 0.0,
+            "violation_ci": [0.0, 0.074103],
+            "p_settled": 0.0,
+            "settled_ci": [0.0, 0.074103],
+            "stalls": 48,
+            "p_stall": 1.0,
+            "stall_ci": [0.925897, 1.0],
+            "finality_mean": None,
+            "finality_ci": None,
+            "finalized_fraction_mean": 0.0,
+            "tag": ", split_vote-adversary",
+        },
+    ],
+    "policy_grid": [
+        {
+            "point": {
+                "adversary_policy": "off",
+            },
+            "model": "avalanche",
+            "fleet": 4,
+            "rounds": 30,
+            "violations": 4,
+            "p_violation": 1.0,
+            "violation_ci": [0.5101, 1.0],
+            "p_settled": 0.0,
+            "settled_ci": [0.0, 0.4899],
+            "stalls": 0,
+            "p_stall": 0.0,
+            "stall_ci": [0.0, 0.4899],
+            "finality_mean": None,
+            "finality_ci": None,
+            "finalized_fraction_mean": 0.950993,
+            "tag": "",
+        },
+        {
+            "point": {
+                "adversary_policy": "split_vote",
+            },
+            "model": "avalanche",
+            "fleet": 4,
+            "rounds": 30,
+            "violations": 4,
+            "p_violation": 1.0,
+            "violation_ci": [0.5101, 1.0],
+            "p_settled": 0.0,
+            "settled_ci": [0.0, 0.4899],
+            "stalls": 0,
+            "p_stall": 0.0,
+            "stall_ci": [0.0, 0.4899],
+            "finality_mean": None,
+            "finality_ci": None,
+            "finalized_fraction_mean": 0.00109,
+            "tag": ", split_vote-adversary",
+        },
+        {
+            "point": {
+                "adversary_policy": "withhold_near_quorum",
+            },
+            "model": "avalanche",
+            "fleet": 4,
+            "rounds": 30,
+            "violations": 0,
+            "p_violation": 0.0,
+            "violation_ci": [0.0, 0.4899],
+            "p_settled": 0.0,
+            "settled_ci": [0.0, 0.4899],
+            "stalls": 0,
+            "p_stall": 0.0,
+            "stall_ci": [0.0, 0.4899],
+            "finality_mean": None,
+            "finality_ci": None,
+            "finalized_fraction_mean": 0.797237,
+            "tag": ", withhold_near_quorum-adversary",
+        },
+    ],
 }

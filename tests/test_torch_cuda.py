@@ -447,3 +447,75 @@ def test_node_stream_on_cuda_matches_cpu(engine, cuda):
                                            device=device))
     _assert_leaves_equal(finals[0], finals[1])
     assert int(finals[1][1].departed.sum()) > 0
+
+
+POLICY_KNOBS = {
+    "split_vote": dict(byzantine_fraction=0.25, adversary_policy="split_vote"),
+    "withhold_near_quorum": dict(byzantine_fraction=0.25,
+                                 adversary_policy="withhold_near_quorum",
+                                 adversary_margin=3),
+    "stake_eclipse": dict(byzantine_fraction=0.25,
+                          adversary_policy="stake_eclipse", stake_mode="zipf"),
+    "timing": dict(byzantine_fraction=0.25, adversary_policy="timing"),
+}
+POLICY_ASYNC = dict(latency_mode="geometric", latency_rounds=1,
+                    time_step_s=1.0, request_timeout_s=3.0)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("engine,policy", [
+    (engine, policy) for engine in ("u8", "swar32")
+    for policy in ("split_vote", "withhold_near_quorum", "stake_eclipse")
+] + [
+    (engine, policy) for engine in ("walk", "walk_earlyout", "coalesced")
+    for policy in ("timing", "withhold_near_quorum", "split_vote")])
+def test_policy_rounds_on_cuda_match_cpu(engine, policy, cuda):
+    """Avalanche rounds under each adaptive-adversary policy on the card
+    and on the CPU, per ingest kernel (sync) or delivery engine (async):
+    every leaf equal; the sync rounds launch their ingest kernel once a
+    round."""
+    knobs = dict(POLICY_KNOBS[policy], finalization_score=12)
+    if engine in ("u8", "swar32"):
+        knobs["ingest_engine"] = engine
+    else:
+        knobs.update(POLICY_ASYNC, inflight_engine=engine)
+    cfg = AvalancheConfig(**knobs)
+    rounds = 6
+    out = []
+    for device in (cuda, torch.device("cpu")):
+        state = av.init(prng.key(3, device), 64, 512, cfg,
+                        init_pref=av.contested_init_pref(3, 64, 512, device),
+                        device=device)
+        counts = dict(pv.launches)
+        out.append(av.run_scan(state, cfg, n_rounds=rounds, device=device))
+        if device.type == "cuda" and engine in ("u8", "swar32"):
+            name = "vote_swar" if engine == "swar32" else "vote_u8"
+            assert pv.launches[name] == counts[name] + rounds
+    _assert_leaves_equal(out[0], out[1])
+    assert int(out[1][1].votes_applied.sum()) > 0
+
+
+@pytest.mark.cuda
+def test_fleet_on_cuda_matches_cpu(cuda):
+    """`run_fleet` and `run_phase_grid` on the card and on the CPU: the
+    same per-trial vectors and rows."""
+    from go_avalanche_tpu_torch import fleet
+
+    cfg = AvalancheConfig(finalization_score=12, byzantine_fraction=0.3,
+                          adversary_policy="split_vote")
+    res = [fleet.run_fleet("snowball", cfg, fleet=4, n_nodes=48,
+                           n_rounds=30, device=device)
+           for device in (cuda, torch.device("cpu"))]
+    for name in ("violations", "settled", "finality_round",
+                 "finalized_fraction", "stalled"):
+        np.testing.assert_array_equal(getattr(res[0], name),
+                                      getattr(res[1], name))
+    assert res[0].summary() == res[1].summary()
+    base = AvalancheConfig(finalization_score=12, byzantine_fraction=0.2)
+    grid = {"adversary_policy": ["off", "split_vote",
+                                 "withhold_near_quorum"]}
+    rows = [fleet.run_phase_grid("avalanche", base, grid, fleet=2,
+                                 n_nodes=32, n_txs=64, n_rounds=12,
+                                 device=device)
+            for device in (cuda, torch.device("cpu"))]
+    assert rows[0] == rows[1]

@@ -355,9 +355,14 @@ def test_async_configs_derive_as_jax(case):
 
 
 def test_adaptive_adversary_still_unported():
-    with pytest.raises(NotImplementedError, match="item 11"):
+    """The timing policy rides the async ring: accepted with a latency
+    mode, refused with the reference's message without one."""
+    cfg = AvalancheConfig(byzantine_fraction=0.2, adversary_policy="timing",
+                          latency_mode="fixed", **TIMING)
+    assert cfg.async_queries() and cfg.adversary_policy == "timing"
+    with pytest.raises(ValueError, match="async engine on"):
         AvalancheConfig(byzantine_fraction=0.2, adversary_policy="timing",
-                        latency_mode="fixed", **TIMING)
+                        **TIMING)
 
 
 @pytest.mark.parametrize("data", [

@@ -33,7 +33,9 @@ MODULES = ["go_avalanche_tpu_torch", "go_avalanche_tpu_torch.config",
            "go_avalanche_tpu_torch.models.snowball",
            "go_avalanche_tpu_torch.models.family",
            "go_avalanche_tpu_torch.workload",
-           "go_avalanche_tpu_torch.round_profile"]
+           "go_avalanche_tpu_torch.round_profile",
+           "go_avalanche_tpu_torch.fleet",
+           "go_avalanche_tpu_torch.obs.tags"]
 
 
 def _forbidden(module: str) -> bool:
@@ -135,6 +137,17 @@ def test_entry_points_default_to_cuda():
     state = node_stream.init(key, 4, registry, device="cpu")
     with pytest.raises(RuntimeError, match="cuda"):
         node_stream.run_scan(state, registry, n_rounds=1)
+
+    from go_avalanche_tpu_torch import fleet
+
+    policy = AvalancheConfig(byzantine_fraction=0.25,
+                             adversary_policy="split_vote")
+    with pytest.raises(RuntimeError, match="cuda"):
+        fleet.run_fleet("snowball", policy, fleet=2, n_nodes=8, n_rounds=1)
+    with pytest.raises(RuntimeError, match="cuda"):
+        fleet.run_phase_grid("avalanche", policy,
+                             {"adversary_policy": ["off", "split_vote"]},
+                             fleet=2, n_nodes=8, n_txs=4, n_rounds=1)
 
 
 def test_round_profile_fails_without_cuda():

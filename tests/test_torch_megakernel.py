@@ -189,7 +189,6 @@ def test_config_rejections_match_jax(kwargs, match):
 @pytest.mark.parametrize("kwargs", [
     dict(strict_validation=True), dict(fused_sharded_gossip=True),
     dict(metrics_every=1), dict(trace_every=1),
-    dict(byzantine_fraction=0.2, adversary_policy="split_vote"),
 ])
 def test_unported_fields_raise_not_implemented(kwargs):
     with pytest.raises(NotImplementedError, match="ROADMAP"):
