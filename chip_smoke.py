@@ -89,12 +89,45 @@ package is missing.  Phases, each printing JSON lines:
                counted as expiries; every `workload.POLICY_RECORDS` case
                on every engine it applies to, each equal to the JAX
                package's record; and the two `workload.FLEET_RECORDS`
-               points (the adversary atlas's most hostile point, 48
-               Snowball trials of 120 rounds; an avalanche phase grid
+               points (the adversary atlas's most hostile point, 16
+               Snowball trials of 120 rounds, cut from the study's 48;
+               an avalanche phase grid
                over the policy axis, 4 trials of 4096 x 1024), each row
                equal to the JAX package's.  Each part prints its wall
                seconds; the kernels line counts phase 4's launches and
-               phase 10's.
+               phase 10's;
+ 11. obs     — the flight recorder (`obs/`).  (a) The flagship at
+               16384 x 16384 with the metrics tap and the trace plane on
+               (``metrics_every=1``, ``trace_every=1``, inside a
+               `metrics_sink`) bracketed by two taps-off runs, 5 rounds
+               each on the megakernel, phased-u8 and phased-swar32 (the
+               off time is their mean, so that neither side always runs
+               first): each engine leaf-equal to its tap-off run, the
+               trace rows equal to the run's stacked telemetry, the
+               three trace planes equal, the tap's JSONL byte-identical
+               to `write_trace`'s, each kernel launched once a round,
+               the round loop's host reads those of the taps off with
+               the drain read once; ms
+               per round with the taps on and off; then ``trace_every=3``
+               over 10 rounds (4 slots, `check_trace`) run on 6 rounds
+               past the horizon (the clamp).  (b) The DAG baseline at
+               10000 x 10000 on phased-u8 to settlement (17 rounds) with
+               ``trace_every=1`` and `Watchdog.check` after every round.
+               (c) The four fault studies at 512 x 64 on the coalesced
+               engine, traced, the watchdog (`check_ring_cut` included)
+               after every round, each `check_recovery` report equal to
+               `workload.RECOVERY_RECORDS`.  (d) The atlas's most hostile
+               point traced (8 Snowball trials) and the policy grid's
+               split_vote point (4 trials of 4096 x 1024, launching
+               `vote_u8` in the fleet), each fleet-stacked trace JSONL's
+               sha256 equal to `workload.FLEET_TRACE_RECORDS`, the atlas's
+               stall verdicts checked against the trace finality curves.
+               (e) `backlog.run_scan` at config 5's width (200 rounds,
+               ``trace_every=10``) and the node stream (1,000,000
+               registry nodes, 16384 x 4096, 3 rounds), each trace equal
+               to the stacked telemetry of the same call.  Phase 11's
+               launches print on a line of their own, outside the
+               kernels line.
 
 With ``--config6-full-depth`` it builds the kernels and runs only BASELINE
 config 6 at full width and full depth (500,000 sets, ~8313 rounds,
@@ -951,6 +984,7 @@ def run_streaming(quick: bool = False, device="cuda") -> dict:
     from go_avalanche_tpu_torch import traffic as tf
     from go_avalanche_tpu_torch import workload
     from go_avalanche_tpu_torch.config import AvalancheConfig
+    from go_avalanche_tpu_torch.models import avalanche as av
     from go_avalanche_tpu_torch.models import backlog, node_stream
     from go_avalanche_tpu_torch.models import streaming_dag as sdg
 
@@ -1146,7 +1180,7 @@ def run_streaming(quick: bool = False, device="cuda") -> dict:
         raise AssertionError("node stream: churn counters disagree")
     # The churn draws again on the CPU from the card's initial registry
     # planes: they read no consensus state.
-    replay = node_stream.move_tree(start._replace(sim=None),
+    replay = av.move_leaves(start._replace(sim=None),
                                    torch.device("cpu"))
     for r in range(n_rounds):
         swap, new_slot, resident, n_swapped, key = (
@@ -1573,8 +1607,8 @@ def run_async_models(shape: dict, device="cuda") -> list:
     final, ms = timed_run(backlog.run, start, cfg, max_rounds=STREAM_MAX_ROUNDS,
                           device=device)
     reads = sync.reads
-    replay = backlog.run(backlog.move_tree(start, cpu), cfg, device="cpu")
-    assert_trees_equal(backlog.move_tree(final, cpu), replay,
+    replay = backlog.run(av.move_leaves(start, cpu), cfg, device="cpu")
+    assert_trees_equal(av.move_leaves(final, cpu), replay,
                        "backlog async vs its CPU replay")
     if not bool(final.outputs.settled.all()):
         raise AssertionError("backlog async: not every tx settled")
@@ -1602,7 +1636,7 @@ def run_async_models(shape: dict, device="cuda") -> list:
     n_rounds = shape["node_rounds"]
     (final, tel), ms = timed_run(node_stream.run_scan, start, ncfg,
                                  n_rounds=n_rounds, device=device)
-    replay, rtel = node_stream.run_scan(node_stream.move_tree(start, cpu),
+    replay, rtel = node_stream.run_scan(av.move_leaves(start, cpu),
                                         ncfg, n_rounds=n_rounds, device="cpu")
     assert_trees_equal(av.move_leaves((final, tel), cpu), (replay, rtel),
                        "node stream async vs its CPU replay")
@@ -1921,6 +1955,392 @@ def run_adversary(quick: bool = False, device="cuda") -> dict:
     return out
 
 
+# ---------------------------------------------------------------- phase 11
+
+OBS_SHAPES = {
+    "full": dict(flagship=(16_384, 16_384), dag=(10_000, 10_000),
+                 grid=True, backlog_rounds=200, backlog_every=10,
+                 node_txs=4096, registry=1_000_000, active=16_384),
+    "quick": dict(flagship=(256, 512), dag=(64, 64), grid=False,
+                  backlog_rounds=40, backlog_every=10, node_txs=256,
+                  registry=4096, active=64),
+}
+OBS_ROUNDS = 5               # the traced flagship, each engine, each side
+OBS_STRIDE = 3               # the strided trace: 10 rounds, 4 slots
+OBS_STRIDE_ROUNDS = 10
+
+
+def assert_trace_is_telemetry(buf, tel, where: str) -> None:
+    """The trace rows of `buf` equal the stacked telemetry `tel` of the
+    same run at every stride-th round."""
+    import torch
+
+    from go_avalanche_tpu_torch.obs import trace as obs_trace
+    from go_avalanche_tpu_torch.obs.sink import _flatten_telemetry
+
+    rows = obs_trace.stacked_telemetry(buf)
+    flat = _flatten_telemetry(tel, {})
+    if rows._fields != tuple(flat):
+        raise AssertionError(f"{where}: trace columns {rows._fields} != "
+                             f"telemetry {tuple(flat)}")
+    for name, col in flat.items():
+        want = col[::buf.stride].cpu()
+        got = torch.from_numpy(getattr(rows, name))
+        if want.is_floating_point():
+            want, got = want.view(torch.int32), got.view(torch.int32)
+        if not torch.equal(want.to(torch.int32), got.to(torch.int32)):
+            raise AssertionError(f"{where}: trace column {name} differs "
+                                 f"from the stacked telemetry")
+
+
+def run_traced_flagship(n: int, t: int, tmp, device="cuda") -> dict:
+    """Part (a): the flagship with both taps on (``metrics_every=1``,
+    ``trace_every=1``, inside a `metrics_sink`) between two taps-off
+    runs, 5 rounds each on the megakernel, phased-u8 and phased-swar32;
+    then
+    the strided trace and the clamp on one engine."""
+    import torch
+
+    from go_avalanche_tpu_torch import obs, sync, workload
+    from go_avalanche_tpu_torch.models import avalanche as av
+    from go_avalanche_tpu_torch.models.backlog import stack_tree
+    from go_avalanche_tpu_torch.obs import trace as obs_trace
+
+    start, mega_cfg = workload.flagship_state(n, t, round_engine="megakernel",
+                                              device=device)
+    cfgs = {"megakernel": mega_cfg,
+            "vote_u8": workload.flagship_config(t),
+            "vote_swar": dataclasses.replace(workload.flagship_config(t),
+                                             ingest_engine="swar32")}
+
+    def loop(state, cfg):
+        """`OBS_ROUNDS` rounds timed by CUDA events; (state, telemetry
+        rows, ms a round, host reads in the loop, launches)."""
+        counts = Launches()
+        reads = sync.reads
+        tels = []
+        begin = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        begin.record()
+        for _ in range(OBS_ROUNDS):
+            state, tel = av.round_step(state, cfg)
+            tels.append(tel)
+        end.record()
+        torch.cuda.synchronize()
+        return (state, tels, begin.elapsed_time(end) / OBS_ROUNDS,
+                sync.reads - reads, counts.delta()[0])
+
+    rows, planes, total = {}, {}, {"megakernel": 0, "vote_u8": 0,
+                                   "vote_swar": 0}
+    for name, off_cfg in cfgs.items():
+        on_cfg = dataclasses.replace(off_cfg, metrics_every=1, trace_every=1)
+        av.round_step(start, off_cfg)       # warm-up, outside the counts
+        off, _, off_ms, off_reads, off_launches = loop(start, off_cfg)
+        tap = tmp / f"tap_{name}.jsonl"
+        with obs.metrics_sink(tap):
+            reads = sync.reads
+            on, tels, on_ms, on_reads, on_launches = loop(
+                av.with_trace(start, on_cfg, OBS_ROUNDS), on_cfg)
+        drain_reads = sync.reads - reads - on_reads
+        _, _, after_ms, after_reads, after_launches = loop(start, off_cfg)
+        want = {k: OBS_ROUNDS if k == name else 0 for k in total}
+        if want != on_launches or want != off_launches or (
+                want != after_launches):
+            raise AssertionError(f"traced flagship {name}: launches on "
+                                 f"{on_launches}, off {off_launches} and "
+                                 f"{after_launches}, want {want}")
+        if on_reads != off_reads or after_reads != off_reads or (
+                drain_reads != 1):
+            raise AssertionError(f"traced flagship {name}: host reads in "
+                                 f"the loop {on_reads} (taps off "
+                                 f"{off_reads}), drain {drain_reads}")
+        assert_states_equal(on._replace(trace=None), off,
+                            f"traced flagship {name}, taps on vs off")
+        assert_trace_is_telemetry(on.trace, stack_tree(tels),
+                                  f"traced {name}")
+        trace_file = tmp / f"trace_{name}.jsonl"
+        with obs.metrics_sink(trace_file) as sink:
+            obs_trace.write_trace(sink, on.trace)
+        if tap.read_bytes() != trace_file.read_bytes():
+            raise AssertionError(f"traced flagship {name}: the tap's JSONL "
+                                 f"and write_trace's differ")
+        planes[name] = obs_trace.to_host(on.trace)
+        for k, v in on_launches.items():
+            total[k] += v
+        rows[name] = {"ms_per_round_taps_on": on_ms,
+                      "ms_per_round_taps_off": (off_ms + after_ms) / 2,
+                      "ms_per_round_taps_off_before_after": [off_ms,
+                                                             after_ms],
+                      "host_reads_in_loop": on_reads,
+                      "host_reads_taps_off": off_reads,
+                      "drain_reads": drain_reads, "launches": on_launches,
+                      "tap_records": len(tap.read_text().splitlines())}
+    first = planes["megakernel"]
+    for name in ("vote_u8", "vote_swar"):
+        if not (first.data == planes[name].data).all() or int(
+                first.cursor) != int(planes[name].cursor):
+            raise AssertionError(f"trace planes differ: megakernel vs {name}")
+
+    # The strided trace, then the clamp: the same buffer run on past its
+    # horizon, the writes beyond its last slot landing on that slot.
+    cfg = dataclasses.replace(cfgs["vote_u8"], trace_every=OBS_STRIDE)
+    state = av.with_trace(start, cfg, OBS_STRIDE_ROUNDS)
+    counts = Launches()
+    tels = []
+    for _ in range(OBS_STRIDE_ROUNDS):
+        state, tel = av.round_step(state, cfg)
+        tels.append(tel)
+    slots = obs_trace.slots_for(OBS_STRIDE_ROUNDS, OBS_STRIDE)
+    host = obs_trace.to_host(state.trace)
+    if host.data.shape[0] != slots or int(host.cursor) != slots:
+        raise AssertionError(f"strided trace: {host.data.shape[0]} slots, "
+                             f"cursor {int(host.cursor)}, want {slots}")
+    obs.check_trace(state.trace, cfg, OBS_STRIDE_ROUNDS)
+    assert_trace_is_telemetry(state.trace, stack_tree(tels),
+                              "strided trace")
+    past = 2 * OBS_STRIDE           # two more emitted rounds
+    for _ in range(past):
+        state, tel = av.round_step(state, cfg)
+        tels.append(tel)
+    torch.cuda.synchronize()
+    host = obs_trace.to_host(state.trace)
+    emitted = [r for r in range(OBS_STRIDE_ROUNDS + past)
+               if r % OBS_STRIDE == 0]
+    if int(host.cursor) != len(emitted):
+        raise AssertionError(f"clamp: cursor {int(host.cursor)} != "
+                             f"{len(emitted)} writes")
+    last = {f: int(getattr(tels[emitted[-1]], f)) for f in tels[0]._fields}
+    got = dict(zip((c for c, _ in host.columns), host.data[-1].tolist()))
+    if got != last:
+        raise AssertionError(f"clamp: last slot {got} != round "
+                             f"{emitted[-1]}'s telemetry {last}")
+    launches = counts.delta()[0]
+    if launches["vote_u8"] != OBS_STRIDE_ROUNDS + past:
+        raise AssertionError(f"strided trace launches {launches}")
+    total["vote_u8"] += launches["vote_u8"]
+    return {"engines": rows, "strided": {
+        "stride": OBS_STRIDE, "rounds": OBS_STRIDE_ROUNDS, "slots": slots,
+        "clamp_rounds": OBS_STRIDE_ROUNDS + past,
+        "clamp_cursor": int(host.cursor)}, "launches": total}
+
+
+def run_traced_dag(n: int, t: int, device="cuda") -> dict:
+    """Part (b): the DAG baseline on phased-u8 to settlement with
+    ``trace_every=1`` and `Watchdog.check` after every round."""
+    import torch
+
+    from go_avalanche_tpu_torch import obs, sync, workload
+    from go_avalanche_tpu_torch.models import dag
+    from go_avalanche_tpu_torch.obs import trace as obs_trace
+
+    start, cfg = workload.dag_baseline_state(n, t, device=device)
+    cfg = dataclasses.replace(cfg, trace_every=1)
+    state = dag.with_trace(start, cfg, DAG_MAX_ROUNDS)
+    watchdog = obs.Watchdog(cfg)
+    counts = Launches()
+    reads = sync.reads
+    t0 = time.perf_counter()
+    rounds = 0
+    while rounds < DAG_MAX_ROUNDS and not sync.read(dag.settled(state, cfg)):
+        state = dag.round_step(state, cfg)[0]
+        watchdog.check(state)
+        rounds += 1
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    host_reads = sync.reads - reads
+    launches = counts.delta()[0]
+    if rounds != DAG_REFERENCE["rounds"]:
+        raise AssertionError(f"traced dag: {rounds} rounds != the "
+                             f"reference's {DAG_REFERENCE['rounds']}")
+    if launches != {"megakernel": 0, "vote_u8": rounds, "vote_swar": 0}:
+        raise AssertionError(f"traced dag launches {launches}")
+    records = obs_trace.trace_records(state.base.trace)
+    if [r["round"] for r in records] != list(range(rounds)):
+        raise AssertionError("traced dag: trace rounds")
+    fin = sum(r["finalizations"] for r in records)
+    return {"rounds": rounds, "watchdog_checks": watchdog.checks,
+            "host_reads": host_reads, "finalizations": fin,
+            "launches": launches, "wall_s": wall}
+
+
+def run_traced_fault_studies(device="cuda") -> list:
+    """Part (c): the four fault studies at 512 x 64 on the coalesced
+    engine with ``trace_every=1`` and the watchdog (its `check_ring_cut`
+    included) after every round; each `check_recovery` report equal to
+    `workload.RECOVERY_RECORDS`."""
+    from go_avalanche_tpu_torch import obs, sync, workload
+    from go_avalanche_tpu_torch.models import avalanche as av
+
+    rows = []
+    counts = Launches()
+    for name, want in workload.RECOVERY_RECORDS.items():
+        start, cfg, n_rounds = workload.fault_study_state(name, "coalesced",
+                                                          device=device)
+        cfg = dataclasses.replace(cfg, trace_every=1)
+        state = av.with_trace(start, cfg, n_rounds)
+        watchdog = obs.Watchdog(cfg)
+        reads = sync.reads
+        t0 = time.perf_counter()
+        for _ in range(n_rounds):
+            state = av.round_step(state, cfg)[0]
+            watchdog.check(state)
+        wall = time.perf_counter() - t0
+        report = obs.check_recovery(cfg, state.trace)
+        got = json.loads(json.dumps({"ok": report.ok,
+                                     "windows": report.windows,
+                                     "totals": report.totals}))
+        if got != want:
+            raise AssertionError(f"fault study {name}: recovery report "
+                                 f"{got} != the JAX record {want}")
+        series = obs.trace_records(state.trace)
+        for field in ("finalizations", "expiries", "partition_blocked"):
+            if [r[field] for r in series] != \
+                    workload.FAULT_STUDY_RECORDS[name][field]:
+                raise AssertionError(f"fault study {name}: traced {field} "
+                                     f"differ from the record")
+        rows.append({"study": name, "rounds": n_rounds,
+                     "recovered": report.ok, "windows": report.windows,
+                     "watchdog_checks": watchdog.checks,
+                     "host_reads": sync.reads - reads,
+                     "ms_per_round_checked": wall * 1e3 / n_rounds})
+    launches = counts.delta()[0]
+    if any(launches.values()):
+        raise AssertionError(f"traced fault studies launched {launches}: "
+                             f"the async path has no kernel by design")
+    return rows
+
+
+def run_traced_fleets(grid: bool, device="cuda") -> list:
+    """Part (d): the atlas's most hostile point (8 traced Snowball
+    trials) and, at full size, the policy grid's split_vote point (4
+    trials of 4096 x 1024): each fleet-stacked trace JSONL's sha256
+    equal to `workload.FLEET_TRACE_RECORDS`; the atlas's spot-check of
+    every trial's stall verdict against its trace finality curve."""
+    import torch
+
+    from go_avalanche_tpu_torch import fleet, workload
+    from go_avalanche_tpu_torch.config import AvalancheConfig
+
+    rows = []
+    names = ("atlas_hostile", "policy_grid") if grid else ("atlas_hostile",)
+    for name in names:
+        case = workload.FLEET_CASES[name]
+        rec = workload.FLEET_TRACE_RECORDS[name]
+        cfg = AvalancheConfig(**case["knobs"], trace_every=1)
+        if rec["point"] is not None:
+            cfg = fleet.point_config(cfg, rec["point"])
+        kw = dict(case["kw"], fleet=rec["fleet"])
+        counts = Launches()
+        t0 = time.perf_counter()
+        res = fleet.run_fleet(case["model"], cfg, device=device, **kw)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        records = res.trace_records()
+        digest = workload.trace_jsonl_digest(records)
+        if digest != rec["sha256"] or len(records) != rec["rows"]:
+            raise AssertionError(f"fleet trace {name}: sha256 {digest} over "
+                                 f"{len(records)} rows != the JAX record")
+        launches = counts.delta()[0]
+        trial_rounds = kw["fleet"] * kw["n_rounds"]
+        row = {"case": name, "fleet": kw["fleet"], "rows": len(records),
+               "sha256": digest, "launches": launches,
+               "ms_per_trial_round": wall * 1e3 / trial_rounds,
+               "wall_s": wall}
+        if name == "atlas_hostile":
+            n_byz = int(round(cfg.byzantine_fraction * kw["n_nodes"]))
+            for i in range(kw["fleet"]):
+                total = sum(r["finalizations"][i] for r in records)
+                stalled = bool(res.stalled[i])
+                if ((stalled and total > n_byz) or (
+                        not stalled and res.finalized_fraction[i] > 0
+                        and total == 0)):
+                    raise AssertionError(
+                        f"atlas trial {i}: stall verdict {stalled} "
+                        f"disagrees with its trace finality curve "
+                        f"({total} finalizations, {n_byz} byzantine)")
+            row["stalls"] = int(res.stalled.sum())
+        elif launches["vote_u8"] != trial_rounds:
+            raise AssertionError(f"fleet trace {name}: launches {launches} "
+                                 f"!= one vote_u8 a trial round")
+        rows.append(row)
+    return rows
+
+
+def run_traced_schedulers(shape: dict, device="cuda") -> list:
+    """Part (e): `backlog.run_scan` at config 5's width with
+    ``trace_every=10`` and the node stream (its registry, 3 rounds) with
+    ``trace_every=1``: each trace's rows equal to the stacked telemetry
+    of the same call."""
+    import torch
+
+    from go_avalanche_tpu_torch import prng, workload
+    from go_avalanche_tpu_torch.config import AvalancheConfig
+    from go_avalanche_tpu_torch.models import backlog, node_stream
+
+    rows = []
+    quick = shape["backlog_rounds"] < 200
+    start, cfg = workload.config5_state(quick, device=device)
+    cfg = dataclasses.replace(cfg, trace_every=shape["backlog_every"])
+    n_rounds = shape["backlog_rounds"]
+    state = backlog.with_trace(start, cfg, n_rounds)
+    counts = Launches()
+    (final, tel), ms = timed_run(backlog.run_scan, state, cfg, n_rounds,
+                                 device=device)
+    assert_trace_is_telemetry(final.sim.trace, tel, "traced backlog")
+    rows.append({"part": "backlog", "window": workload.config5_shape(
+        quick)[2], "rounds": n_rounds, "stride": cfg.trace_every,
+        "slots": int(final.sim.trace.cursor), "ms_per_round": ms / n_rounds,
+        "launches": counts.delta()[0]})
+    del start, state, final
+    torch.cuda.empty_cache()
+
+    ncfg = AvalancheConfig(stake_mode="zipf", stake_zipf_s=1.0,
+                           registry_nodes=shape["registry"],
+                           active_nodes=shape["active"],
+                           node_churn_rate=1e-3,
+                           max_element_poll=max(4096, shape["node_txs"]),
+                           trace_every=1)
+    start = node_stream.with_trace(node_stream.init(
+        prng.key(0, device), shape["node_txs"], ncfg, device=device), ncfg, 3)
+    counts = Launches()
+    (final, tel), ms = timed_run(node_stream.run_scan, start, ncfg, 3,
+                                 device=device)
+    assert_trace_is_telemetry(final.sim.trace, tel, "traced node stream")
+    rows.append({"part": "node_stream", "registry_nodes": shape["registry"],
+                 "active_nodes": shape["active"], "txs": shape["node_txs"],
+                 "rounds": 3, "ms_per_round": ms / 3,
+                 "resident_stake": float(tel.resident_stake[-1]),
+                 "launches": counts.delta()[0]})
+    return rows
+
+
+def run_obs(quick: bool = False, device="cuda") -> dict:
+    """Phase 11: the flight recorder (module docstring).  Returns each
+    part's rows with its wall seconds and the phase's launches per
+    kernel."""
+    import tempfile
+    from pathlib import Path
+
+    shape = OBS_SHAPES["quick" if quick else "full"]
+    out = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        parts = {
+            "flagship": lambda: run_traced_flagship(*shape["flagship"],
+                                                    Path(tmp), device),
+            "dag": lambda: run_traced_dag(*shape["dag"], device),
+            "recovery": lambda: run_traced_fault_studies(device),
+            "fleet": lambda: run_traced_fleets(shape["grid"], device),
+            "schedulers": lambda: run_traced_schedulers(shape, device),
+        }
+        reset_launches()
+        for name, part in parts.items():
+            t0 = time.perf_counter()
+            rows = part()
+            out[name] = {"rows": rows, "wall_s": time.perf_counter() - t0}
+    out["launches"] = read_launches()
+    return out
+
+
 KERNEL_ROWS = {          # name -> (source, the TPU kernel it replaces)
     "megakernel": ("go_avalanche_tpu_torch/csrc/megakernel.cu",
                    "go_avalanche_tpu/ops/megakernel.py:95"),
@@ -2038,6 +2458,18 @@ def main() -> int:
                   "part_wall_s": adversary[part]["wall_s"], **label})
     emit({"phase": "adversary", "launches": adversary["launches"],
           "launches_by_ingest_path": adversary["launches_by_ingest_path"],
+          "wall_s": time.perf_counter() - t0, **label})
+    torch.cuda.empty_cache()
+
+    # 11. the flight recorder; its launches stay out of the kernels line
+    t0 = time.perf_counter()
+    observed = run_obs()
+    for part in ("flagship", "dag", "recovery", "fleet", "schedulers"):
+        rows = observed[part]["rows"]
+        for r in (rows if isinstance(rows, list) else [rows]):
+            emit({"phase": "obs", "part": part, **r,
+                  "part_wall_s": observed[part]["wall_s"], **label})
+    emit({"phase": "obs", "launches": observed["launches"],
           "wall_s": time.perf_counter() - t0, **label})
     torch.cuda.empty_cache()
 

@@ -287,6 +287,12 @@ class AvalancheConfig:
             raise ValueError(
                 f"ingest_engine must be 'u8' or 'swar32', "
                 f"got {self.ingest_engine!r}")
+        if self.metrics_every < 0:
+            raise ValueError("metrics_every must be >= 0 (0 disables the "
+                             "in-graph metrics tap)")
+        if self.trace_every < 0:
+            raise ValueError("trace_every must be >= 0 (0 disables the "
+                             "on-device trace plane)")
         if self.stream_retire_cap is not None and self.stream_retire_cap < 1:
             raise ValueError("stream_retire_cap must be >= 1 (None "
                              "disables the cap)")
@@ -904,8 +910,6 @@ class AvalancheConfig:
 # Fields the port declares but does not run yet -> the ROADMAP.md
 # Queue 1 item that ports them.
 _UNPORTED = {
-    "metrics_every": "item 14, metrics tap",
-    "trace_every": "item 14, trace plane",
     "fused_sharded_gossip": "item 15, sharded drivers",
     "strict_validation": "item 16, host Processor",
 }
@@ -916,14 +920,13 @@ _FIELD_DEFAULTS = {f.name: f.default
 
 def inner_round_config(cfg: AvalancheConfig) -> AvalancheConfig:
     """The inner-round config a streaming scheduler passes to its wrapped
-    consensus round: both telemetry taps zeroed, so the scheduler writes
-    one record per round itself.  The taps are ROADMAP.md Queue 1 item
-    14 and the config rejects them, so this returns `cfg` itself on
-    every config the port accepts; it is kept so that the call sites
-    read as the reference's.  The reference's `suppress_taps`: its static
-    analysis (`go_avalanche_tpu/analysis/lint.py`, canonical-spelling)
-    reserves that name to its own module, which the port may not import,
-    so the copy takes this name."""
+    consensus round: both telemetry taps (the metrics tap and the trace
+    plane) zeroed, so the scheduler emits and writes exactly one record
+    per round itself.  Returns `cfg` itself when no tap is on.  The
+    reference's `suppress_taps`: its static analysis
+    (`go_avalanche_tpu/analysis/lint.py`, canonical-spelling) reserves
+    that name to its own module, which the port may not import, so the
+    copy takes this name."""
     if cfg.metrics_every == 0 and cfg.trace_every == 0:
         return cfg
     return dataclasses.replace(cfg, metrics_every=0, trace_every=0)

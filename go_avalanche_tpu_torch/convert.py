@@ -15,8 +15,10 @@ The async ring (`inflight`: int32 peers and latencies, bool responded
 and lie masks, and the poll-mask plane, bool or bit-packed uint8) and
 the realized stochastic fault parameters (`fault_params`, int32
 vectors) travel with the avalanche, DAG and Snowball states, and so
-with every scheduler state that wraps one; None stays None.  The
-reference's trace plane has no counterpart.  `backlog_state_*`,
+with every scheduler state that wraps one; None stays None.  So does the
+trace plane (`trace`, on the avalanche, DAG and Snowball states and so on
+every scheduler's): its data and cursor travel as int32, its columns and
+stride are copied.  `backlog_state_*`,
 `streaming_dag_state_*` and `node_stream_state_*` carry the streaming
 schedulers' states: the window state, the slot maps, the backlog and
 outputs planes, the traffic plane (or None) and the registry planes.
@@ -34,7 +36,9 @@ from go_avalanche_tpu_torch import traffic as tf
 from go_avalanche_tpu_torch.models import (backlog, dag, family, node_stream,
                                            snowball, streaming_dag)
 from go_avalanche_tpu_torch.models.avalanche import (AvalancheSimState,
-                                                     _device, to_device)
+                                                     _device, move_leaves,
+                                                     to_device)
+from go_avalanche_tpu_torch.obs.trace import TraceBuffer
 from go_avalanche_tpu_torch.ops.inflight import FaultParams, InflightState
 from go_avalanche_tpu_torch.ops.voterecord import VoteRecordState
 
@@ -97,12 +101,26 @@ def _fault_params_from_numpy(tree):
                           for name in FaultParams._fields})
 
 
+def _trace_from_numpy(tree):
+    """The trace plane from a reference buffer (or a mapping with its
+    field names) with numpy data and cursor; None passes."""
+    if tree is None:
+        return None
+    return TraceBuffer(
+        data=_tensor(_field(tree, "data"), torch.int32),
+        cursor=_tensor(_field(tree, "cursor"), torch.int32),
+        columns=tuple((str(n), str(k)) for n, k in _field(tree, "columns")),
+        stride=int(_field(tree, "stride")))
+
+
 def _async_from_numpy(tree) -> dict:
-    """The `inflight` and `fault_params` leaves of a reference state."""
+    """The `inflight`, `fault_params` and `trace` leaves of a reference
+    state."""
     return dict(
         inflight=_ring_from_numpy(_optional(tree, "inflight")),
         fault_params=_fault_params_from_numpy(
-            _optional(tree, "fault_params")))
+            _optional(tree, "fault_params")),
+        trace=_trace_from_numpy(_optional(tree, "trace")))
 
 
 def state_from_numpy(tree: Any, device="cuda") -> AvalancheSimState:
@@ -131,6 +149,7 @@ def state_to_numpy(state: AvalancheSimState) -> AvalancheSimState:
         key=np_(state.key).astype(np.uint32),
         inflight=_np_tree(state.inflight),
         fault_params=_np_tree(state.fault_params),
+        trace=_np_tree(state.trace),
     )
 
 
@@ -173,7 +192,7 @@ def family_state_from_numpy(model: str, tree: Any, device="cuda"):
             leaves[name] = _records_from_numpy(_field(tree, name))
         elif name == "key":
             leaves[name] = _key_from_numpy(_field(tree, name))
-        elif name in ("inflight", "fault_params"):
+        elif name in ("inflight", "fault_params", "trace"):
             leaves[name] = _async_from_numpy(tree)[name]
         else:
             leaves[name] = _tensor(_field(tree, name), _FAMILY_DTYPES[name])
@@ -210,9 +229,13 @@ def _planes(cls, tree, dtypes: dict):
 
 
 def _np_tree(tree):
-    """Every tensor leaf of a (nested) NamedTuple as a numpy array."""
+    """Every tensor leaf of a (nested) NamedTuple, or of a trace buffer,
+    as a numpy array."""
     if isinstance(tree, torch.Tensor):
         return tree.detach().cpu().numpy()
+    if isinstance(tree, TraceBuffer):
+        return TraceBuffer(_np_tree(tree.data), _np_tree(tree.cursor),
+                           tree.columns, tree.stride)
     if isinstance(tree, tuple):
         return type(tree)(*(_np_tree(x) for x in tree))
     return tree
@@ -260,7 +283,7 @@ def backlog_state_from_numpy(tree: Any,
                         _OUTPUT_DTYPES),
         traffic=_traffic_from_numpy(_field(tree, "traffic")),
         **_scheduler_leaves(tree))
-    return backlog.move_tree(state, _device(device))
+    return move_leaves(state, _device(device))
 
 
 def backlog_state_to_numpy(state: backlog.BacklogSimState
@@ -284,7 +307,7 @@ def streaming_dag_state_from_numpy(tree: Any, device="cuda"
                         _OUTPUT_DTYPES),
         traffic=_traffic_from_numpy(_field(tree, "traffic")),
         **_scheduler_leaves(tree))
-    return backlog.move_tree(state, _device(device))
+    return move_leaves(state, _device(device))
 
 
 def streaming_dag_state_to_numpy(state: streaming_dag.StreamingDagState
@@ -308,7 +331,7 @@ def node_stream_state_from_numpy(tree: Any, device="cuda"
         churn_key=_key_from_numpy(_field(tree, "churn_key")),
         churned_in=_tensor(_field(tree, "churned_in"), torch.int32),
         churned_out=_tensor(_field(tree, "churned_out"), torch.int32))
-    return backlog.move_tree(state, _device(device))
+    return move_leaves(state, _device(device))
 
 
 def node_stream_state_to_numpy(state: node_stream.NodeStreamState

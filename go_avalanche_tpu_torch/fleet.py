@@ -35,9 +35,13 @@ What a trial reports (`TrialOutcome`):
 per cartesian point, one summary row per point tagged with the port's
 copy of the reference's engine tag (`obs.tags.config_tag`).
 
-Out of scope here, each refused with `NotImplementedError` naming its
-ROADMAP.md Queue 1 item: a trial-sharded `mesh` (item 15) and the
-per-trial trace plane (item 14; the config refuses `trace_every` too).
+With `cfg.trace_every > 0` every trial carries its own trace plane
+(`obs/trace.py`); the trials' ``[S, M]`` buffers stack into one
+``[F, S, M]`` buffer with an ``[F]`` cursor (`FleetResult.trace`,
+decoded by `FleetResult.trace_records`), the reference's vmapped layout.
+`cfg.metrics_every` must be 0 here, as in the reference.  Out of scope,
+refused with `NotImplementedError` naming its ROADMAP.md Queue 1 item: a
+trial-sharded `mesh` (item 15).
 """
 
 from __future__ import annotations
@@ -55,6 +59,8 @@ from go_avalanche_tpu_torch.config import (ADVERSARY_POLICIES,
                                            AdversaryStrategy, AvalancheConfig)
 from go_avalanche_tpu_torch.models import avalanche as av
 from go_avalanche_tpu_torch.models.backlog import stack_tree
+from go_avalanche_tpu_torch.obs import trace as obs_trace
+from go_avalanche_tpu_torch.obs.sink import _flatten_telemetry
 from go_avalanche_tpu_torch.ops import voterecord as vr
 
 FLEET_MODELS = ("snowball", "avalanche", "dag", "backlog")
@@ -302,52 +308,62 @@ def _outcome_backlog(state, cfg: AvalancheConfig) -> TrialOutcome:
 def _trial_fn(model: str, cfg: AvalancheConfig, n_nodes: int, n_txs: int,
               n_rounds: int, conflict_size: int, yes_fraction: float,
               contested: bool, window: int, device: torch.device):
-    """``key -> (TrialOutcome, telemetry [R])``: one trial's init from
-    its key, `n_rounds` rounds and the outcome reduction, all on
-    `device`."""
+    """``key -> (TrialOutcome, telemetry [R], trace [S, M] | None)``: one
+    trial's init from its key (with its trace plane when
+    `cfg.trace_every > 0`), `n_rounds` rounds and the outcome reduction,
+    all on `device`."""
 
     def trial(key):
         if model == "snowball":
             from go_avalanche_tpu_torch.models import snowball as sb
 
-            state = sb.init(key, n_nodes, cfg, yes_fraction=yes_fraction,
-                            device=device)
+            state = sb.with_trace(
+                sb.init(key, n_nodes, cfg, yes_fraction=yes_fraction,
+                        device=device), cfg, n_rounds)
             step, outcome = sb.round_step, _outcome_snowball
+            trace_of = lambda s: s.trace                    # noqa: E731
         elif model == "avalanche":
             init_pref = (av.contested_init_pref_from_key(key, n_nodes, n_txs)
                          if contested else None)
-            state = av.init(key, n_nodes, n_txs, cfg, init_pref=init_pref,
-                            device=device)
+            state = av.with_trace(
+                av.init(key, n_nodes, n_txs, cfg, init_pref=init_pref,
+                        device=device), cfg, n_rounds)
             step, outcome = av.round_step, _outcome_avalanche
+            trace_of = lambda s: s.trace                    # noqa: E731
         elif model == "backlog":
             from go_avalanche_tpu_torch.models import backlog as bl
 
             # The backlog (arrival order) is shared across trials; only
             # the sim and traffic key vary.  A final harvest records the
             # last window's outcomes, as `bl.run` does.
-            state = bl.init(key, n_nodes, window, bl.make_backlog(
-                torch.arange(n_txs, dtype=torch.int32, device=device)),
-                cfg, device=device)
+            state = bl.with_trace(bl.init(key, n_nodes, window,
+                                          bl.make_backlog(torch.arange(
+                                              n_txs, dtype=torch.int32,
+                                              device=device)),
+                                          cfg, device=device),
+                                  cfg, n_rounds)
             step = bl.step
 
             def outcome(final, c):
                 final, _ = bl._retire_and_refill(final, c, refill=False)
                 return _outcome_backlog(final, c)
+            trace_of = lambda s: s.sim.trace                # noqa: E731
         else:
             from go_avalanche_tpu_torch.models import dag as dag_model
 
-            state = dag_model.init(
+            state = dag_model.with_trace(dag_model.init(
                 key, n_nodes,
                 torch.arange(n_txs, dtype=torch.int32,
                              device=device) // conflict_size,
                 cfg, n_sets=n_txs // conflict_size, set_size=conflict_size,
-                device=device)
+                device=device), cfg, n_rounds)
             step, outcome = dag_model.round_step, _outcome_dag
+            trace_of = lambda s: s.base.trace               # noqa: E731
         rows = []
         for _ in range(n_rounds):
             state, tel = step(state, cfg)
             rows.append(tel)
-        return outcome(state, cfg), stack_tree(rows)
+        return outcome(state, cfg), stack_tree(rows), trace_of(state)
 
     return trial
 
@@ -376,8 +392,9 @@ class FleetResult:
     lat_percentiles: Optional[np.ndarray] = None  # int32 [F, 3]
                                     #   (p50, p99, p999), backlog traffic
     arrived: Optional[np.ndarray] = None  # int32 [F] units arrived
-    trace: Optional[object] = None  # always None: the per-trial trace
-                                    #   plane is ROADMAP.md item 14
+    trace: Optional[obs_trace.TraceBuffer] = None  # [F, S, M] per-trial
+                                    #   trace plane on the host, with
+                                    #   cfg.trace_every > 0; else None
     p_violation: float = 0.0
     violation_ci: Tuple[float, float] = (0.0, 0.0)
     p_settled: float = 0.0
@@ -431,10 +448,16 @@ class FleetResult:
         return row
 
     def trace_records(self) -> List[Dict]:
-        """The per-trial trace plane is not ported."""
-        raise NotImplementedError(
-            "FleetResult.trace_records: the per-trial trace plane is not "
-            "ported yet (ROADMAP.md Queue 1, item 14, trace plane)")
+        """The fleet's per-trial trace plane decoded to fleet-stacked
+        records (per-round dicts whose counters are per-trial lists, the
+        format `obs.check_recovery` gives per-trial verdicts on), ordered
+        by round."""
+        if self.trace is None:
+            raise ValueError(
+                "this fleet ran without the trace plane — set "
+                "cfg.trace_every > 0 to capture per-trial round-by-"
+                "round traces (obs/trace.py)")
+        return obs_trace.fleet_trace_records(self.trace)
 
     def realizations(self) -> Dict:
         """JSON-ready per-trial stochastic fault realizations: ``{"cut":
@@ -539,11 +562,12 @@ def run_fleet(
     trial = _trial_fn(model, cfg, int(n_nodes), int(n_txs), int(n_rounds),
                       int(conflict_size), float(yes_fraction),
                       bool(contested), int(window), dev)
-    outcomes, tels = [], []
+    outcomes, tels, traces = [], [], []
     for i in range(fleet):
-        outcome, tel = trial(keys[i])
+        outcome, tel, trace = trial(keys[i])
         outcomes.append(outcome)
         tels.append(tel)
+        traces.append(trace)
     violations = _host(outcomes, "violation")
     settled = _host(outcomes, "settled")
     stalled = _host(outcomes, "stalled")
@@ -576,6 +600,8 @@ def run_fleet(
         cut_windows=cut_windows, cut_split=cut_split,
         spike_windows=spike_windows, region_windows=region_windows,
         lat_percentiles=lat_percentiles, arrived=arrived,
+        trace=(None if traces[0] is None else obs_trace.to_host(
+            obs_trace.stack_fleet(traces))),
         p_violation=float(violations.mean()),
         violation_ci=wilson_interval(int(violations.sum()), fleet),
         p_settled=float(settled.mean()),
@@ -594,10 +620,15 @@ def run_fleet(
 
 
 def fleet_trace_records(telemetry, fleet: int) -> List[Dict]:
-    """Fleet-stacked trace records come with the trace plane."""
-    raise NotImplementedError(
-        "fleet_trace_records: the fleet trace records are not ported yet "
-        "(ROADMAP.md Queue 1, item 14, trace plane)")
+    """A fleet's stacked telemetry (numpy ``[F, R]`` leaves, as
+    `FleetResult.telemetry` holds them) as fleet-stacked trace records:
+    one dict per round whose counter values are per-trial lists."""
+    flat = _flatten_telemetry(convert._np_tree(telemetry), {})
+    n_rounds = int(next(iter(flat.values())).shape[1])
+    return [{"round": r,
+             **{k: [int(v[i, r]) for i in range(fleet)]
+                for k, v in flat.items()}}
+            for r in range(n_rounds)]
 
 
 # --------------------------------------------------------------------------

@@ -26,8 +26,11 @@ distinct, weighted, clustered or stake-weighted, the stake folded into
 `latency_weight` at `init`).  The adaptive adversary's context
 (`ops/adversary.policy_ctx`) is read from the pre-round records after the
 drop draw and threaded through the exchange and the delivery engines.
-The metrics tap and trace plane are not ported (the config rejects
-them).
+After the telemetry is assembled the round feeds the flight recorder on
+every engine: `obs/sink.emit_round` (under `cfg.metrics_every`) and
+`obs/trace.write_round` into the state's `trace` leaf (attached by
+`with_trace` under `cfg.trace_every`); both are plain PyTorch with no
+read back to the host.
 
 The round's phases run under `torch.profiler.record_function` spans with
 the reference's `annotate` names (poll_mask, sample_peers,
@@ -45,6 +48,8 @@ import torch
 from go_avalanche_tpu_torch import prng, stake
 from go_avalanche_tpu_torch.config import (AvalancheConfig, DEFAULT_CONFIG,
                                            VoteMode)
+from go_avalanche_tpu_torch.obs import sink as obs_sink
+from go_avalanche_tpu_torch.obs import trace as obs_trace
 from go_avalanche_tpu_torch.ops import (adversary, exchange, inflight,
                                         megakernel, pallas_vote)
 from go_avalanche_tpu_torch.ops import voterecord as vr
@@ -55,8 +60,7 @@ span = torch.profiler.record_function
 
 
 class AvalancheSimState(NamedTuple):
-    """Whole-network state; the reference's leaves minus the trace
-    plane."""
+    """Whole-network state; the reference's leaves."""
 
     records: vr.VoteRecordState   # [N, T] uint8 / uint8 / int16 (u16 bits)
     added: torch.Tensor           # bool [N, T] — node reconciles target
@@ -74,6 +78,8 @@ class AvalancheSimState(NamedTuple):
                                   # present iff cfg.async_queries()
     fault_params: Optional[inflight.FaultParams] = None  # realized
                                   # stochastic fault events, or None
+    trace: Optional[obs_trace.TraceBuffer] = None  # the trace plane
+                                  # (`with_trace`); None = off
 
 
 class SimTelemetry(NamedTuple):
@@ -92,6 +98,21 @@ class SimTelemetry(NamedTuple):
     gossip_writes: torch.Tensor
 
 
+# The round's trace-plane column manifest: the SimTelemetry fields in
+# JSONL flattening order, all int32 counters.
+TRACE_COLUMNS = obs_trace.columns_from_fields(SimTelemetry._fields)
+
+
+def with_trace(state: AvalancheSimState, cfg: AvalancheConfig,
+               n_rounds: int) -> AvalancheSimState:
+    """Attach the trace plane for an `n_rounds`-horizon run, on the
+    state's device (no-op when `cfg.trace_every == 0`); also the DAG
+    round's buffer, which emits the same `SimTelemetry` columns."""
+    return state._replace(trace=obs_trace.alloc(cfg, n_rounds,
+                                                TRACE_COLUMNS,
+                                                state.round.device))
+
+
 def _device(device) -> torch.device:
     """Resolve an entry point's device, refusing CUDA where there is none
     (no silent fallback to the CPU)."""
@@ -104,9 +125,9 @@ def _device(device) -> torch.device:
 
 
 def move_leaves(tree, device):
-    """Every tensor leaf of a (nested) tuple or NamedTuple on `device`;
-    None and plain ints pass."""
-    if isinstance(tree, torch.Tensor):
+    """Every tensor leaf of a (nested) tuple or NamedTuple, or of a trace
+    buffer, on `device`; None and plain ints pass."""
+    if isinstance(tree, (torch.Tensor, obs_trace.TraceBuffer)):
         return tree.to(device)
     if isinstance(tree, tuple):
         leaves = (move_leaves(x, device) for x in tree)
@@ -375,10 +396,13 @@ def round_step(
         partition_blocked=zero if cut is None else _count(cut),
         gossip_writes=gossip_writes,
     )
-    new_state = state._replace(records=records, added=added, alive=alive,
-                               finalized_at=finalized_at,
-                               round=state.round + 1, key=k_next,
-                               inflight=ring)
+    obs_sink.emit_round(cfg, state.round, telemetry)
+    new_state = state._replace(
+        records=records, added=added, alive=alive,
+        finalized_at=finalized_at, round=state.round + 1, key=k_next,
+        inflight=ring,
+        trace=obs_trace.write_round(state.trace, cfg, state.round,
+                                    telemetry))
     return new_state, telemetry
 
 

@@ -14,8 +14,10 @@ With `cfg.arrivals_enabled()` the state carries the live-traffic plane
 (`traffic.py`): admission is gated on the arrived watermark and retiring
 slots record their arrival -> settle latency.  Under async queries the
 freed columns leave every pending ring entry's poll mask
-(`ops/inflight.clear_columns`).  The metrics and trace taps (ROADMAP.md
-Queue 1 item 14) are not ported; the config rejects them.
+(`ops/inflight.clear_columns`).  The scheduler owns the flight recorder:
+each step emits and writes one full `BacklogTelemetry` record (the
+traffic fields only with arrivals on) into `sim.trace`, and silences the
+inner round's taps through `config.inner_round_config`.
 """
 
 from __future__ import annotations
@@ -29,6 +31,8 @@ from go_avalanche_tpu_torch import traffic as tf
 from go_avalanche_tpu_torch.config import (AvalancheConfig, DEFAULT_CONFIG,
                                            inner_round_config)
 from go_avalanche_tpu_torch.models import avalanche as av
+from go_avalanche_tpu_torch.obs import sink as obs_sink
+from go_avalanche_tpu_torch.obs import trace as obs_trace
 from go_avalanche_tpu_torch.ops import inflight
 from go_avalanche_tpu_torch.ops import voterecord as vr
 
@@ -80,14 +84,26 @@ class BacklogTelemetry(NamedTuple):
     traffic: Optional[tf.TrafficTelemetry] = None
 
 
-def move_tree(tree, device):
-    """Every tensor leaf of a (nested) NamedTuple on `device`; None and
-    plain ints pass."""
-    if isinstance(tree, torch.Tensor):
-        return tree.to(device)
-    if isinstance(tree, tuple):
-        return type(tree)(*(move_tree(x, device) for x in tree))
-    return tree
+def trace_columns(cfg: AvalancheConfig) -> tuple:
+    """The scheduler's trace-plane column manifest: the inner round's
+    `SimTelemetry` fields, the scheduler stats, then the traffic fields
+    when the arrival plane is on — the JSONL flattening order of
+    `BacklogTelemetry`."""
+    groups = [av.SimTelemetry._fields,
+              ("retired", "occupied", "backlog_left")]
+    if cfg.arrivals_enabled():
+        groups.append(tf.TrafficTelemetry._fields)
+    return obs_trace.columns_from_fields(*groups)
+
+
+def with_trace(state: "BacklogSimState", cfg: AvalancheConfig,
+               n_rounds: int) -> "BacklogSimState":
+    """Attach the trace plane, owned by the scheduler (full
+    `BacklogTelemetry` rows; the inner round's write is silenced).
+    No-op when `cfg.trace_every == 0`."""
+    return state._replace(sim=state.sim._replace(
+        trace=obs_trace.alloc(cfg, n_rounds, trace_columns(cfg),
+                              state.slot_tx.device)))
 
 
 def stack_tree(rows: list):
@@ -137,7 +153,7 @@ def init(key: torch.Tensor, n_nodes: int, window: int, backlog: Backlog,
     caller asks for the CPU); the first refill happens in step 0."""
     dev = av._device(device)
     key = key.to(dev)
-    backlog = move_tree(backlog, dev)
+    backlog = av.move_leaves(backlog, dev)
     b = backlog.score.shape[0]
     sim = av.init(key, n_nodes, window, cfg,
                   added=torch.zeros((n_nodes, window), dtype=torch.bool),
@@ -267,11 +283,12 @@ def step(state: BacklogSimState, cfg: AvalancheConfig = DEFAULT_CONFIG
             "round only; the backlog window scheduler keeps the phased "
             "inner round (the window width need not satisfy the "
             "kernel's tiling contract) — the knob would be inert here")
+    round_val = state.sim.round
     arrivals = torch.zeros((), dtype=torch.int32,
                            device=state.slot_tx.device)
     if state.traffic is not None:
         new_traffic, arrivals = tf.arrive(
-            state.traffic, cfg, state.sim.round,
+            state.traffic, cfg, round_val,
             (state.slot_tx != NO_TX).sum(dtype=torch.int32),
             state.slot_tx.shape[0])
         state = state._replace(traffic=new_traffic)
@@ -286,7 +303,9 @@ def step(state: BacklogSimState, cfg: AvalancheConfig = DEFAULT_CONFIG
         traffic=(None if state.traffic is None
                  else tf.traffic_telemetry(state.traffic, arrivals)),
     )
-    # (The metrics and trace taps are ROADMAP.md Queue 1 item 14.)
+    obs_sink.emit_round(cfg, round_val, tel)
+    new_sim = new_sim._replace(
+        trace=obs_trace.write_round(new_sim.trace, cfg, round_val, tel))
     return state._replace(sim=new_sim), tel
 
 
@@ -304,7 +323,7 @@ def run(state: BacklogSimState, cfg: AvalancheConfig = DEFAULT_CONFIG,
     """Stream the whole backlog through the window on `device`, reading
     `drained` back once per round; a final retire pass harvests the last
     settled slots' outputs."""
-    state = move_tree(state, av._device(device))
+    state = av.move_leaves(state, av._device(device))
     rounds = sync.read(state.sim.round)
     while rounds < max_rounds and not sync.read(drained(state, cfg)):
         state = step(state, cfg)[0]
@@ -316,7 +335,7 @@ def run_scan(state: BacklogSimState, cfg: AvalancheConfig = DEFAULT_CONFIG,
              n_rounds: int = 1000, device="cuda"
              ) -> Tuple[BacklogSimState, BacklogTelemetry]:
     """`n_rounds` steps on `device` with stacked per-step telemetry."""
-    state = move_tree(state, av._device(device))
+    state = av.move_leaves(state, av._device(device))
     rows = []
     for _ in range(n_rounds):
         state, tel = step(state, cfg)

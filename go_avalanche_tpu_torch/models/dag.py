@@ -20,8 +20,9 @@ polls into the in-flight ring and delivers through
 `ops/inflight.deliver_multi_engine` instead, responses voting the
 responder's preferred-in-set plane as of the delivery round's start.  The
 adaptive adversary's context is built from that plane and the pre-round
-windows before the exchange.  The metrics tap and trace plane are not
-ported (the config rejects them).
+windows before the exchange.  The round feeds the flight recorder as the
+avalanche round does: `obs/sink.emit_round` and `obs/trace.write_round`
+into `base.trace` (attached by `with_trace`).
 """
 
 from __future__ import annotations
@@ -33,6 +34,8 @@ import torch
 from go_avalanche_tpu_torch import prng
 from go_avalanche_tpu_torch.config import AvalancheConfig, DEFAULT_CONFIG
 from go_avalanche_tpu_torch.models import avalanche as av
+from go_avalanche_tpu_torch.obs import sink as obs_sink
+from go_avalanche_tpu_torch.obs import trace as obs_trace
 from go_avalanche_tpu_torch.ops import (adversary, exchange, inflight,
                                         pallas_vote)
 from go_avalanche_tpu_torch.ops import voterecord as vr
@@ -59,6 +62,14 @@ def to_device(state: DagSimState, device) -> DagSimState:
     return state._replace(base=base,
                           conflict_set=state.conflict_set.to(
                               base.records.votes.device))
+
+
+def with_trace(state: DagSimState, cfg: AvalancheConfig,
+               n_rounds: int) -> DagSimState:
+    """Attach the trace plane for an `n_rounds`-horizon run: the DAG
+    round emits `SimTelemetry`, so the buffer is the avalanche round's
+    manifest on the base state.  No-op when `cfg.trace_every == 0`."""
+    return state._replace(base=av.with_trace(state.base, cfg, n_rounds))
 
 
 def _segment(values: torch.Tensor, conflict_set: torch.Tensor, n_sets: int,
@@ -294,9 +305,11 @@ def round_step(
         partition_blocked=zero if cut is None else av._count(cut),
         gossip_writes=zero,
     )
-    new_base = base._replace(records=records, alive=alive,
-                             finalized_at=finalized_at,
-                             round=base.round + 1, key=k_next, inflight=ring)
+    obs_sink.emit_round(cfg, base.round, telemetry)
+    new_base = base._replace(
+        records=records, alive=alive, finalized_at=finalized_at,
+        round=base.round + 1, key=k_next, inflight=ring,
+        trace=obs_trace.write_round(base.trace, cfg, base.round, telemetry))
     return state._replace(base=new_base), telemetry
 
 

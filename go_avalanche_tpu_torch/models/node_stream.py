@@ -14,10 +14,12 @@ drawable replacement is cancelled.
 The churn stream folds its own key off the sim's init key, so the
 consensus draws never move.  Under async queries the swapped rows leave
 the ring as queriers and as polled peers (`ops/inflight.clear_rows`).
-The metrics and trace taps (ROADMAP.md Queue 1 item 14) are not ported;
-the config rejects them.  The telemetry's resident-stake
-fraction sums in float64 and rounds once, so the CPU and the card agree;
-XLA:CPU's float32 sum takes its own order (ROADMAP.md Queue 3).
+The scheduler owns the flight recorder: one full `NodeStreamTelemetry`
+record a step into `sim.trace`, the inner round's taps silenced.  The
+telemetry's resident-stake fraction sums in float64 and rounds once, so
+the CPU and the card agree; XLA:CPU's float32 sum takes its own order
+(ROADMAP.md Queue 3), so that float column, and a JSONL that carries it,
+can differ from the reference's in its last bits.
 """
 
 from __future__ import annotations
@@ -31,7 +33,9 @@ from go_avalanche_tpu_torch import stake as stake_mod
 from go_avalanche_tpu_torch.config import (AvalancheConfig, DEFAULT_CONFIG,
                                            inner_round_config)
 from go_avalanche_tpu_torch.models import avalanche as av
-from go_avalanche_tpu_torch.models.backlog import move_tree, stack_tree
+from go_avalanche_tpu_torch.models.backlog import stack_tree
+from go_avalanche_tpu_torch.obs import sink as obs_sink
+from go_avalanche_tpu_torch.obs import trace as obs_trace
 from go_avalanche_tpu_torch.ops import inflight
 from go_avalanche_tpu_torch.ops import voterecord as vr
 
@@ -59,6 +63,23 @@ class NodeStreamTelemetry(NamedTuple):
     round: av.SimTelemetry
     departed: torch.Tensor        # int32 — rows rotated out this step
     resident_stake: torch.Tensor  # float32 — resident share of the stake
+
+
+# The node-stream scheduler's trace-plane column manifest: the inner
+# round's counters plus the registry stats; `resident_stake` is the one
+# float column (stored bitcast).
+TRACE_COLUMNS = obs_trace.columns_from_fields(
+    av.SimTelemetry._fields, ("departed", "resident_stake"),
+    floats=frozenset({"resident_stake"}))
+
+
+def with_trace(state: "NodeStreamState", cfg: AvalancheConfig,
+               n_rounds: int) -> "NodeStreamState":
+    """Attach the trace plane, owned by the scheduler (full
+    `NodeStreamTelemetry` rows); no-op when `cfg.trace_every == 0`."""
+    return state._replace(sim=state.sim._replace(
+        trace=obs_trace.alloc(cfg, n_rounds, TRACE_COLUMNS,
+                              state.slot_node.device)))
 
 
 def _registry_byzantine(cfg: AvalancheConfig, r: int,
@@ -183,12 +204,15 @@ def _stake_share(resident: torch.Tensor, stake: torch.Tensor
 def step(state: NodeStreamState, cfg: AvalancheConfig = DEFAULT_CONFIG
          ) -> Tuple[NodeStreamState, NodeStreamTelemetry]:
     """Churn the window, then one consensus round on it."""
+    round_val = state.sim.round
     state, swapped = churn(state, cfg)
     new_sim, round_tel = av.round_step(state.sim, inner_round_config(cfg))
     tel = NodeStreamTelemetry(
         round=round_tel, departed=swapped,
         resident_stake=_stake_share(state.resident, state.stake))
-    # (The metrics and trace taps are ROADMAP.md Queue 1 item 14.)
+    obs_sink.emit_round(cfg, round_val, tel)
+    new_sim = new_sim._replace(
+        trace=obs_trace.write_round(new_sim.trace, cfg, round_val, tel))
     return state._replace(sim=new_sim), tel
 
 
@@ -197,7 +221,7 @@ def run_scan(state: NodeStreamState, cfg: AvalancheConfig = DEFAULT_CONFIG,
              ) -> Tuple[NodeStreamState, NodeStreamTelemetry]:
     """`n_rounds` steps on `device` with stacked per-step telemetry (the
     registry never drains, so there is no `run`)."""
-    state = move_tree(state, av._device(device))
+    state = av.move_leaves(state, av._device(device))
     rows = []
     for _ in range(n_rounds):
         state, tel = step(state, cfg)

@@ -15,9 +15,11 @@ to one chit per round (`voterecord.register_vote`).  Randomness is the
 reference's: the state's threefry key split five ways per round.  Under
 `cfg.async_queries()` the round enqueues its polls into the in-flight
 ring (a bool ``[D, N]`` poll mask) and the response gather and adversary
-transform move to delivery time (`ops/inflight.deliver_1d_engine`).  The
-trace plane is not ported, and a node whose record finalized keeps
-answering with its final preference, as in the reference.
+transform move to delivery time (`ops/inflight.deliver_1d_engine`).  A
+node whose record finalized keeps answering with its final preference,
+as in the reference.  The round feeds the flight recorder: the metrics
+tap (`obs/sink.emit_round`) and the `trace` leaf (`with_trace`,
+`obs/trace.write_round`).
 """
 
 from __future__ import annotations
@@ -31,6 +33,8 @@ from go_avalanche_tpu_torch import prng
 from go_avalanche_tpu_torch.config import (AvalancheConfig, DEFAULT_CONFIG,
                                            VoteMode)
 from go_avalanche_tpu_torch.models.avalanche import _device, move_leaves
+from go_avalanche_tpu_torch.obs import sink as obs_sink
+from go_avalanche_tpu_torch.obs import trace as obs_trace
 from go_avalanche_tpu_torch.ops import adversary, inflight, pallas_vote
 from go_avalanche_tpu_torch.ops import voterecord as vr
 from go_avalanche_tpu_torch.ops.bitops import pack_draws
@@ -48,6 +52,7 @@ class SnowballState(NamedTuple):
     key: torch.Tensor             # int64 [2] threefry key words
     inflight: Optional[inflight.InflightState] = None  # the async ring
     fault_params: Optional[inflight.FaultParams] = None
+    trace: Optional[obs_trace.TraceBuffer] = None  # None = off
 
 
 class RoundTelemetry(NamedTuple):
@@ -61,6 +66,19 @@ class RoundTelemetry(NamedTuple):
     expiries: torch.Tensor
     ring_occupancy: torch.Tensor
     partition_blocked: torch.Tensor
+
+
+# The snowball round's trace-plane column manifest (all int32).
+TRACE_COLUMNS = obs_trace.columns_from_fields(RoundTelemetry._fields)
+
+
+def with_trace(state: SnowballState, cfg: AvalancheConfig,
+               n_rounds: int) -> SnowballState:
+    """Attach the trace plane for an `n_rounds`-horizon run, on the
+    state's device; no-op when `cfg.trace_every == 0`."""
+    return state._replace(trace=obs_trace.alloc(cfg, n_rounds,
+                                                TRACE_COLUMNS,
+                                                state.round.device))
 
 
 def to_device(state: SnowballState, device) -> SnowballState:
@@ -194,10 +212,13 @@ def round_step(state: SnowballState, cfg: AvalancheConfig = DEFAULT_CONFIG
         partition_blocked=(torch.zeros((), dtype=torch.int32,
                                        device=peers.device)
                            if cut is None else _count(cut)))
-    return SnowballState(records=records, byzantine=state.byzantine,
-                         alive=alive, finalized_at=finalized_at,
-                         round=state.round + 1, key=k_next, inflight=ring,
-                         fault_params=state.fault_params), telemetry
+    obs_sink.emit_round(cfg, state.round, telemetry)
+    return SnowballState(
+        records=records, byzantine=state.byzantine, alive=alive,
+        finalized_at=finalized_at, round=state.round + 1, key=k_next,
+        inflight=ring, fault_params=state.fault_params,
+        trace=obs_trace.write_round(state.trace, cfg, state.round,
+                                    telemetry)), telemetry
 
 
 def live_unfinished(state: SnowballState,

@@ -16,8 +16,10 @@ the cap the trajectory equals the dense path.  `run_chunked` is `run`
 dispatched in `chunk`-round pieces with a `progress` hook; its
 checkpoints belong to ROADMAP.md Queue 1 item 16 and are not ported.
 Under async queries the freed columns leave every pending ring entry's
-poll mask (`ops/inflight.clear_columns`).  The metrics and trace taps
-(item 14) are not ported either; the config rejects them.
+poll mask (`ops/inflight.clear_columns`).  The scheduler owns the flight
+recorder, as `models/backlog` does: one full `StreamingDagTelemetry`
+record a step, into `dag.base.trace`, with the inner round's taps
+silenced.
 """
 
 from __future__ import annotations
@@ -34,8 +36,9 @@ from go_avalanche_tpu_torch.config import (AvalancheConfig, DEFAULT_CONFIG,
 from go_avalanche_tpu_torch.models import avalanche as av
 from go_avalanche_tpu_torch.models import dag as dag_model
 from go_avalanche_tpu_torch.models.backlog import (EMPTY_SCORE, NO_TX,
-                                                   move_tree, set_drop, span,
-                                                   stack_tree)
+                                                   set_drop, span, stack_tree)
+from go_avalanche_tpu_torch.obs import sink as obs_sink
+from go_avalanche_tpu_torch.obs import trace as obs_trace
 from go_avalanche_tpu_torch.ops import inflight
 from go_avalanche_tpu_torch.ops import voterecord as vr
 
@@ -85,6 +88,26 @@ class StreamingDagTelemetry(NamedTuple):
     traffic: Optional[tf.TrafficTelemetry] = None
 
 
+def trace_columns(cfg: AvalancheConfig) -> tuple:
+    """The set scheduler's trace-plane column manifest: the JSONL
+    flattening order of `StreamingDagTelemetry`."""
+    groups = [av.SimTelemetry._fields,
+              ("retired_sets", "occupied_sets", "backlog_left")]
+    if cfg.arrivals_enabled():
+        groups.append(tf.TrafficTelemetry._fields)
+    return obs_trace.columns_from_fields(*groups)
+
+
+def with_trace(state: StreamingDagState, cfg: AvalancheConfig,
+               n_rounds: int) -> StreamingDagState:
+    """Attach the trace plane, owned by the scheduler (the inner conflict
+    round's write is silenced).  No-op when `cfg.trace_every == 0`."""
+    base = state.dag.base
+    return state._replace(dag=state.dag._replace(base=base._replace(
+        trace=obs_trace.alloc(cfg, n_rounds, trace_columns(cfg),
+                              base.round.device))))
+
+
 def set_capacity(state: StreamingDagState) -> int:
     return state.backlog.score.shape[1]
 
@@ -119,7 +142,7 @@ def init(key: torch.Tensor, n_nodes: int, window_sets: int,
     unless the caller asks for the CPU); the first refill is in step 0."""
     dev = av._device(device)
     key = key.to(dev)
-    backlog = move_tree(backlog, dev)
+    backlog = av.move_leaves(backlog, dev)
     s_b, c = backlog.score.shape
     w = window_sets * c
     base = av.init(key, n_nodes, w, cfg,
@@ -329,11 +352,12 @@ def step(state: StreamingDagState, cfg: AvalancheConfig = DEFAULT_CONFIG
          ) -> Tuple[StreamingDagState, StreamingDagTelemetry]:
     """Arrive (traffic mode), retire/refill at set granularity, then one
     conflict round."""
+    round_val = state.dag.base.round
     arrivals = torch.zeros((), dtype=torch.int32,
                            device=state.slot_set.device)
     if state.traffic is not None:
         new_traffic, arrivals = tf.arrive(
-            state.traffic, cfg, state.dag.base.round,
+            state.traffic, cfg, round_val,
             (state.slot_set != NO_SET).sum(dtype=torch.int32),
             state.slot_set.shape[0])
         state = state._replace(traffic=new_traffic)
@@ -348,7 +372,10 @@ def step(state: StreamingDagState, cfg: AvalancheConfig = DEFAULT_CONFIG
         traffic=(None if state.traffic is None
                  else tf.traffic_telemetry(state.traffic, arrivals)),
     )
-    # (The metrics and trace taps are ROADMAP.md Queue 1 item 14.)
+    obs_sink.emit_round(cfg, round_val, tel)
+    new_dag = new_dag._replace(base=new_dag.base._replace(
+        trace=obs_trace.write_round(new_dag.base.trace, cfg, round_val,
+                                    tel)))
     return state._replace(dag=new_dag), tel
 
 
@@ -365,7 +392,7 @@ def run(state: StreamingDagState, cfg: AvalancheConfig = DEFAULT_CONFIG,
         max_rounds: int = 100_000, device="cuda") -> StreamingDagState:
     """Stream the whole conflict graph through the window on `device`,
     reading `drained` back once per round, then harvest."""
-    state = move_tree(state, av._device(device))
+    state = av.move_leaves(state, av._device(device))
     rounds = sync.read(state.dag.base.round)
     while rounds < max_rounds and not sync.read(drained(state, cfg)):
         state = step(state, cfg)[0]
@@ -397,7 +424,7 @@ def run_chunked(state: StreamingDagState,
             f"checkpoint_path={checkpoint_path!r}: the PyTorch port does "
             f"not implement this yet (ROADMAP.md Queue 1, item 16, npz "
             f"checkpoints); leave it at None")
-    state = move_tree(state, av._device(device))
+    state = av.move_leaves(state, av._device(device))
     rounds = sync.read(state.dag.base.round)
     while True:
         start = rounds
@@ -418,7 +445,7 @@ def run_scan(state: StreamingDagState,
              device="cuda") -> Tuple[StreamingDagState,
                                      StreamingDagTelemetry]:
     """`n_rounds` steps on `device` with stacked per-step telemetry."""
-    state = move_tree(state, av._device(device))
+    state = av.move_leaves(state, av._device(device))
     rows = []
     for _ in range(n_rounds):
         state, tel = step(state, cfg)

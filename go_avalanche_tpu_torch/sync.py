@@ -5,11 +5,15 @@ A host loop of the port (`models/backlog.run`, `models/streaming_dag.run`,
 scalar on the device, and reading it waits for the card.  `read` (and
 `read_flags`, for the coalesced ring drain's per-age activity flags) is
 the one place those loops read, so a run can report how often it
-waited: `reads` counts every call since it was last set to 0.
+waited: `reads` counts every call since it was last set to 0.  The
+flight recorder (`obs/`) copies whole tensors with `to_host`, counted
+the same way: the metrics tap's drain, a trace decode and a watchdog
+check each make one such copy.
 """
 
 from __future__ import annotations
 
+import numpy as np
 import torch
 
 reads = 0
@@ -29,3 +33,11 @@ def read_flags(x: torch.Tensor) -> list:
     global reads
     reads += 1
     return x.tolist()
+
+
+def to_host(x: torch.Tensor) -> np.ndarray:
+    """`x` as a numpy array in one copy to the host, counted once in
+    `reads`."""
+    global reads
+    reads += 1
+    return x.detach().cpu().numpy()

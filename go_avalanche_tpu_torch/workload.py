@@ -15,7 +15,8 @@
              shape, 512 nodes x 64 txs, contested priors, seed 0:
              `measure()` (lines 76-116, the partition that heals) and
              the three `SCENARIOS` (lines 174-240), each with the JAX
-             package's own per-round record (`FAULT_STUDY_RECORDS`);
+             package's own per-round record (`FAULT_STUDY_RECORDS`) and
+             recovery verdict (`RECOVERY_RECORDS`);
   policies — the adaptive adversary's exactness cases (`POLICY_CASES`):
              256 nodes x 64 txs, 20% byzantine, seed 0, 40 rounds, each
              policy on the avalanche round (and "off"), timing and
@@ -24,9 +25,10 @@
              record (`POLICY_RECORDS`);
   fleets   — the Monte-Carlo fleet's two points (`FLEET_CASES`): the
              most hostile point of `examples/adversary_atlas.py` at its
-             defaults and an avalanche phase grid over the policy axis at
-             4096 x 1024, each with the JAX package's rows
-             (`FLEET_RECORDS`);
+             defaults (16 trials) and an avalanche phase grid over the
+             policy axis at 4096 x 1024, each with the JAX package's rows
+             (`FLEET_RECORDS`) and a traced run's per-trial trace digest
+             (`FLEET_TRACE_RECORDS`);
   DAG      — `benchmarks/baseline_suite.config2_dag`, BASELINE.json's
              "Avalanche DAG: 10k nodes, 10k-tx UTXO conflict graph":
              10000 nodes x 10000 txs in 2-tx double-spend sets
@@ -74,6 +76,8 @@ port's weights and on jax's, so config 4 is gated on the record.
 from __future__ import annotations
 
 import dataclasses
+import hashlib
+import json
 from typing import Dict, Optional, Tuple
 
 import torch
@@ -248,8 +252,9 @@ def policy_state(name: str, engine: str, device="cuda"):
 
 # The fleet's two chip points.  "atlas_hostile" is the most hostile point
 # of `examples/adversary_atlas.py` at the study's defaults (snowball, 64
-# nodes, fleet 48, 120 rounds, finalization 64, split_vote at byzantine
-# 0.45, k 8, quorum 7, priors 50/50, seed 0); "policy_grid" is one
+# nodes, 120 rounds, finalization 64, split_vote at byzantine 0.45, k 8,
+# quorum 7, priors 50/50, seed 0) with the fleet cut from the study's 48
+# trials to 16, to keep `chip_smoke.py` inside its time limit; "policy_grid" is one
 # `run_phase_grid` of the avalanche model over the policy axis at byzantine
 # 0.2, contested priors, 4 trials of 4096 x 1024, 30 rounds, finalization
 # 32 (a 4096-wide window takes the ingest kernels' fast path).
@@ -258,7 +263,7 @@ FLEET_CASES = {
         model="snowball", grid=None,
         knobs=dict(finalization_score=64, byzantine_fraction=0.45,
                    adversary_policy="split_vote", k=8, quorum=7),
-        kw=dict(fleet=48, n_nodes=64, n_rounds=120, yes_fraction=0.5,
+        kw=dict(fleet=16, n_nodes=64, n_rounds=120, yes_fraction=0.5,
                 seed=0)),
     "policy_grid": dict(
         model="avalanche",
@@ -776,16 +781,16 @@ FLEET_RECORDS = {
     "atlas_hostile": [
         {
             "model": "snowball",
-            "fleet": 48,
+            "fleet": 16,
             "rounds": 120,
             "violations": 0,
             "p_violation": 0.0,
-            "violation_ci": [0.0, 0.074103],
+            "violation_ci": [0.0, 0.193613],
             "p_settled": 0.0,
-            "settled_ci": [0.0, 0.074103],
-            "stalls": 48,
+            "settled_ci": [0.0, 0.193613],
+            "stalls": 16,
             "p_stall": 1.0,
-            "stall_ci": [0.925897, 1.0],
+            "stall_ci": [0.806387, 1.0],
             "finality_mean": None,
             "finality_ci": None,
             "finalized_fraction_mean": 0.0,
@@ -855,3 +860,123 @@ FLEET_RECORDS = {
         },
     ],
 }
+
+
+# `RECOVERY_RECORDS`: the JAX package's recovery verdict on each fault
+# study, on the CPU: the study as `FAULT_STUDY_RECORDS` runs it, with
+# ``trace_every=1`` and the trace plane attached for the study's rounds,
+# then `go_avalanche_tpu.obs.check_recovery(cfg, final.trace)`; each
+# report's `ok`, `windows` and `totals`.  tests/test_torch_obs.py and
+# `chip_smoke.py` hold the port's reports to it.
+RECOVERY_RECORDS = {
+    "cascading_outage": {
+        "ok": True,
+        "windows": [
+            {
+                "baseline_occupancy": 4096,
+                "blocked": 15067,
+                "heal": 40,
+                "recovery_round": 43,
+                "recovery_rounds": 3,
+                "start": 10
+            }
+        ],
+        "totals": {
+            "blocked_total": 15067,
+            "deliveries_total": 265781,
+            "expiries_total": 15067,
+            "finalizations_total": 32768,
+            "peak_occupancy": 6202,
+            "rounds": 70,
+            "strict_cut_accounting": True
+        },
+    },
+    "eclipse": {
+        "ok": True,
+        "windows": [
+            {
+                "baseline_occupancy": 4096,
+                "blocked": 27152,
+                "heal": 45,
+                "recovery_round": 48,
+                "recovery_rounds": 3,
+                "start": 15
+            }
+        ],
+        "totals": {
+            "blocked_total": 27152,
+            "deliveries_total": 296432,
+            "expiries_total": 27152,
+            "finalizations_total": 32768,
+            "peak_occupancy": 6867,
+            "rounds": 80,
+            "strict_cut_accounting": True
+        },
+    },
+    "flaky_isp": {
+        "ok": True,
+        "windows": [],
+        "totals": {
+            "blocked_total": 0,
+            "deliveries_total": 235974,
+            "expiries_total": 3392,
+            "finalizations_total": 32768,
+            "peak_occupancy": 12717,
+            "rounds": 60,
+            "strict_cut_accounting": False
+        },
+    },
+    "measure": {
+        "ok": True,
+        "windows": [
+            {
+                "baseline_occupancy": 4096,
+                "blocked": 112385,
+                "heal": 60,
+                "recovery_round": 63,
+                "recovery_rounds": 3,
+                "start": 5
+            }
+        ],
+        "totals": {
+            "blocked_total": 112385,
+            "deliveries_total": 415999,
+            "expiries_total": 112385,
+            "finalizations_total": 32768,
+            "peak_occupancy": 10364,
+            "rounds": 130,
+            "strict_cut_accounting": True
+        },
+    },
+}
+
+
+# `FLEET_TRACE_RECORDS`: the JAX package's per-trial trace planes of two
+# fleet points, on the CPU, each as the sha256 of its fleet-stacked JSONL
+# (`trace_jsonl_digest` of `FleetResult.trace_records()`).  With
+# ``trace_every=1`` added to the case's knobs: "atlas_hostile" is
+#     fleet.run_fleet("snowball", cfg, **dict(case["kw"], fleet=8))
+# and "policy_grid" the grid's split_vote point,
+#     fleet.run_fleet("avalanche", point_config(cfg, point), **case["kw"]).
+# `chip_smoke.py` holds the port's traces on the card to them.
+FLEET_TRACE_RECORDS = {
+    "atlas_hostile": {
+        "fleet": 8, "point": None, "rows": 120,
+        "sha256": ("aa025b36190088f22ce3c734efa553fb"
+                   "ea0468289ee102e997e50b90db3a8b16"),
+    },
+    "policy_grid": {
+        "fleet": 4, "point": {"adversary_policy": "split_vote"},
+        "rows": 30,
+        "sha256": ("01402751d959555369c1cf4d3c31a440"
+                   "ecf5d02c3a49b3854d814f899fe983ac"),
+    },
+}
+
+
+def trace_jsonl_digest(records) -> str:
+    """sha256 of fleet-stacked trace records written as a `MetricsSink`
+    with no tag writes them: one ``json.dumps(sort_keys=True)`` line
+    each."""
+    text = "".join(json.dumps(r, sort_keys=True) + "\n" for r in records)
+    return hashlib.sha256(text.encode()).hexdigest()

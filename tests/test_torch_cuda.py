@@ -519,3 +519,98 @@ def test_fleet_on_cuda_matches_cpu(cuda):
                                  device=device)
             for device in (cuda, torch.device("cpu"))]
     assert rows[0] == rows[1]
+
+
+def _strip_trace(state):
+    """`state` (an avalanche state) with its trace leaf set aside."""
+    return state._replace(trace=None)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("engine", ["u8", "swar32", "megakernel"])
+def test_trace_and_tap_on_cuda_match_cpu(engine, cuda, tmp_path):
+    """The trace plane and the metrics tap written from CUDA tensors: the
+    same trace leaf and byte-identical tap and `write_trace` files as the
+    CPU run, the rest of the state leaf-equal, and nothing read back in
+    the round loop (the tap's drain is the one counted read)."""
+    from go_avalanche_tpu_torch import obs, sync
+    from go_avalanche_tpu_torch.obs import trace as obs_trace
+
+    knobs = dict(finalization_score=12, metrics_every=1, trace_every=2)
+    if engine == "megakernel":
+        knobs["round_engine"] = "megakernel"
+    else:
+        knobs["ingest_engine"] = engine
+    cfg = AvalancheConfig(**knobs)
+    finals, files = [], []
+    for device in (cuda, torch.device("cpu")):
+        state = av.with_trace(av.init(
+            prng.key(4, device), 64, 512, cfg,
+            init_pref=av.contested_init_pref(4, 64, 512, device),
+            device=device), cfg, 8)
+        tap = tmp_path / f"tap_{device.type}.jsonl"
+        reads = sync.reads
+        with obs.metrics_sink(tap):
+            final, _ = av.run_scan(state, cfg, n_rounds=8, device=device)
+            assert sync.reads == reads
+        assert sync.reads == reads + 1
+        trace_file = tmp_path / f"trace_{device.type}.jsonl"
+        with obs.metrics_sink(trace_file) as sink:
+            assert obs_trace.write_trace(sink, final.trace) == 4
+        finals.append(final)
+        files.append((tap.read_bytes(), trace_file.read_bytes()))
+    assert files[0] == files[1]
+    got, want = (obs_trace.to_host(f.trace) for f in finals)
+    np.testing.assert_array_equal(got.data, want.data)
+    np.testing.assert_array_equal(got.cursor, want.cursor)
+    _assert_leaves_equal(_strip_trace(finals[0]), _strip_trace(finals[1]))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("stride", [1, 3])
+def test_trace_clamps_past_its_horizon_on_cuda(stride, cuda):
+    """S + 2 emitted rounds into an S-slot buffer on the card: the writes
+    past the last slot land on it (no device-side assert), the cursor
+    counts every write, as on the CPU."""
+    from go_avalanche_tpu_torch.obs import trace as obs_trace
+
+    cfg = AvalancheConfig(finalization_score=12, trace_every=stride)
+    slots = 3
+    bufs = []
+    for device in (cuda, torch.device("cpu")):
+        state = av.with_trace(av.init(prng.key(5, device), 32, 256, cfg,
+                                      device=device), cfg, slots * stride)
+        final, _ = av.run_scan(state, cfg, n_rounds=(slots + 2) * stride,
+                               device=device)
+        if device.type == "cuda":
+            torch.cuda.synchronize()
+        bufs.append(obs_trace.to_host(final.trace))
+    assert bufs[0].data.shape[0] == slots and int(bufs[0].cursor) == slots + 2
+    np.testing.assert_array_equal(bufs[0].data, bufs[1].data)
+
+
+@pytest.mark.cuda
+def test_fleet_trace_and_watchdog_on_cuda_match_cpu(cuda):
+    """The fleet's [F, S, M] trace from trials run on the card equals the
+    CPU's, and the watchdog passes a traced DAG run on the card with the
+    finalized counts of the CPU run."""
+    from go_avalanche_tpu_torch import fleet, obs
+
+    cfg = AvalancheConfig(finalization_score=12, trace_every=1)
+    res = [fleet.run_fleet("avalanche", cfg, fleet=3, n_nodes=32, n_txs=64,
+                           n_rounds=10, device=device)
+           for device in (cuda, torch.device("cpu"))]
+    np.testing.assert_array_equal(res[0].trace.data, res[1].trace.data)
+    assert res[0].trace_records() == res[1].trace_records()
+    counts = []
+    for device in (cuda, torch.device("cpu")):
+        state = dag.with_trace(dag.init(
+            prng.key(0, device), 64, torch.arange(128, dtype=torch.int32)
+            // 2, cfg, device=device), cfg, 20)
+        wd = obs.Watchdog(cfg)
+        seen = []
+        for _ in range(20):
+            state = dag.round_step(state, cfg)[0]
+            seen.append(wd.check(state))
+        counts.append(seen)
+    assert counts[0] == counts[1] and counts[0][-1] > 0

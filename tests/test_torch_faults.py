@@ -4,11 +4,14 @@ JAX one.
 Each fault-script function of both packages takes the same seeded numpy
 inputs; a script with every event kind runs whole trajectories on each
 delivery engine; the fault studies of `examples/fault_scenarios.py`
-reproduce the record the port commits (`workload.FAULT_STUDY_RECORDS`)
-from the JAX package, and the port reproduces it too; and the async and
+reproduce the records the port commits (`workload.FAULT_STUDY_RECORDS`
+and the recovery verdicts `workload.RECOVERY_RECORDS`) from the JAX
+package, and the port reproduces them too; and the async and
 fault configs validate the same way in both packages.  Tolerance 0.
 """
 
+import dataclasses
+import json
 import re
 import sys
 from pathlib import Path
@@ -19,12 +22,13 @@ import numpy as np
 import pytest
 import torch
 
+from go_avalanche_tpu import obs as jobs
 from go_avalanche_tpu.config import AvalancheConfig as JaxConfig
 from go_avalanche_tpu.config import fault_script_from_json as jax_from_json
 from go_avalanche_tpu.models import avalanche as jav
 from go_avalanche_tpu.ops import inflight as jif
 from go_avalanche_tpu.ops import voterecord as jvr
-from go_avalanche_tpu_torch import convert, workload
+from go_avalanche_tpu_torch import convert, obs as tobs, workload
 from go_avalanche_tpu_torch.config import (AvalancheConfig,
                                            fault_script_from_json)
 from go_avalanche_tpu_torch.models import avalanche as tav
@@ -189,7 +193,10 @@ SERIES = ("finalizations", "deliveries", "expiries", "partition_blocked",
 def jax_fault_study(name):
     """The study's record from the JAX package: `measure()`'s config as
     `examples/fault_scenarios.measure` builds it, the scenarios' from the
-    example's own `SCENARIOS` builders."""
+    example's own `SCENARIOS` functions.  The run carries the trace plane
+    (``trace_every=1``, which leaves the trajectory as it is); returns
+    the example's config, the record and the report of
+    `go_avalanche_tpu.obs.check_recovery` on that trace."""
     sys.path.insert(0, str(Path(__file__).resolve().parents[1] / "examples"))
     import fault_scenarios
 
@@ -203,22 +210,35 @@ def jax_fault_study(name):
     else:
         cfg, rounds, _ = fault_scenarios.SCENARIOS[name](timing)
     n, t = workload.FAULT_STUDY_SHAPE
-    state = jav.init(jax.random.key(0), n, t, cfg,
-                     init_pref=jav.contested_init_pref(0, n, t))
-    final, tel = jav.run_scan(state, cfg, n_rounds=rounds)
+    traced = dataclasses.replace(cfg, trace_every=1)
+    state = jav.with_trace(jav.init(jax.random.key(0), n, t, traced,
+                                    init_pref=jav.contested_init_pref(
+                                        0, n, t)), traced, rounds)
+    final, tel = jav.run_scan(state, traced, n_rounds=rounds)
     record = {f: np.asarray(getattr(tel, f)).tolist() for f in SERIES}
     record["finalized_fraction"] = float(np.asarray(
         jvr.has_finalized(final.records.confidence, cfg)).mean())
-    return cfg, record
+    return cfg, record, recovery_record(jobs.check_recovery(traced,
+                                                           final.trace))
+
+
+def recovery_record(report) -> dict:
+    """A `check_recovery` report as `workload.RECOVERY_RECORDS` holds
+    it."""
+    return json.loads(json.dumps({"ok": report.ok, "windows": report.windows,
+                                  "totals": report.totals}))
 
 
 @pytest.mark.parametrize("name", sorted(workload.FAULT_STUDY_RECORDS))
 def test_fault_study_record_reproduces(name):
-    """The JAX package reproduces the committed record; the port's
-    config is the example's, field by field; and the port's coalesced
-    engine reproduces the record too."""
-    jcfg, want = jax_fault_study(name)
+    """The JAX package reproduces the committed record and recovery
+    verdict; the port's config is the example's, field by field; and the
+    port's coalesced engine reproduces the record too, with the same
+    `check_recovery` report from its trace plane and from its telemetry
+    records."""
+    jcfg, want, want_recovery = jax_fault_study(name)
     assert want == workload.FAULT_STUDY_RECORDS[name]
+    assert want_recovery == workload.RECOVERY_RECORDS[name]
     tcfg, rounds = workload.fault_study_config(name)
     assert rounds == len(want["finalizations"])
     for field in tcfg.__dataclass_fields__:
@@ -226,11 +246,19 @@ def test_fault_study_record_reproduces(name):
         assert getattr(w, "value", w) == getattr(g, "value", g), field
     state, cfg, rounds = workload.fault_study_state(name, "coalesced",
                                                     device="cpu")
-    final, tel = tav.run_scan(state, cfg, n_rounds=rounds, device="cpu")
+    cfg = dataclasses.replace(cfg, trace_every=1)
+    final, tel = tav.run_scan(tav.with_trace(state, cfg, rounds), cfg,
+                              n_rounds=rounds, device="cpu")
     got = {f: getattr(tel, f).tolist() for f in SERIES}
     got["finalized_fraction"] = float(tvr.has_finalized(
         final.records.confidence, cfg).double().mean())
     assert got == want
+    assert recovery_record(tobs.check_recovery(cfg, final.trace)) \
+        == want_recovery
+    records = [{"round": r, **{f: int(getattr(tel, f)[r])
+                               for f in tel._fields}} for r in range(rounds)]
+    assert recovery_record(tobs.verify_recovery(cfg, records)) \
+        == want_recovery
 
 
 # ----------------------------------------------------------- config rules

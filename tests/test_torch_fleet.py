@@ -485,14 +485,19 @@ def test_unported_fleet_surfaces_name_their_item():
     with pytest.raises(NotImplementedError, match="item 15"):
         tfleet.run_fleet("snowball", cfg, fleet=2, n_nodes=8, mesh=object(),
                          device="cpu")
-    res = tfleet.run_fleet("snowball", cfg, fleet=2, n_nodes=8, n_rounds=2,
-                           device="cpu")
-    with pytest.raises(NotImplementedError, match="item 14"):
-        res.trace_records()
-    with pytest.raises(NotImplementedError, match="item 14"):
-        tfleet.fleet_trace_records(res.telemetry, 2)
-    with pytest.raises(NotImplementedError, match="item 14"):
-        AvalancheConfig(trace_every=1)
+    # The per-trial trace plane (item 14) is ported: both decoders give
+    # the fleet-stacked records the JAX package gives.
+    knobs = dict(finalization_score=8, trace_every=1)
+    jcfg, tcfg = _configs(knobs)
+    kw = dict(fleet=2, n_nodes=8, n_rounds=2)
+    want = jfleet.run_fleet("snowball", jcfg, **kw)
+    res = tfleet.run_fleet("snowball", tcfg, device="cpu", **kw)
+    assert res.trace_records() == want.trace_records()
+    assert (tfleet.fleet_trace_records(res.telemetry, 2)
+            == jfleet.fleet_trace_records(want.telemetry, 2))
+    off = tfleet.run_fleet("snowball", cfg, device="cpu", **kw)
+    with pytest.raises(ValueError, match="without the trace plane"):
+        off.trace_records()
 
 
 # ------------------------------------------------------------ tags
@@ -537,7 +542,7 @@ def test_default_timeout_rounds_has_one_copy():
 def test_atlas_fleet_record_reproduces():
     """The JAX package reproduces the committed row of the atlas's most
     hostile point (`workload.FLEET_RECORDS`), and the port's first four
-    trials there equal the JAX fleet's (`chip_smoke.py` runs all 48, and
+    trials there equal the JAX fleet's (`chip_smoke.py` runs all 16, and
     the policy grid at 4096 x 1024, on the card)."""
     from go_avalanche_tpu_torch import workload
 
@@ -562,3 +567,30 @@ def test_fleet_records_name_their_cases():
         assert r["tag"] == config_tag(tfleet.point_config(
             AvalancheConfig(**grid["knobs"]), r["point"]))
         assert r["fleet"] == grid["kw"]["fleet"]
+
+
+def test_atlas_fleet_trace_record_reproduces():
+    """The adversary atlas's traced spot-check point
+    (`workload.FLEET_TRACE_RECORDS`): the JAX package's fleet-stacked
+    trace JSONL reproduces the committed digest, the port's 8 trials
+    give the same bytes, and every trial's stall verdict agrees with its
+    trace finality curve (`examples/adversary_atlas.spot_check`)."""
+    from go_avalanche_tpu_torch import workload
+
+    case = workload.FLEET_CASES["atlas_hostile"]
+    rec = workload.FLEET_TRACE_RECORDS["atlas_hostile"]
+    jcfg, tcfg = _configs(dict(case["knobs"], trace_every=1))
+    kw = dict(case["kw"], fleet=rec["fleet"])
+    want = jfleet.run_fleet(case["model"], jcfg, **kw)
+    got = tfleet.run_fleet(case["model"], tcfg, device="cpu", **kw)
+    assert workload.trace_jsonl_digest(want.trace_records()) == rec["sha256"]
+    records = got.trace_records()
+    assert len(records) == rec["rows"]
+    assert workload.trace_jsonl_digest(records) == rec["sha256"]
+    n_byz = int(round(tcfg.byzantine_fraction * kw["n_nodes"]))
+    for i in range(rec["fleet"]):
+        total = sum(r["finalizations"][i] for r in records)
+        if got.stalled[i]:
+            assert total <= n_byz
+        elif got.finalized_fraction[i] > 0:
+            assert total > 0

@@ -188,11 +188,24 @@ def test_config_rejections_match_jax(kwargs, match):
 
 @pytest.mark.parametrize("kwargs", [
     dict(strict_validation=True), dict(fused_sharded_gossip=True),
-    dict(metrics_every=1), dict(trace_every=1),
 ])
 def test_unported_fields_raise_not_implemented(kwargs):
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         AvalancheConfig(**kwargs)
+
+
+@pytest.mark.parametrize("field", ["metrics_every", "trace_every"])
+def test_tap_strides_validate_as_jax(field):
+    """The two telemetry taps' strides, once refused as unported, are
+    accepted and validated with the reference's rule and message."""
+    for value in (0, 1, 3):
+        assert getattr(AvalancheConfig(**{field: value}), field) == value
+        JaxConfig(**{field: value})
+    with pytest.raises(ValueError) as jerr:
+        JaxConfig(**{field: -1})
+    with pytest.raises(ValueError) as terr:
+        AvalancheConfig(**{field: -1})
+    assert str(terr.value) == str(jerr.value)
 
 
 @pytest.mark.parametrize("kwargs", [
