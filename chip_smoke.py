@@ -127,7 +127,29 @@ package is missing.  Phases, each printing JSON lines:
                registry nodes, 16384 x 4096, 3 rounds), each trace equal
                to the stacked telemetry of the same call.  Phase 11's
                launches print on a line of their own, outside the
-               kernels line.
+               kernels line;
+ 12. host    — the host surfaces.  (a) `run_sim.main` in process at the
+               flagship's width (16384 x 16384, k=8, gossip off, the poll
+               cap over every tx, score 32766, 5 rounds) on the
+               megakernel, phased-u8 and phased-swar32: the three result
+               dicts equal apart from `elapsed_s`, each equal to a direct
+               `avalanche.run` at the config `run_sim.parse_args` gives,
+               each engine's kernel launched once a round, wall seconds
+               per engine.  (b) Config 6 at full width (100000 nodes, a
+               1024-set window of 2-tx sets) cut to 3 chunks of 8
+               rounds: `run_chunked` saving a checkpoint every chunk,
+               killed at the second boundary once the first save landed,
+               `restore_checkpoint` and run on to the same depth,
+               leaf-equal to an uninterrupted run; save seconds, bytes
+               and 64 MiB transfer blocks.  (c) `ConnectorServer` on the
+               card over loopback, driven by the port's client: SIM_INIT
+               avalanche at 16384 x 4096, SIM_RUN 5 + 5 equal to a direct
+               10-round `run_scan`; an external-arrival backlog (config
+               5's width) fed by SIM_SUBMIT, equal to the same pushes
+               made directly; and the C++ harness
+               (`native/connector/harness_main.cc`) against the server
+               when `make -C native` builds.  The kernels line's launches
+               add phase 12's.
 
 With ``--config6-full-depth`` it builds the kernels and runs only BASELINE
 config 6 at full width and full depth (500,000 sets, ~8313 rounds,
@@ -2341,6 +2363,351 @@ def run_obs(quick: bool = False, device="cuda") -> dict:
     return out
 
 
+HOST_SHAPES = {          # phase 12: the CLI, the resume, the Connector
+    "full": dict(cli=(16_384, 16_384), resume_sets=4096, chunk=8,
+                 connector=(16_384, 4096),
+                 backlog=dict(nodes=1024, txs=65_536, slots=4096,
+                              submit=8192, rounds=40)),
+    "quick": dict(cli=(64, 64), resume_sets=256, chunk=4,
+                  connector=(64, 64),
+                  backlog=dict(nodes=32, txs=512, slots=64, submit=64,
+                               rounds=20)),
+}
+HOST_CLI_ROUNDS = 5
+HOST_CLI_ENGINES = {"megakernel": ["--round-engine", "megakernel"],
+                    "vote_u8": [],
+                    "vote_swar": ["--ingest-engine", "swar32"]}
+HOST_TRANSFER_BYTES = 64 << 20   # run_chunked's default fetch cap
+
+
+def _synchronize(device) -> None:
+    import torch
+
+    if torch.device(device).type == "cuda":
+        torch.cuda.synchronize()
+
+
+def _without_wall(result: dict) -> dict:
+    return {k: v for k, v in result.items() if k != "elapsed_s"}
+
+
+def run_host_cli(n: int, t: int, device="cuda") -> tuple:
+    """Phase 12 (a): `run_sim.main` in process on the three engines at
+    the flagship's width, each result against the other engines' and a
+    direct `avalanche.run` at the config `parse_args` gives; each
+    engine's kernel launched once a round."""
+    import contextlib
+    import io
+
+    from go_avalanche_tpu_torch import prng, run_sim, workload
+    from go_avalanche_tpu_torch.models import avalanche as av
+    from go_avalanche_tpu_torch.ops import voterecord as vr
+    from go_avalanche_tpu_torch.utils import metrics
+
+    base = ["--model", "avalanche", "--nodes", str(n), "--txs", str(t),
+            "--k", "8", "--no-gossip", "--max-element-poll",
+            str(max(4096, t)), "--finalization-score", "32766",
+            "--max-rounds", str(HOST_CLI_ROUNDS), "--json",
+            "--device", str(device)]
+    rows, results = [], {}
+    launches = dict.fromkeys(KERNEL_ROWS, 0)
+    for kernel, extra in HOST_CLI_ENGINES.items():
+        argv = base + extra
+        _synchronize(device)
+        reset_launches()
+        out = io.StringIO()
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(out):
+            result = run_sim.main(argv)
+        _synchronize(device)
+        wall = time.perf_counter() - t0
+        used = read_launches()
+        want = {**dict.fromkeys(KERNEL_ROWS, 0), kernel: HOST_CLI_ROUNDS}
+        if used != want:
+            raise AssertionError(f"run_sim {kernel}: launches {used} != "
+                                 f"{want}")
+        for name, count in used.items():
+            launches[name] += count
+        if json.loads(out.getvalue().strip().splitlines()[-1]) != result:
+            raise AssertionError(f"run_sim {kernel}: the JSON line is not "
+                                 f"the result dict")
+        # the same run through the entry points, at the parsed config
+        args, cfg = run_sim.parse_args(argv)
+        flagship = dataclasses.replace(
+            workload.flagship_config(t), round_engine=cfg.round_engine,
+            ingest_engine=cfg.ingest_engine)
+        unexpressed = [f.name for f in dataclasses.fields(cfg)
+                       if getattr(cfg, f.name) != getattr(flagship, f.name)]
+        reset_launches()
+        state = av.run(av.init(prng.key(args.seed, device), n, t, cfg,
+                               device=device), cfg, HOST_CLI_ROUNDS,
+                       device=device)
+        fin = vr.has_finalized(state.records.confidence, cfg).cpu().numpy()
+        direct = {"model": "avalanche", "nodes": n, "txs": t,
+                  "backend": torch_device_type(device),
+                  "rounds": int(state.round),
+                  "finalized_fraction": float(fin.mean()),
+                  "nodes_fully_finalized": int(fin.all(axis=1).sum()),
+                  **{f"finality_{k}": v for k, v in
+                     metrics.rounds_to_finality(state.finalized_at).items()}}
+        launches[kernel] += read_launches()[kernel]
+        if _without_wall(result) != direct:
+            raise AssertionError(f"run_sim {kernel}: {result} != the "
+                                 f"direct avalanche.run {direct}")
+        results[kernel] = _without_wall(result)
+        rows.append({"engine": kernel, "wall_s": wall,
+                     "rounds": result["rounds"],
+                     "flagship_fields_unexpressed": unexpressed,
+                     "launches": used})
+        del state
+    if not (results["megakernel"] == results["vote_u8"]
+            == results["vote_swar"]):
+        raise AssertionError(f"run_sim results differ across engines: "
+                             f"{results}")
+    return rows, launches
+
+
+def torch_device_type(device) -> str:
+    import torch
+
+    return torch.device(device).type
+
+
+class _Killed(Exception):
+    """Raised by phase 12's progress hook to stop a run mid-way."""
+
+
+def run_host_resume(sets: int, chunk: int, quick: bool,
+                    device="cuda") -> tuple:
+    """Phase 12 (b): config 6 at full width cut to 3 chunks: an
+    uninterrupted `run_chunked`; one saving a checkpoint every chunk and
+    killed at the second boundary once the first save landed; its
+    checkpoint restored and run to the same depth, leaf-equal to the
+    uninterrupted run."""
+    import os
+    import tempfile
+    from pathlib import Path
+
+    from go_avalanche_tpu_torch import workload
+    from go_avalanche_tpu_torch.models import streaming_dag as sdg
+    from go_avalanche_tpu_torch.utils import checkpoint as ck
+
+    star = dict(workload.QUICK if quick else workload.NORTH_STAR,
+                backlog_sets=sets)
+    start, cfg = workload.northstar_state(**star, device=device)
+    depth = 3 * chunk
+    _synchronize(device)
+    reset_launches()
+    t0 = time.perf_counter()
+    full = sdg.run_chunked(start, cfg, max_rounds=depth, chunk=chunk,
+                           device=device)
+    _synchronize(device)
+    run_s = time.perf_counter() - t0
+    leaves = []
+    ck._map_tensors(start, lambda x: leaves.append(x) or x)
+    nbytes = [x.numel() * x.element_size() for x in leaves]
+    blocks = sum(max(1, len(list(ck._row_blocks(tuple(x.shape), b,
+                                                HOST_TRANSFER_BYTES))))
+                 for x, b in zip(leaves, nbytes))
+    with tempfile.TemporaryDirectory() as tmp:
+        path = Path(tmp) / "config6.npz"
+        marks = {}
+
+        def kill_after_first_save(rounds, state):
+            marks[rounds] = time.time()
+            if len(marks) == 2:
+                deadline = time.time() + 600
+                while not path.exists():
+                    if time.time() > deadline:
+                        raise AssertionError("no checkpoint landed")
+                    time.sleep(0.01)
+                raise _Killed(rounds)
+
+        try:
+            sdg.run_chunked(start, cfg, max_rounds=depth, chunk=chunk,
+                            checkpoint_path=str(path),
+                            checkpoint_every_chunks=1,
+                            progress=kill_after_first_save, device=device)
+        except _Killed:
+            pass
+        else:
+            raise AssertionError("the checkpointed run was not killed")
+        save_s = os.path.getmtime(path) - marks[chunk]
+        file_bytes = path.stat().st_size
+        t0 = time.perf_counter()
+        resumed = ck.restore_checkpoint(str(path), start,
+                                        max_transfer_bytes=HOST_TRANSFER_BYTES,
+                                        device=device)
+        _synchronize(device)
+        restore_s = time.perf_counter() - t0
+    if int(resumed.dag.base.round) != chunk:
+        raise AssertionError(f"the checkpoint holds round "
+                             f"{int(resumed.dag.base.round)}, not {chunk}")
+    final = sdg.run_chunked(resumed, cfg, max_rounds=depth, chunk=chunk,
+                            device=device)
+    assert_trees_equal(final, full, "resumed vs uninterrupted")
+    launches = read_launches()
+    want = {**dict.fromkeys(KERNEL_ROWS, 0), "vote_u8": 7 * chunk}
+    if launches != want:
+        raise AssertionError(f"resume: launches {launches} != {want}")
+    row = {"nodes": star["nodes"], "window_sets": star["window_sets"],
+           "set_cap": star["set_cap"], "backlog_sets": sets,
+           "chunk": chunk, "depth": depth,
+           "depth_cut": f"3 chunks of {chunk} rounds (config 6 runs 8313 "
+                        f"rounds whole); width unchanged",
+           "state_bytes": sum(nbytes), "file_bytes": file_bytes,
+           "transfer_blocks_64MiB": blocks, "save_s": save_s,
+           "restore_s": restore_s, "uninterrupted_run_s": run_s,
+           "launches": launches}
+    del start, full, resumed, final
+    return [row], launches
+
+
+def run_host_connector(n: int, t: int, bl: dict, device="cuda") -> tuple:
+    """Phase 12 (c): the Connector server on the card over loopback,
+    driven by the port's client: SIM_RUN 5 + 5 against a direct 10-round
+    `run_scan`; an external-arrival backlog fed by SIM_SUBMIT against the
+    same pushes and runs made directly; and the C++ harness when
+    `make -C native` builds here."""
+    import os
+    import subprocess
+
+    import torch
+
+    from go_avalanche_tpu_torch import prng
+    from go_avalanche_tpu_torch import traffic as tf
+    from go_avalanche_tpu_torch.config import AvalancheConfig
+    from go_avalanche_tpu_torch.connector import (ConnectorClient,
+                                                  ConnectorServer)
+    from go_avalanche_tpu_torch.models import avalanche as av
+    from go_avalanche_tpu_torch.models import backlog as blm
+    from go_avalanche_tpu_torch.ops import voterecord as vr
+
+    rows = []
+    _synchronize(device)
+    reset_launches()
+    with ConnectorServer(device=device) as srv, ConnectorClient(
+            *srv.address, timeout_s=900) as c:
+        engine = srv.backend
+        t0 = time.perf_counter()
+        c.sim_init(n, t, seed=0)
+        first, second = c.sim_run(5), c.sim_run(5)
+        wire_s = time.perf_counter() - t0
+        arrivals = []
+        c.sim_init(bl["nodes"], bl["txs"], seed=0, model="backlog",
+                   window_sets=bl["slots"], arrival_mode="external")
+        for _ in range(3):
+            arrivals.append(tuple(c.sim_submit(bl["submit"])))
+            arrivals.append(tuple(c.sim_run(bl["rounds"])))
+        arrivals.append(tuple(c.sim_submit(0)))
+    server_launches = read_launches()
+
+    cfg = AvalancheConfig()      # the wire's defaults: k 8, score 128
+    state, tel = av.run_scan(av.init(prng.key(0, device), n, t, cfg,
+                                     device=device), cfg, 10, device=device)
+    fin = vr.has_finalized(state.records.confidence, cfg)
+    want = (int(state.round), int(fin.sum()) / fin.numel(),
+            *(int(x.sum(dtype=torch.int64)) for x in (
+                tel.polls, tel.votes_applied, tel.flips, tel.finalizations)))
+    if tuple(second) != want or first.round != 5:
+        raise AssertionError(f"SIM_STATS {tuple(second)} != a direct "
+                             f"10-round run_scan {want}")
+    del state, tel, fin
+
+    bcfg = AvalancheConfig(arrival_mode="external")
+    s = blm.init(prng.key(0, device), bl["nodes"], bl["slots"],
+                 blm.make_backlog(torch.arange(bl["txs"], dtype=torch.int32)),
+                 bcfg, device=device)
+    replay = []
+
+    def stats(s):
+        lat = tf.traffic_telemetry(s.traffic, torch.zeros(
+            (), dtype=torch.int32, device=s.sim.round.device))
+        return (int(lat.arrived_total), int(s.next_idx),
+                int(s.outputs.settled.sum()), int(lat.lat_count),
+                int(lat.lat_p50), int(lat.lat_p99), int(lat.lat_p999))
+
+    for _ in range(3):
+        s = s._replace(traffic=tf.push_arrivals(s.traffic, bl["submit"],
+                                                s.sim.round))
+        replay.append(stats(s))
+        s, btel = blm.run_scan(s, bcfg, bl["rounds"], device=device)
+        replay.append(None)
+    replay.append(stats(s))
+    for i, (got, ref) in enumerate(zip(arrivals, replay)):
+        if ref is not None and got != ref:
+            raise AssertionError(f"SIM_SUBMIT {i}: {got} != direct {ref}")
+    final = arrivals[-1]
+    if not (final[0] == 3 * bl["submit"] and 0 < final[2] <= final[1]
+            <= final[0] and final[4] > 0):
+        raise AssertionError(f"external backlog stats {final} out of range")
+    rows.append({"part": "wire", "engine": engine, "nodes": n, "txs": t,
+                 "sim_stats": list(second), "wire_s": wire_s})
+    rows.append({"part": "external_backlog", **bl,
+                 "traffic_stats": list(final)})
+    launches = read_launches()
+    if server_launches["vote_u8"] < 10 or launches["vote_u8"] < 20:
+        raise AssertionError(f"connector: launches {launches}")
+
+    native_dir = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                              "native")
+    try:
+        subprocess.run(["make", "-C", native_dir, "all", "clients"],
+                       check=True, capture_output=True, text=True,
+                       timeout=300)
+    except (OSError, subprocess.SubprocessError) as e:
+        rows.append({"part": "native_harness", "ran": False,
+                     "reason": f"make -C native failed: {e}"[:300]})
+    else:
+        with ConnectorServer(device=device) as srv:
+            host, port = srv.address
+            t0 = time.perf_counter()
+            out = subprocess.run(
+                [os.path.join(native_dir, "build", "avalanche_harness"),
+                 host, str(port), "6", "3", "--sim"],
+                capture_output=True, text=True, timeout=300)
+            harness_s = time.perf_counter() - t0
+            engine = srv.backend
+        if (out.returncode != 0
+                or "nodes_fully_finalized=6/6" not in out.stdout
+                or "finalized_fraction=1.000" not in out.stdout):
+            raise AssertionError(f"C++ harness failed: {out.stdout} "
+                                 f"{out.stderr}")
+        rows.append({"part": "native_harness", "ran": True,
+                     "engine": engine, "seconds": harness_s,
+                     "stdout": out.stdout.strip().splitlines()})
+    return rows, launches
+
+
+def run_host(quick: bool = False, device="cuda") -> dict:
+    """Phase 12: the host surfaces (module docstring).  Returns each
+    part's rows with its wall seconds and the phase's launches."""
+    shape = HOST_SHAPES["quick" if quick else "full"]
+    parts = {
+        "cli": lambda: run_host_cli(*shape["cli"], device),
+        "resume": lambda: run_host_resume(shape["resume_sets"],
+                                          shape["chunk"], quick, device),
+        "connector": lambda: run_host_connector(*shape["connector"],
+                                                shape["backlog"], device),
+    }
+    out = {"launches": dict.fromkeys(KERNEL_ROWS, 0)}
+    for name, part in parts.items():
+        t0 = time.perf_counter()
+        rows, launches = part()
+        out[name] = {"rows": rows, "wall_s": time.perf_counter() - t0}
+        for kernel, count in launches.items():
+            out["launches"][kernel] += count
+        _empty_cache(device)
+    return out
+
+
+def _empty_cache(device) -> None:
+    import torch
+
+    if torch.device(device).type == "cuda":
+        torch.cuda.empty_cache()
+
+
 KERNEL_ROWS = {          # name -> (source, the TPU kernel it replaces)
     "megakernel": ("go_avalanche_tpu_torch/csrc/megakernel.cu",
                    "go_avalanche_tpu/ops/megakernel.py:95"),
@@ -2473,13 +2840,25 @@ def main() -> int:
           "wall_s": time.perf_counter() - t0, **label})
     torch.cuda.empty_cache()
 
+    # 12. the host surfaces: the CLI, a killed and resumed chunked run,
+    # the Connector
+    t0 = time.perf_counter()
+    host = run_host()
+    for part in ("cli", "resume", "connector"):
+        for r in host[part]["rows"]:
+            emit({"phase": "host", "part": part, **r,
+                  "part_wall_s": host[part]["wall_s"], **label})
+    emit({"phase": "host", "launches": host["launches"],
+          "wall_s": time.perf_counter() - t0, **label})
+
     emit({"kernels": [{
         "name": name,
         "route": "cuda",
         "source": source,
         "replaces": replaces,
         "launches": (main_path["launches"][name]
-                     + adversary["launches"][name]),
+                     + adversary["launches"][name]
+                     + host["launches"][name]),
         "max_abs_err": max(worst[name], timing[name]["max_abs_err"]),
         "ms": timing[name]["ms"],
         "plain_ms": timing[name]["plain_ms"],

@@ -145,6 +145,8 @@ class AvalancheConfig:
     ingest_engine: str = "u8"
     round_engine: str = "phased"
     fused_sharded_gossip: bool = False
+    # The Processor's request/response validation contract
+    # (`processor.py`; the reference compiled it out, `processor.go:62-90`).
     strict_validation: bool = False
     latency_mode: str = "none"
     latency_rounds: int = 0
@@ -911,7 +913,6 @@ class AvalancheConfig:
 # Queue 1 item that ports them.
 _UNPORTED = {
     "fused_sharded_gossip": "item 15, sharded drivers",
-    "strict_validation": "item 16, host Processor",
 }
 
 _FIELD_DEFAULTS = {f.name: f.default

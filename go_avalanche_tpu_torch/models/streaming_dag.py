@@ -13,8 +13,9 @@ order (a set scores as its best valid member).
 `cfg.stream_retire_cap` caps how many set-slots retire and refill a
 round and rewrites only their columns; when a round's free slots fit
 the cap the trajectory equals the dense path.  `run_chunked` is `run`
-dispatched in `chunk`-round pieces with a `progress` hook; its
-checkpoints belong to ROADMAP.md Queue 1 item 16 and are not ported.
+dispatched in `chunk`-round pieces with a `progress` hook, saving an npz
+checkpoint (`utils/checkpoint.py`) every few pieces on a background
+thread when asked.
 Under async queries the freed columns leave every pending ring entry's
 poll mask (`ops/inflight.clear_columns`).  The scheduler owns the flight
 recorder, as `models/backlog` does: one full `StreamingDagTelemetry`
@@ -411,32 +412,99 @@ def run_chunked(state: StreamingDagState,
     """`run` in pieces of at most `chunk` rounds: the same final state,
     round for round (each piece checks `drained` before every step, as
     `run` does), with `progress(rounds_done, state)` called after every
-    piece and one more read of `drained` there.  Checkpoints
-    (`checkpoint_path` and the `checkpoint_*` knobs) are ROADMAP.md
-    Queue 1 item 16."""
+    piece and one more read of `drained` there.
+
+    `checkpoint_path` saves the state every `checkpoint_every_chunks`
+    pieces (`utils/checkpoint.save_checkpoint`, atomic replace), so a
+    killed run resumes from the last checkpoint.  Saves run on a
+    background thread while later pieces compute, one at a time (a
+    boundary is skipped while a save is in flight), and the last one is
+    joined before returning.  No step writes into the tensors of the
+    state it was given (every plane a step changes is a new tensor), so
+    a boundary state stays as it was while the saver copies it; the
+    saver's device→host copies run on a side stream that waits for an
+    event recorded at the boundary, not for the pieces queued after it.
+    Each save moves `checkpoint_fetch_bytes`-sized transfers with a
+    `checkpoint_fetch_timeout_s` deadline each.  A failed save is
+    dropped with a warning and the run goes on; only when no save
+    succeeded at all is one synchronous retry made at the end, and its
+    failure raised."""
     if chunk < 1:
         raise ValueError(f"chunk must be >= 1, got {chunk}")
     if checkpoint_path and checkpoint_every_chunks < 1:
         raise ValueError("checkpoint_every_chunks must be >= 1, got "
                          f"{checkpoint_every_chunks}")
-    if checkpoint_path is not None:
-        raise NotImplementedError(
-            f"checkpoint_path={checkpoint_path!r}: the PyTorch port does "
-            f"not implement this yet (ROADMAP.md Queue 1, item 16, npz "
-            f"checkpoints); leave it at None")
+    import threading
+    import warnings
+
+    from go_avalanche_tpu_torch.utils.checkpoint import save_checkpoint
+
     state = av.move_leaves(state, av._device(device))
-    rounds = sync.read(state.dag.base.round)
-    while True:
-        start = rounds
-        while (rounds - start < chunk and rounds < max_rounds
-               and not sync.read(drained(state, cfg))):
-            state = step(state, cfg)[0]
-            rounds += 1
-        done = sync.read(drained(state, cfg))
-        if progress is not None:
-            progress(rounds, state)
-        if done or rounds >= max_rounds:
-            break
+    saver: Optional[threading.Thread] = None
+    save_errors: list = []
+    saves_ok = [0]
+
+    def _do_save(snapshot, ready=None):
+        save_checkpoint(checkpoint_path, snapshot,
+                        max_fetch_bytes=checkpoint_fetch_bytes,
+                        fetch_timeout_s=checkpoint_fetch_timeout_s,
+                        ready=ready)
+        saves_ok[0] += 1
+
+    def _save(snapshot, ready):
+        # A failed save costs a checkpoint, not the run: the next
+        # boundary tries again with a fresher state.
+        try:
+            _do_save(snapshot, ready)
+        except Exception as e:  # noqa: BLE001 — surfaced at completion
+            save_errors.append(e)
+            if len(save_errors) == 1:
+                warnings.warn(f"checkpoint save failed (run continues, "
+                              f"will retry next boundary): {e!r}",
+                              RuntimeWarning, stacklevel=2)
+
+    try:
+        rounds = sync.read(state.dag.base.round)
+        chunks_done = 0
+        while True:
+            start = rounds
+            while (rounds - start < chunk and rounds < max_rounds
+                   and not sync.read(drained(state, cfg))):
+                state = step(state, cfg)[0]
+                rounds += 1
+            done = sync.read(drained(state, cfg))
+            chunks_done += 1
+            if progress is not None:
+                progress(rounds, state)
+            if (checkpoint_path
+                    and chunks_done % checkpoint_every_chunks == 0
+                    and (saver is None or not saver.is_alive())):
+                ready = None
+                if state.dag.base.round.is_cuda:
+                    ready = torch.cuda.Event()
+                    ready.record()
+                saver = threading.Thread(target=_save, args=(state, ready),
+                                         daemon=True)
+                saver.start()
+            if done or rounds >= max_rounds:
+                break
+    finally:
+        # Always join: an orphaned save would race a later one to the
+        # same tmp path.
+        if saver is not None:
+            saver.join()
+    if checkpoint_path and save_errors:
+        if saves_ok[0] == 0:
+            try:
+                _do_save(state)
+            except Exception as e:  # noqa: BLE001
+                raise e from save_errors[0]
+        if saves_ok[0] > 0 and save_errors:
+            warnings.warn(
+                f"run completed; {len(save_errors)} checkpoint save(s) "
+                f"failed and were dropped (last: {save_errors[-1]!r}); "
+                f"latest successful checkpoint kept at {checkpoint_path}",
+                RuntimeWarning, stacklevel=2)
     return _retire_and_refill(state, cfg, refill=False)[0]
 
 

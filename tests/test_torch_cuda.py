@@ -614,3 +614,96 @@ def test_fleet_trace_and_watchdog_on_cuda_match_cpu(cuda):
             seen.append(wd.check(state))
         counts.append(seen)
     assert counts[0] == counts[1] and counts[0][-1] > 0
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("engine", [["--round-engine", "megakernel"], [],
+                                    ["--ingest-engine", "swar32"]],
+                         ids=["megakernel", "u8", "swar32"])
+def test_run_sim_cli_on_cuda_matches_cpu(engine, cuda):
+    """`run_sim.main` on the card gives the CPU's result dict, launching
+    the engine's kernel once a round."""
+    from go_avalanche_tpu_torch import run_sim
+
+    argv = ["--model", "avalanche", "--nodes", "64", "--txs", "128",
+            "--k", "8", "--no-gossip", "--finalization-score", "24",
+            "--max-rounds", "6", "--json"] + engine
+    mk.launches = 0
+    for name in pv.launches:
+        pv.launches[name] = 0
+    got = run_sim.main(argv + ["--device", "cuda"])
+    assert mk.launches + sum(pv.launches.values()) == got["rounds"] > 0
+    want = run_sim.main(argv + ["--device", "cpu"])
+    assert got.pop("backend") == "cuda" and want.pop("backend") == "cpu"
+    got.pop("elapsed_s"), want.pop("elapsed_s")
+    assert got == want
+
+
+@pytest.mark.cuda
+def test_chunked_checkpoint_resume_on_cuda(cuda, tmp_path):
+    """A chunked streaming run on the card saves in the background, is
+    killed after its first save, and resumes leaf-equal to the
+    uninterrupted run; the checkpoint restores on the CPU too."""
+    import time
+
+    from go_avalanche_tpu_torch import convert
+    from go_avalanche_tpu_torch.models import streaming_dag as sdg
+    from go_avalanche_tpu_torch.utils import checkpoint as ck
+
+    cfg = AvalancheConfig(finalization_score=16)
+    start = sdg.init(prng.key(2, cuda), 64, 8, sdg.make_set_backlog(
+        torch.arange(256, dtype=torch.int32).reshape(128, 2)), cfg,
+        device=cuda)
+    full = sdg.run_chunked(start, cfg, max_rounds=12, chunk=4, device=cuda)
+    path = tmp_path / "run.npz"
+    seen = []
+
+    class Killed(Exception):
+        pass
+
+    def kill(rounds, state):
+        seen.append(rounds)
+        if len(seen) == 2:
+            while not path.exists():
+                time.sleep(0.01)
+            raise Killed
+
+    with pytest.raises(Killed):
+        sdg.run_chunked(start, cfg, max_rounds=12, chunk=4,
+                        checkpoint_path=str(path), checkpoint_every_chunks=1,
+                        progress=kill, device=cuda)
+    resumed = ck.restore_checkpoint(str(path), start, max_transfer_bytes=4096,
+                                    device=cuda)
+    assert int(resumed.dag.base.round) == 4
+    final = sdg.run_chunked(resumed, cfg, max_rounds=12, chunk=4,
+                            device=cuda)
+    on_cpu = ck.restore_checkpoint(str(path), start, device="cpu")
+    for a, b in zip(*(ck._leaves(convert.streaming_dag_state_to_numpy(s))
+                      for s in (final, full))):
+        np.testing.assert_array_equal(a[1], b[1])
+    for a, b in zip(*(ck._leaves(convert.streaming_dag_state_to_numpy(s))
+                      for s in (on_cpu, resumed))):
+        np.testing.assert_array_equal(a[1], b[1])
+
+
+@pytest.mark.cuda
+def test_connector_on_cuda_matches_cpu(cuda):
+    """The Connector's simulator on the card answers as on the CPU."""
+    from go_avalanche_tpu_torch.connector import (ConnectorClient,
+                                                  ConnectorServer)
+
+    def session(device):
+        with ConnectorServer(device=device) as srv, ConnectorClient(
+                *srv.address) as c:
+            out = []
+            for model in ("avalanche", "dag", "streaming_dag", "backlog"):
+                c.sim_init(64, 64, seed=1, k=4, finalization_score=8,
+                           model=model)
+                out += [tuple(c.sim_run(4)), tuple(c.sim_run(4))]
+            c.sim_init(32, 256, model="backlog", window_sets=32,
+                       arrival_mode="external", finalization_score=8)
+            out += [tuple(c.sim_submit(40)), tuple(c.sim_run(10)),
+                    tuple(c.sim_submit(0))]
+            return out
+
+    assert session("cuda") == session("cpu")

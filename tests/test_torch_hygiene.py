@@ -35,7 +35,15 @@ MODULES = ["go_avalanche_tpu_torch", "go_avalanche_tpu_torch.config",
            "go_avalanche_tpu_torch.workload",
            "go_avalanche_tpu_torch.round_profile",
            "go_avalanche_tpu_torch.fleet",
-           "go_avalanche_tpu_torch.obs.tags"]
+           "go_avalanche_tpu_torch.obs.tags",
+           "go_avalanche_tpu_torch.types", "go_avalanche_tpu_torch.clock",
+           "go_avalanche_tpu_torch.net", "go_avalanche_tpu_torch.processor",
+           "go_avalanche_tpu_torch.native",
+           "go_avalanche_tpu_torch.utils.golden",
+           "go_avalanche_tpu_torch.utils.checkpoint",
+           "go_avalanche_tpu_torch.run_sim",
+           "go_avalanche_tpu_torch.connector",
+           "go_avalanche_tpu_torch.connector.server"]
 
 
 def _forbidden(module: str) -> bool:
@@ -148,6 +156,25 @@ def test_entry_points_default_to_cuda():
         fleet.run_phase_grid("avalanche", policy,
                              {"adversary_policy": ["off", "split_vote"]},
                              fleet=2, n_nodes=8, n_txs=4, n_rounds=1)
+
+
+def test_host_surfaces_default_to_cuda(tmp_path):
+    if torch.cuda.is_available():
+        pytest.skip("this machine has a GPU: the default device works")
+    from go_avalanche_tpu_torch import prng, run_sim
+    from go_avalanche_tpu_torch.connector.server import ConnectorServer
+    from go_avalanche_tpu_torch.models import avalanche as av
+    from go_avalanche_tpu_torch.utils import checkpoint
+
+    with pytest.raises(RuntimeError, match="cuda"):
+        run_sim.main(["--model", "snowball", "--nodes", "8"])
+    state = av.init(prng.key(0, device="cpu"), 4, 32, device="cpu")
+    path = str(tmp_path / "s.npz")
+    checkpoint.save_checkpoint(path, state)
+    with pytest.raises(RuntimeError, match="cuda"):
+        checkpoint.restore_checkpoint(path, state)
+    with pytest.raises(RuntimeError, match="cuda"):
+        ConnectorServer()
 
 
 def test_round_profile_fails_without_cuda():

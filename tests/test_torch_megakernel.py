@@ -190,8 +190,16 @@ def test_config_rejections_match_jax(kwargs, match):
     dict(strict_validation=True), dict(fused_sharded_gossip=True),
 ])
 def test_unported_fields_raise_not_implemented(kwargs):
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        AvalancheConfig(**kwargs)
+    """A field still unported raises naming its ROADMAP item;
+    `strict_validation`, ported with the host Processor, is accepted."""
+    from go_avalanche_tpu_torch import config
+
+    (name, value), = kwargs.items()
+    if name in config._UNPORTED:
+        with pytest.raises(NotImplementedError, match="ROADMAP"):
+            AvalancheConfig(**kwargs)
+    else:
+        assert getattr(AvalancheConfig(**kwargs), name) == value
 
 
 @pytest.mark.parametrize("field", ["metrics_every", "trace_every"])

@@ -146,7 +146,7 @@ def test_run_scan_and_track_finality_off_match_jax():
     assert_trees_equal(jax_tree(wtel), torch_tree(gtel), "telemetry")
 
 
-def test_run_chunked_rejects_bad_knobs_and_checkpoints():
+def test_run_chunked_rejects_bad_knobs_and_checkpoints(tmp_path):
     _, tstate, _, tcfg = pair(n_sets=4, w_sets=2)
     with pytest.raises(ValueError, match="chunk"):
         tsd.run_chunked(tstate, tcfg, max_rounds=10, chunk=0, device="cpu")
@@ -154,6 +154,15 @@ def test_run_chunked_rejects_bad_knobs_and_checkpoints():
         tsd.run_chunked(tstate, tcfg, max_rounds=10, chunk=2,
                         checkpoint_path="x.npz", checkpoint_every_chunks=0,
                         device="cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP.md Queue 1, item 16"):
-        tsd.run_chunked(tstate, tcfg, max_rounds=10, chunk=2,
-                        checkpoint_path="x.npz", device="cpu")
+    # checkpoints are ported: a checkpointed run saves and ends where the
+    # plain run does
+    path = tmp_path / "x.npz"
+    saved = tsd.run_chunked(tstate, tcfg, max_rounds=10, chunk=2,
+                            checkpoint_path=str(path),
+                            checkpoint_every_chunks=1, device="cpu")
+    plain = tsd.run_chunked(tstate, tcfg, max_rounds=10, chunk=2,
+                            device="cpu")
+    assert path.exists()
+    assert int(saved.dag.base.round) == int(plain.dag.base.round)
+    assert torch.equal(saved.dag.base.records.confidence,
+                       plain.dag.base.records.confidence)
