@@ -40,7 +40,7 @@ package is missing.  Phases, each printing JSON lines:
   8. streaming — BASELINE config 5 whole (`backlog.run`, 1024 nodes x
                4096 slots, 1,000,000 txs) and config 6 at full width
                and cut depth (`streaming_dag.run_chunked`, 100000 nodes
-               x a 1024-set window of 2-tx sets, 25,600 sets), both on
+               x a 1024-set window of 2-tx sets, 12,800 sets), both on
                phased-u8 and phased-swar32 against the reference's
                recorded rounds and outcomes; the sparse retire cap at
                the window size against the dense run; live traffic
@@ -150,6 +150,27 @@ package is missing.  Phases, each printing JSON lines:
                (`native/connector/harness_main.cc`) against the server
                when `make -C native` builds.  The kernels line's launches
                add phase 12's.
+ 13. mesh    — the sharded drivers (`parallel/`) on the one card, every
+               rank's ingest kernel on its block.  The kernels are built
+               (phase 2) before any rank starts; ranks are spawned and
+               only load them.  (a) A 1x1 mesh in this process (NCCL,
+               world 1): the flagship at 16384 x 16384 with 20%
+               byzantine (`workload.mesh_flagship_state`), 5 rounds of
+               `run_scan_sharded` on phased-u8 and phased-swar32,
+               leaf-equal, one launch a round each, ms a round beside
+               the dense phased round.  (b) Gloo ranks sharing the card
+               at the same width: 1x2 and 1x4 leaf-equal to (a)'s 1x1,
+               2x2 to 2x1 (the tx-only contract), compared tile by tile
+               (`tile_digests`), each mesh's ms a round, host-staged
+               collectives and ingest paths.  (c) `workload.SHARDED_CASES`
+               (4096 x 4096 on 1x1, 2x1, 4x1; the DAG at 2048 x 2048 to
+               settlement on 1x1, 2x1), every leaf and telemetry digest
+               equal to the JAX package's `SHARDED_RECORDS`, every set
+               settled.  (d) The policy grid's "off" point over a 2-rank
+               fleet mesh, equal to its `FLEET_RECORDS` row.  (e) The
+               distributed smoke as two processes.  A rank's failure or
+               a rank silent for `MESH_TIMEOUT` s fails the phase.  The
+               kernels line's launches add phase 13's, every rank's.
 
 With ``--config6-full-depth`` it builds the kernels and runs only BASELINE
 config 6 at full width and full depth (500,000 sets, ~8313 rounds,
@@ -909,13 +930,14 @@ def time_ingest(name: str, n: int, t: int, device="cuda") -> dict:
 
 
 # Phase 8's shapes.  Config 6 runs at full width (100000 nodes, a 1024-set
-# window of 2-tx sets) with its backlog cut from 500,000 sets to 25,600
-# (25 waves of the window; the whole backlog would take ~8313 rounds, about
-# ten minutes per engine; phase 9 took the time the other 25 waves had);
-# every wave settles in ceil(134 / k) = 17 rounds, so the cut run's gate is
-# 25 * 17 = 425 rounds.  The retire-cap check runs 3 waves.
+# window of 2-tx sets) with its backlog cut from 500,000 sets to 12,800
+# (13 waves of the window, the last one half full; the whole backlog would
+# take ~8313 rounds, about ten minutes per engine; phases 9 and 13 took the
+# time the other waves had); every wave settles in ceil(134 / k) = 17
+# rounds, so the cut run's gate is 13 * 17 = 221 rounds.  The retire-cap
+# check runs 3 waves.
 STREAM_SHAPES = {
-    "full": dict(config6_sets=25_600, cap_sets=3072, traffic_txs=65_536,
+    "full": dict(config6_sets=12_800, cap_sets=3072, traffic_txs=65_536,
                  traffic_rate=200.0, node_txs=4096, registry=1_000_000,
                  active=16_384, node_rounds=40),
     "quick": dict(config6_sets=320, cap_sets=96, traffic_txs=4096,
@@ -2701,6 +2723,356 @@ def run_host(quick: bool = False, device="cuda") -> dict:
     return out
 
 
+MESH_SHAPES = {          # phase 13: (a) and (b)'s flagship, rounds a run
+    "full": dict(nodes=16_384, txs=16_384, rounds=5),
+    "quick": dict(nodes=256, txs=512, rounds=3),
+}
+# (b): each mesh with only tx shards against its node-only twin.
+MESH_CONTRACT = (((1, 2), (1, 1)), ((1, 4), (1, 1)), ((2, 2), (2, 1)))
+# The tiles a mesh run's digests cover: the node axis in 2, the tx axis in
+# 4, so that every mesh of (b) holds whole tiles and two runs compare
+# tile by tile whatever their blocks.
+MESH_TILES = {"nodes": 2, "txs": 4}
+MESH_RANKS = 4
+MESH_TIMEOUT = 300       # seconds a rank may take for one case
+
+
+def _spec_walk(tree, specs, path: str = ""):
+    """``(path, leaf, spec)`` over a sharded state tree and its specs."""
+    if isinstance(specs, tuple) and not hasattr(specs, "_fields"):
+        if tree is not None:
+            yield path, tree, specs
+        return
+    if not isinstance(tree, tuple):
+        return
+    for name in tree._fields:
+        yield from _spec_walk(getattr(tree, name), getattr(specs, name),
+                              f"{path}.{name}" if path else name)
+
+
+def tile_digests(state, mesh, specs) -> dict:
+    """sha256 of every `MESH_TILES` tile of every leaf this rank's block
+    holds, keyed by leaf path and global tile index; replicated leaves
+    whole."""
+    import hashlib
+    import itertools
+
+    out = {}
+    for path, leaf, spec in _spec_walk(state, specs):
+        dims = []
+        for dim, axis in enumerate(spec):
+            if axis is None:
+                dims.append([(0, slice(None))])
+                continue
+            here = MESH_TILES[axis] // mesh.shape[axis]
+            w = leaf.shape[dim] // here
+            first = mesh.coords[axis] * here
+            dims.append([(first + i, slice(i * w, (i + 1) * w))
+                         for i in range(here)])
+        for combo in itertools.product(*dims):
+            part = leaf[tuple(c[1] for c in combo)].contiguous()
+            key = f"{path}{[c[0] for c in combo]}"
+            out[key] = hashlib.sha256(part.cpu().numpy().tobytes()
+                                      ).hexdigest()
+    return out
+
+
+def _mesh_scan(mesh, block, cfg, rounds: int, device,
+               digests: bool = True) -> dict:
+    """`run_scan_sharded` on this rank's block, timed, with its launches
+    and host-staged collectives counted from 0; the final block, its
+    tile digests (with `digests`) and the telemetry."""
+    from go_avalanche_tpu_torch.parallel import collectives, sharded
+
+    collectives.host_staged = 0
+    reset_launches()
+    _synchronize(device)
+    t0 = time.perf_counter()
+    block, tel = sharded.run_scan_sharded(mesh, block, cfg, rounds)
+    _synchronize(device)
+    wall = time.perf_counter() - t0
+    return {"final": block,
+            "tiles": (tile_digests(block, mesh, sharded.specs_of(block))
+                      if digests else None),
+            "telemetry": {f: getattr(tel, f).tolist() for f in tel._fields},
+            "ms_per_round": wall * 1e3 / rounds,
+            "host_staged": collectives.host_staged,
+            "launches": read_launches(),
+            "launches_by_ingest_path": read_path_launches(),
+            "block": list(block.records.votes.shape)}
+
+
+def mesh_flagship_rank(nodes: int, txs: int, rounds: int, shape,
+                       engine: str, device="cuda") -> dict:
+    """Part (b), in a rank: the mesh flagship built on this rank's
+    device, its block cut, `rounds` sharded rounds (`_mesh_scan`)."""
+    import torch
+
+    from go_avalanche_tpu_torch import workload
+    from go_avalanche_tpu_torch.parallel import sharded
+    from go_avalanche_tpu_torch.parallel.mesh import make_mesh
+    from go_avalanche_tpu_torch.parallel.runtime import rank_device
+
+    dev = rank_device(device)
+    if dev.type == "cuda":
+        torch.cuda.set_device(dev)
+    mesh = make_mesh(*shape)
+    start, cfg = workload.mesh_flagship_state(nodes, txs, device=dev,
+                                              ingest_engine=engine)
+    block = sharded.shard_state(start, mesh)
+    del start
+    _empty_cache(dev)
+    row = _mesh_scan(mesh, block, cfg, rounds, dev)
+    del row["final"]
+    return row
+
+
+def sharded_record_rank(name: str, device="cuda") -> dict:
+    """Part (c), in a rank: a `workload.SHARDED_CASES` case through the
+    sharded driver; rank 0 digests the gathered state."""
+    import torch
+
+    from go_avalanche_tpu_torch import convert, workload
+    from go_avalanche_tpu_torch.models import dag
+    from go_avalanche_tpu_torch.ops import voterecord as vr
+    from go_avalanche_tpu_torch.parallel import sharded, sharded_dag
+    from go_avalanche_tpu_torch.parallel.mesh import make_mesh
+    from go_avalanche_tpu_torch.parallel.runtime import rank_device
+
+    case = workload.SHARDED_CASES[name]
+    dev = rank_device(device)
+    if dev.type == "cuda":
+        torch.cuda.set_device(dev)
+    mesh = make_mesh(*case["mesh"])
+    out = {}
+    reset_launches()
+    t0 = time.perf_counter()
+    if case["model"] == "avalanche":
+        start, cfg = workload.mesh_flagship_state(case["nodes"], case["txs"],
+                                                  device=dev)
+        block, tel = sharded.run_scan_sharded(
+            mesh, sharded.shard_state(start, mesh), cfg, case["rounds"])
+        _synchronize(dev)
+        whole = convert.state_to_numpy(sharded.gather_state(block, mesh))
+        out["telemetry"] = workload.leaf_digests(
+            {f: getattr(tel, f).cpu().numpy() for f in tel._fields})
+        rounds = int(whole.round)
+    else:
+        start, cfg = workload.dag_baseline_state(case["nodes"], case["txs"],
+                                                 device=dev)
+        block = sharded_dag.run_sharded_dag(
+            mesh, sharded_dag.shard_dag_state(start, mesh), cfg,
+            max_rounds=case["max_rounds"])
+        _synchronize(dev)
+        gathered = sharded_dag.gather_dag_state(block, mesh)
+        conf = gathered.base.records.confidence
+        fin_acc = vr.has_finalized(conf, cfg) & vr.is_accepted(conf)
+        out["sets_resolved_fraction"] = float(
+            (dag.winners_per_set(fin_acc, 2) == 1).float().mean())
+        whole = convert.dag_state_to_numpy(gathered)
+        rounds = int(whole.base.round)
+    wall = time.perf_counter() - t0
+    if mesh.rank == 0:
+        out["leaves"] = workload.leaf_digests(whole)
+    return {**out, "rounds": rounds, "wall_s": wall,
+            "launches": read_launches(),
+            "launches_by_ingest_path": read_path_launches()}
+
+
+def mesh_fleet_rank(shape, device="cuda") -> dict:
+    """Part (d), in a rank: the policy grid's "off" point over a fleet
+    mesh of the ranks; the row with its point and tag."""
+    import torch
+
+    from go_avalanche_tpu_torch import fleet, workload
+    from go_avalanche_tpu_torch.config import AvalancheConfig
+    from go_avalanche_tpu_torch.obs.tags import config_tag
+    from go_avalanche_tpu_torch.parallel.runtime import rank_device
+    from go_avalanche_tpu_torch.parallel.sharded_fleet import make_fleet_mesh
+
+    case = workload.FLEET_CASES["policy_grid"]
+    dev = rank_device(device)
+    if dev.type == "cuda":
+        torch.cuda.set_device(dev)
+    cfg = AvalancheConfig(**case["knobs"])
+    reset_launches()
+    t0 = time.perf_counter()
+    res = fleet.run_fleet(case["model"], cfg, mesh=make_fleet_mesh(*shape),
+                          device=dev, **case["kw"])
+    return {"row": {"point": {"adversary_policy": "off"}, **res.summary(),
+                    "tag": config_tag(cfg)},
+            "wall_s": time.perf_counter() - t0, "launches": read_launches(),
+            "launches_by_ingest_path": read_path_launches()}
+
+
+def _add_launches(total: dict, paths: dict, row: dict) -> None:
+    for name, n in row["launches"].items():
+        total[name] += n
+    for name, by in row["launches_by_ingest_path"].items():
+        for path, n in by.items():
+            paths[name][path] += n
+
+
+def run_mesh(quick: bool = False, device="cuda") -> dict:
+    """Phase 13: the sharded drivers (`parallel/`), module docstring."""
+    import os
+    import subprocess
+    import tempfile
+
+    import torch
+    import torch.distributed as dist
+
+    from go_avalanche_tpu_torch import workload
+    from go_avalanche_tpu_torch.models import avalanche as av
+    from go_avalanche_tpu_torch.parallel import runtime, sharded
+    from go_avalanche_tpu_torch.parallel.mesh import make_mesh
+    from go_avalanche_tpu_torch.parallel.ranks import RankPool
+
+    shape = MESH_SHAPES["quick" if quick else "full"]
+    n, t, rounds = shape["nodes"], shape["txs"], shape["rounds"]
+    total = dict.fromkeys(read_launches(), 0)
+    paths = {k: {"fast": 0, "any": 0} for k in read_path_launches()}
+    work = tempfile.mkdtemp(prefix="chip_smoke_mesh_")
+    t_phase = time.perf_counter()
+
+    # (e), started first so that it overlaps the rest: two processes of
+    # the distributed smoke, gloo ranks sharing the card.
+    smoke = [subprocess.Popen(
+        [sys.executable, "-m", "go_avalanche_tpu_torch.parallel."
+         "distributed_smoke", "--init-method",
+         f"file://{os.path.join(work, 'smoke')}", "--world-size", "2",
+         "--rank", str(r), "--device", torch.device(device).type,
+         "--backend", "gloo"], stdout=subprocess.PIPE,
+        stderr=subprocess.PIPE, text=True) for r in range(2)]
+
+    # (a) a 1x1 mesh in this process, world 1 (NCCL on the card).
+    runtime.initialize_runtime(f"file://{os.path.join(work, 'world1')}",
+                               world_size=1, rank=0, device=device)
+    mesh = make_mesh(1, 1)
+    start, cfg = workload.mesh_flagship_state(n, t, device=device)
+    cfgs = {"vote_u8": cfg,
+            "vote_swar": dataclasses.replace(cfg, ingest_engine="swar32")}
+    part_a, finals = {}, {}
+    for name, c in cfgs.items():
+        sharded.run_scan_sharded(mesh, start, c, 1)    # warm-up, untimed
+        row = _mesh_scan(mesh, sharded.shard_state(start, mesh), c, rounds,
+                         device, digests=name == "vote_u8")
+        if row["launches"][name] != rounds or sum(
+                row["launches"].values()) != rounds:
+            raise AssertionError(f"(a) {name}: launches {row['launches']} "
+                                 f"!= one a round over {rounds}")
+        _add_launches(total, paths, row)
+        finals[name] = row
+        part_a[name] = {k: v for k, v in row.items()
+                        if k not in ("tiles", "final")}
+    assert_states_equal(finals["vote_u8"].pop("final"),
+                        finals["vote_swar"].pop("final"),
+                        "(a) the u8 and swar32 meshes")
+    if finals["vote_u8"]["telemetry"] != finals["vote_swar"]["telemetry"]:
+        raise AssertionError("(a): the u8 and swar32 telemetry differ")
+    state = av.round_step(start, cfg)[0]     # warm-up, untimed
+    reset_launches()
+    _synchronize(device)
+    t0 = time.perf_counter()
+    for _ in range(rounds):
+        state = av.round_step(state, cfg)[0]
+    _synchronize(device)
+    part_a["dense_phased_u8_ms_per_round"] = (
+        (time.perf_counter() - t0) * 1e3 / rounds)
+    del start, state
+    dist.destroy_process_group()
+    _empty_cache(device)
+
+    pool = RankPool(MESH_RANKS, work, threads=2)
+    try:
+        # (b) gloo ranks sharing the card: the tx-only contract.
+        runs = {(1, 1): {k: finals["vote_u8"][k]
+                         for k in ("tiles", "telemetry")}}
+        part_b = []
+        for mesh_shape in ((2, 1), (1, 2), (1, 4), (2, 2)):
+            t0 = time.perf_counter()
+            rows = pool.run(mesh_shape[0] * mesh_shape[1],
+                            "chip_smoke:mesh_flagship_rank", n, t, rounds,
+                            mesh_shape, "u8", device, timeout=MESH_TIMEOUT)
+            tiles = {}
+            for row in rows:
+                tiles.update(row["tiles"])
+                _add_launches(total, paths, row)
+                if row["launches"]["vote_u8"] != rounds:
+                    raise AssertionError(f"(b) {mesh_shape}: launches "
+                                         f"{row['launches']}")
+            runs[mesh_shape] = {"tiles": tiles,
+                                "telemetry": rows[0]["telemetry"]}
+            part_b.append({
+                "mesh": list(mesh_shape), "block": rows[0]["block"],
+                "ms_per_round": max(r["ms_per_round"] for r in rows),
+                "host_staged": sum(r["host_staged"] for r in rows),
+                "launches_by_ingest_path": rows[0]["launches_by_ingest_path"],
+                "wall_s": time.perf_counter() - t0})
+        for tx_only, twin in MESH_CONTRACT:
+            if runs[tx_only] != runs[twin]:
+                raise AssertionError(f"(b) mesh {tx_only} is not leaf-equal "
+                                     f"to its twin {twin}")
+        if runs[(2, 1)]["tiles"] == runs[(1, 1)]["tiles"]:
+            raise AssertionError("(b) the node-sharded trajectory equals "
+                                 "the 1x1 one: the shard fold is missing")
+
+        # (c) the JAX package's records.
+        part_c = []
+        for name, case in workload.SHARDED_CASES.items():
+            rows = pool.run(case["mesh"][0] * case["mesh"][1],
+                            "chip_smoke:sharded_record_rank", name, device,
+                            timeout=MESH_TIMEOUT)
+            want = workload.SHARDED_RECORDS[name]
+            got = rows[0]
+            for key in ("rounds", "leaves", "telemetry"):
+                if key in want and got[key] != want[key]:
+                    raise AssertionError(f"(c) {name}: {key} differs from "
+                                         f"the JAX package's record")
+            if case["model"] == "dag" and got["sets_resolved_fraction"] != 1.0:
+                raise AssertionError(f"(c) {name}: not every set settled")
+            for row in rows:
+                _add_launches(total, paths, row)
+            part_c.append({"case": name, "mesh": list(case["mesh"]),
+                           "rounds": got["rounds"],
+                           "wall_s": max(r["wall_s"] for r in rows),
+                           "leaves_checked": len(want["leaves"])})
+
+        # (d) the fleet over a 2-rank fleet mesh.
+        rows = pool.run(2, "chip_smoke:mesh_fleet_rank", (2, 1), device,
+                        timeout=MESH_TIMEOUT)
+        want = workload.FLEET_RECORDS["policy_grid"][0]
+        for row in rows:
+            if json.loads(json.dumps(row["row"])) != want:
+                raise AssertionError(f"(d) fleet row {row['row']} != the "
+                                     f"JAX row {want}")
+            _add_launches(total, paths, row)
+        part_d = {"mesh": [2, 1], "row": rows[0]["row"],
+                  "wall_s": max(r["wall_s"] for r in rows)}
+    finally:
+        pool.close()
+
+    # (e) the distributed smoke's two lines.
+    part_e = []
+    for p in smoke:
+        try:
+            out, err = p.communicate(timeout=MESH_TIMEOUT)
+        except subprocess.TimeoutExpired:
+            for q in smoke:
+                q.kill()
+            raise
+        if p.returncode != 0:
+            raise AssertionError(f"(e) distributed smoke rank failed "
+                                 f"({p.returncode}):\n{err}")
+        part_e.append(json.loads(out.strip().splitlines()[-1]))
+    if {d["polls"] for d in part_e} != {part_e[0]["polls"]}:
+        raise AssertionError(f"(e) ranks disagree: {part_e}")
+    return {"flagship": part_a, "contract": part_b, "records": part_c,
+            "fleet": part_d, "smoke": part_e, "launches": total,
+            "launches_by_ingest_path": paths,
+            "wall_s": time.perf_counter() - t_phase}
+
+
 def _empty_cache(device) -> None:
     import torch
 
@@ -2850,6 +3222,18 @@ def main() -> int:
                   "part_wall_s": host[part]["wall_s"], **label})
     emit({"phase": "host", "launches": host["launches"],
           "wall_s": time.perf_counter() - t0, **label})
+    torch.cuda.empty_cache()
+
+    # 13. the sharded drivers on one card: NCCL world 1, gloo ranks
+    # sharing it, the JAX package's records, the fleet, the smoke
+    mesh = run_mesh()
+    for part in ("flagship", "contract", "records", "fleet", "smoke"):
+        rows = mesh[part]
+        for r in (rows if isinstance(rows, list) else [rows]):
+            emit({"phase": "mesh", "part": part, **r, **label})
+    emit({"phase": "mesh", "launches": mesh["launches"],
+          "launches_by_ingest_path": mesh["launches_by_ingest_path"],
+          "wall_s": mesh["wall_s"], **label})
 
     emit({"kernels": [{
         "name": name,
@@ -2858,7 +3242,8 @@ def main() -> int:
         "replaces": replaces,
         "launches": (main_path["launches"][name]
                      + adversary["launches"][name]
-                     + host["launches"][name]),
+                     + host["launches"][name]
+                     + mesh["launches"][name]),
         "max_abs_err": max(worst[name], timing[name]["max_abs_err"]),
         "ms": timing[name]["ms"],
         "plain_ms": timing[name]["plain_ms"],

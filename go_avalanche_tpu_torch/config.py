@@ -1,12 +1,8 @@
 """Protocol and simulation configuration of the PyTorch port.
 
 The port's own copy of `go_avalanche_tpu.config`: the same field names,
-the same defaults and the same validation for everything this package
-runs, so one kwargs dict builds both configs.  Every field the port does
-not implement yet is still declared (with its reference default) and
-raises `NotImplementedError` at construction when set to anything else,
-naming the ROADMAP.md Queue 1 item that brings it — a silently ignored
-knob would mislabel the run.
+the same defaults and the same validation, so one kwargs dict builds
+both configs.
 """
 
 from __future__ import annotations
@@ -116,9 +112,8 @@ def fault_script_from_json(data) -> Tuple[Tuple, ...]:
 class AvalancheConfig:
     """All protocol constants of the reference plus simulator knobs.
 
-    Field meanings are those of `go_avalanche_tpu.config.AvalancheConfig`;
-    `_UNPORTED` lists the fields this package rejects at non-default
-    values.
+    Field meanings, defaults and validation rules are those of
+    `go_avalanche_tpu.config.AvalancheConfig`.
     """
 
     # --- protocol constants (reference parity) ---
@@ -337,7 +332,6 @@ class AvalancheConfig:
         self._validate_adversary()
         self._validate_round_engine()
         self._validate_async()
-        self._reject_unported()
 
     def _validate_async(self) -> None:
         """The reference's rules for the latency mode, the RTT matrix and
@@ -898,25 +892,6 @@ class AvalancheConfig:
                 f"context transforms run between the phases the "
                 f"kernel fuses — run policy studies on round_engine "
                 f"'phased'")
-
-    def _reject_unported(self) -> None:
-        for name, item in _UNPORTED.items():
-            default = _FIELD_DEFAULTS[name]
-            if getattr(self, name) != default:
-                raise NotImplementedError(
-                    f"{name}={getattr(self, name)!r}: the PyTorch port does "
-                    f"not implement this yet (ROADMAP.md Queue 1, {item}); "
-                    f"leave it at {default!r}")
-
-
-# Fields the port declares but does not run yet -> the ROADMAP.md
-# Queue 1 item that ports them.
-_UNPORTED = {
-    "fused_sharded_gossip": "item 15, sharded drivers",
-}
-
-_FIELD_DEFAULTS = {f.name: f.default
-                   for f in dataclasses.fields(AvalancheConfig)}
 
 
 def inner_round_config(cfg: AvalancheConfig) -> AvalancheConfig:

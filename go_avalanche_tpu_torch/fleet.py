@@ -39,9 +39,10 @@ With `cfg.trace_every > 0` every trial carries its own trace plane
 (`obs/trace.py`); the trials' ``[S, M]`` buffers stack into one
 ``[F, S, M]`` buffer with an ``[F]`` cursor (`FleetResult.trace`,
 decoded by `FleetResult.trace_records`), the reference's vmapped layout.
-`cfg.metrics_every` must be 0 here, as in the reference.  Out of scope,
-refused with `NotImplementedError` naming its ROADMAP.md Queue 1 item: a
-trial-sharded `mesh` (item 15).
+`cfg.metrics_every` must be 0 here, as in the reference.  A fleet
+`mesh` (`parallel/sharded_fleet.make_fleet_mesh`) lays the trial axis
+over the ranks: each runs F/D whole trials, and the gathered vectors are
+the dense fleet's, bit for bit; a one-rank mesh is the dense loop.
 """
 
 from __future__ import annotations
@@ -62,6 +63,7 @@ from go_avalanche_tpu_torch.models.backlog import stack_tree
 from go_avalanche_tpu_torch.obs import trace as obs_trace
 from go_avalanche_tpu_torch.obs.sink import _flatten_telemetry
 from go_avalanche_tpu_torch.ops import voterecord as vr
+from go_avalanche_tpu_torch.parallel import sharded_fleet
 
 FLEET_MODELS = ("snowball", "avalanche", "dag", "backlog")
 
@@ -476,13 +478,24 @@ class FleetResult:
         return out
 
 
-def _host(outcomes: List[TrialOutcome], name: str) -> Optional[np.ndarray]:
-    """The per-trial field `name` stacked to ``[F, ...]`` on the host;
+def _host(outcome: TrialOutcome, name: str) -> Optional[np.ndarray]:
+    """The stacked per-trial field `name` (``[F, ...]``) on the host;
     None when the trials do not carry it."""
-    leaves = [getattr(o, name) for o in outcomes]
-    if leaves[0] is None:
-        return None
-    return torch.stack(leaves).cpu().numpy()
+    leaf = getattr(outcome, name)
+    return None if leaf is None else leaf.cpu().numpy()
+
+
+def _dense_fleet(trial, keys: torch.Tensor):
+    """Every trial in turn: ``(TrialOutcome [F], telemetry [F, R],
+    trace [F, S, M] | None)``."""
+    outcomes, tels, traces = [], [], []
+    for key in keys:
+        outcome, tel, trace = trial(key)
+        outcomes.append(outcome)
+        tels.append(tel)
+        traces.append(trace)
+    return (stack_tree(outcomes), stack_tree(tels),
+            None if traces[0] is None else obs_trace.stack_fleet(traces))
 
 
 def run_fleet(
@@ -508,7 +521,10 @@ def run_fleet(
     trial is deterministic in (config, seed, fleet) and equals the
     reference's trial i.  `contested` (avalanche only) draws per-node
     50/50 priors from each trial's key; `yes_fraction` is the snowball
-    prior; `window` (backlog only) is the working-set slot count."""
+    prior; `window` (backlog only) is the working-set slot count.
+    `mesh` (`parallel.sharded_fleet.make_fleet_mesh`, every rank calls
+    this) runs F/D trials on each rank and gathers the vectors; F must
+    divide by the rank count, and a one-rank mesh is the dense loop."""
     if model not in FLEET_MODELS:
         raise ValueError(f"fleet models are {', '.join(FLEET_MODELS)}, "
                          f"got {model!r}")
@@ -552,56 +568,67 @@ def run_fleet(
     if model == "dag" and n_txs % conflict_size:
         raise ValueError(f"n_txs ({n_txs}) must divide by conflict_size "
                          f"({conflict_size})")
-    if mesh is not None:
-        raise NotImplementedError(
-            "run_fleet(mesh=...): the trial-sharded fleet is not ported "
-            "yet (ROADMAP.md Queue 1, item 15, the sharded fleet); "
-            "leave mesh at None")
+    sharded = sharded_fleet.mesh_devices(mesh) > 1
+    if sharded:
+        sharded_fleet.check_fleet_divisible(fleet, mesh)
     dev = av._device(device)
     keys = prng.split(prng.key(seed, dev), fleet)
     trial = _trial_fn(model, cfg, int(n_nodes), int(n_txs), int(n_rounds),
                       int(conflict_size), float(yes_fraction),
                       bool(contested), int(window), dev)
-    outcomes, tels, traces = [], [], []
-    for i in range(fleet):
-        outcome, tel, trace = trial(keys[i])
-        outcomes.append(outcome)
-        tels.append(tel)
-        traces.append(trace)
-    violations = _host(outcomes, "violation")
-    settled = _host(outcomes, "settled")
-    stalled = _host(outcomes, "stalled")
-    finality = _host(outcomes, "finality_round")
-    frac = _host(outcomes, "finalized_fraction")
+    counts = None
+    if sharded:
+        outcome, counts, tels, traces = sharded_fleet.fleet_driver_program(
+            mesh, trial)(keys)
+    else:
+        outcome, tels, traces = _dense_fleet(trial, keys)
+    violations = _host(outcome, "violation")
+    settled = _host(outcome, "settled")
+    stalled = _host(outcome, "stalled")
+    finality = _host(outcome, "finality_round")
+    frac = _host(outcome, "finalized_fraction")
     cut_windows = cut_split = spike_windows = region_windows = None
-    if outcomes[0].cut_start is not None:
-        cut_windows = np.stack([_host(outcomes, "cut_start"),
-                                _host(outcomes, "cut_end")], axis=-1)
-        cut_split = _host(outcomes, "cut_split")
-        spike_windows = np.stack([_host(outcomes, "spike_start"),
-                                  _host(outcomes, "spike_end"),
-                                  _host(outcomes, "spike_extra")], axis=-1)
-        region_windows = np.stack([_host(outcomes, "region_start"),
-                                   _host(outcomes, "region_end"),
-                                   _host(outcomes, "region_cluster")],
+    if outcome.cut_start is not None:
+        cut_windows = np.stack([_host(outcome, "cut_start"),
+                                _host(outcome, "cut_end")], axis=-1)
+        cut_split = _host(outcome, "cut_split")
+        spike_windows = np.stack([_host(outcome, "spike_start"),
+                                  _host(outcome, "spike_end"),
+                                  _host(outcome, "spike_extra")], axis=-1)
+        region_windows = np.stack([_host(outcome, "region_start"),
+                                   _host(outcome, "region_end"),
+                                   _host(outcome, "region_cluster")],
                                   axis=-1)
+    if counts is not None:
+        # The psum'd counts against the gathered per-trial vectors: a
+        # mismatch means the gather reordered or dropped a trial.
+        got = {name: int(getattr(counts, name))
+               for name in sharded_fleet.FleetCounts._fields}
+        want = {"trials": fleet, "violations": int(violations.sum()),
+                "settled": int(settled.sum()),
+                "stalled": int(stalled.sum())}
+        if got != want:
+            raise RuntimeError(
+                f"sharded-fleet summary counts diverged from the "
+                f"gathered per-trial vectors: psum'd {got} vs gathered "
+                f"{want} — the trial axis lost its identity "
+                f"(parallel/sharded_fleet.py)")
     lat_percentiles = arrived = None
-    if outcomes[0].lat_p50 is not None:
-        lat_percentiles = np.stack([_host(outcomes, "lat_p50"),
-                                    _host(outcomes, "lat_p99"),
-                                    _host(outcomes, "lat_p999")], axis=-1)
-        arrived = _host(outcomes, "arrived")
+    if outcome.lat_p50 is not None:
+        lat_percentiles = np.stack([_host(outcome, "lat_p50"),
+                                    _host(outcome, "lat_p99"),
+                                    _host(outcome, "lat_p999")], axis=-1)
+        arrived = _host(outcome, "arrived")
 
     res = FleetResult(
         model=model, fleet=fleet, rounds=n_rounds,
         violations=violations, settled=settled, finality_round=finality,
         finalized_fraction=frac, stalled=stalled,
-        telemetry=convert._np_tree(stack_tree(tels)),
+        telemetry=convert._np_tree(tels),
         cut_windows=cut_windows, cut_split=cut_split,
         spike_windows=spike_windows, region_windows=region_windows,
         lat_percentiles=lat_percentiles, arrived=arrived,
-        trace=(None if traces[0] is None else obs_trace.to_host(
-            obs_trace.stack_fleet(traces))),
+        trace=None if traces is None else obs_trace.to_host(traces),
         p_violation=float(violations.mean()),
         violation_ci=wilson_interval(int(violations.sum()), fleet),
         p_settled=float(settled.mean()),

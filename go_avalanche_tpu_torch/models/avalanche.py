@@ -59,6 +59,11 @@ from go_avalanche_tpu_torch.ops.sampling import draw_peers
 span = torch.profiler.record_function
 
 
+def popcnt_plane(x: torch.Tensor) -> torch.Tensor:
+    """Per-element popcount of a uint8 plane, as int32."""
+    return popcount8(x).to(torch.int32)
+
+
 class AvalancheSimState(NamedTuple):
     """Whole-network state; the reference's leaves."""
 
@@ -357,8 +362,7 @@ def round_step(
             records, changed = pallas_vote.register_packed_votes_fused(
                 state.records, yes_pack, consider_pack, cfg.k, cfg,
                 update_mask=polled)
-            votes_applied = (popcount8(consider_pack).to(torch.int32)
-                             * polled).sum()
+            votes_applied = (popcnt_plane(consider_pack) * polled).sum()
         else:
             thresh = math.ceil(cfg.alpha * cfg.k)
             yes_cnt = popcount8(yes_pack & consider_pack)

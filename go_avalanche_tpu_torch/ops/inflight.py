@@ -196,6 +196,30 @@ def packed_polled_width(t: int, tx_shards: int = 1) -> int:
     return tx_shards * (-(-(t // tx_shards) // 8))
 
 
+def repack_polled_for_shards(ring: Optional[InflightState], t: int,
+                             tx_shards: int) -> Optional[InflightState]:
+    """Re-lay a packed ring built for one shard for a tx-sharded mesh.
+
+    `init` packs the poll-mask plane with the one-shard layout
+    (``ceil(t/8)`` bytes); on a mesh whose per-shard width is not a
+    multiple of 8 each tx shard packs its own columns into
+    ``ceil(t_local/8)`` bytes (`packed_polled_width`).  The input must
+    carry the one-shard layout.  A no-op where the two layouts are the
+    same (``t/tx_shards`` a multiple of 8), for an unpacked ring (the
+    walk engines) and for None.  The test is on alignment, not byte
+    width: at t=26 over 2 shards both layouts take 4 bytes yet place
+    the columns differently."""
+    if ring is None or ring.polled.dtype != torch.uint8:
+        return ring
+    if tx_shards == 1 or (t // tx_shards) % 8 == 0:
+        return ring
+    pw = packed_polled_width(t, tx_shards)
+    lead = tuple(ring.polled.shape[:-1])
+    unpacked = unpack_bool_plane(ring.polled, t)
+    blocks = unpacked.reshape(*lead, tx_shards, t // tx_shards)
+    return ring._replace(polled=pack_bool_plane(blocks).reshape(*lead, pw))
+
+
 def init_ring(cfg: AvalancheConfig, rows: int, t: Optional[int] = None,
               device="cuda") -> InflightState:
     """Empty ring on `device`: every slot pre-expired (lat = sentinel)

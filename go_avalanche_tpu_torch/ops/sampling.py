@@ -50,29 +50,41 @@ def cumsum_f32(x: torch.Tensor) -> torch.Tensor:
     return out.reshape(*x.shape[:-1], blocks * _SCAN_BLOCK)[..., :n]
 
 
+def _self_ids(rows: int, id_offset: int, device) -> torch.Tensor:
+    """int32 global ids of a block's rows: ``id_offset + arange(rows)``."""
+    return torch.arange(rows, dtype=torch.int32, device=device) + id_offset
+
+
 def sample_peers_uniform(key: torch.Tensor, n_nodes: int, k: int,
                          exclude_self: bool = True,
-                         with_replacement: bool = True) -> torch.Tensor:
-    """Uniform k-peer sample per node; int32 ``[n_nodes, k]``.  With
-    `exclude_self` node i never draws i: draws come from
-    [0, n_nodes - 1) and values >= i shift up by one.  Without
-    replacement the k draws of a row are distinct
-    (`sample_peers_distinct`)."""
+                         with_replacement: bool = True,
+                         n_local: int | None = None,
+                         id_offset: int = 0) -> torch.Tensor:
+    """Uniform k-peer sample per node; int32 ``[n_local or n_nodes, k]``
+    of global ids in [0, n_nodes).  With `exclude_self` node i never
+    draws i: draws come from [0, n_nodes - 1) and values >= i shift up
+    by one.  Without replacement the k draws of a row are distinct
+    (`sample_peers_distinct`).  `n_local` / `id_offset` draw for one
+    shard's rows only, the global rows [id_offset, id_offset +
+    n_local)."""
     if not with_replacement:
-        return sample_peers_distinct(key, n_nodes, k, exclude_self)
+        return sample_peers_distinct(key, n_nodes, k, exclude_self,
+                                     n_local, id_offset)
     if exclude_self and n_nodes < 2:
         raise ValueError("exclude_self requires at least 2 nodes")
+    rows = n_nodes if n_local is None else n_local
     if not exclude_self:
-        return prng.randint(key, (n_nodes, k), 0, n_nodes)
-    self_ids = torch.arange(n_nodes, dtype=torch.int32,
-                            device=key.device)[:, None]
-    draws = prng.randint(key, (n_nodes, k), 0, n_nodes - 1)
+        return prng.randint(key, (rows, k), 0, n_nodes)
+    self_ids = _self_ids(rows, id_offset, key.device)[:, None]
+    draws = prng.randint(key, (rows, k), 0, n_nodes - 1)
     return draws + (draws >= self_ids).to(torch.int32)
 
 
 def sample_peers_distinct(key: torch.Tensor, n_nodes: int, k: int,
-                          exclude_self: bool = True) -> torch.Tensor:
-    """k distinct peers per node; int32 ``[n_nodes, k]``.  Draw j takes
+                          exclude_self: bool = True,
+                          n_local: int | None = None,
+                          id_offset: int = 0) -> torch.Tensor:
+    """k distinct peers per node; int32 ``[rows, k]``.  Draw j takes
     a uniform rank in the remaining pool and shifts it past every id
     already taken, in ascending order, which maps the rank to the
     rank-th smallest untaken id."""
@@ -82,14 +94,15 @@ def sample_peers_distinct(key: torch.Tensor, n_nodes: int, k: int,
             f"cannot draw {k} distinct peers from {n_nodes} nodes"
             + (" excluding self" if exclude_self else ""))
     dev = key.device
-    taken = torch.full((n_nodes, k + 1), n_nodes, dtype=torch.int32,
+    rows = n_nodes if n_local is None else n_local
+    taken = torch.full((rows, k + 1), n_nodes, dtype=torch.int32,
                        device=dev)
     if exclude_self:
-        taken[:, 0] = torch.arange(n_nodes, dtype=torch.int32, device=dev)
+        taken[:, 0] = _self_ids(rows, id_offset, dev)
     keys = prng.split(key, k)
     out = []
     for j in range(k):
-        cand = prng.randint(keys[j], (n_nodes,), 0, n_nodes - excl - j)
+        cand = prng.randint(keys[j], (rows,), 0, n_nodes - excl - j)
         srt = torch.sort(taken, dim=1).values
         for i in range(j + excl):
             cand = cand + (cand >= srt[:, i]).to(torch.int32)
@@ -144,12 +157,14 @@ def cluster_ids(ids: torch.Tensor, n_clusters: int,
 
 def sample_peers_clustered(key: torch.Tensor, weights: torch.Tensor,
                            n_rows: int, k: int, n_clusters: int,
-                           locality: float) -> torch.Tensor:
+                           locality: float,
+                           id_offset: int = 0) -> torch.Tensor:
     """Clustered-topology k-peer sample; int32 ``[n_rows, k]``.  A draw
     lands in the drawing node's own cluster with weight `locality` and
     spreads the rest evenly over the other clusters, times the base
     `weights`; one float32 CDF per source cluster (``[C, N]``).  With
-    replacement; callers abstain self-draws."""
+    replacement; callers abstain self-draws.  Row i is the node with
+    global id ``id_offset + i``."""
     n_nodes = weights.shape[0]
     dev = weights.device
     c_ids = torch.arange(n_clusters, dtype=torch.int32, device=dev)
@@ -163,7 +178,7 @@ def sample_peers_clustered(key: torch.Tensor, weights: torch.Tensor,
                        torch.tensor(spread, dtype=torch.float32, device=dev)
                        ) * weights.to(torch.float32)[None, :]
     cdf = cumsum_f32(w_cn)
-    rows_cluster = cluster_ids(torch.arange(n_rows, device=dev),
+    rows_cluster = cluster_ids(_self_ids(n_rows, id_offset, dev),
                                n_clusters, n_nodes).long()
     u = (prng.uniform(key, (n_rows, k))
          * cdf[:, -1][rows_cluster][:, None])
@@ -174,36 +189,43 @@ def sample_peers_clustered(key: torch.Tensor, weights: torch.Tensor,
     return peers
 
 
-def self_sample_mask(peers: torch.Tensor) -> torch.Tensor:
-    """Bool ``[n, k]``: True where row i drew node i itself."""
-    self_ids = torch.arange(peers.shape[0], dtype=peers.dtype,
-                            device=peers.device)[:, None]
+def self_sample_mask(peers: torch.Tensor, id_offset: int = 0) -> torch.Tensor:
+    """Bool ``[n, k]``: True where row i drew its own node, global id
+    ``id_offset + i``."""
+    self_ids = _self_ids(peers.shape[0], id_offset,
+                         peers.device).to(peers.dtype)[:, None]
     return peers == self_ids
 
 
 def draw_peers(key: torch.Tensor, cfg, latency_weight: torch.Tensor,
-               alive: torch.Tensor, n_nodes: int) -> tuple:
+               alive: torch.Tensor, n_nodes: int, n_local: int | None = None,
+               id_offset: int = 0) -> tuple:
     """The per-round peer draw of every multi-target round, dispatched
     as the reference dispatches it: stake-weighted committee draws
     (`stake.stake_enabled`, the stake folded into `latency_weight`
     at init; the hierarchical search for ``n_clusters > 1``, the same
     ids), the clustered topology, latency-weighted draws, or uniform
-    ones.  Returns ``(peers [N, k], self_draw)``: `self_draw` is the
+    ones.  Returns ``(peers [rows, k], self_draw)``: `self_draw` is the
     bool mask of draws that landed on the drawing node in the weighted,
     clustered and stake families (callers abstain them) and None in the
-    uniform family, where exclusion is exact."""
+    uniform family, where exclusion is exact.  `n_local` / `id_offset`
+    draw for one shard's rows, global ids [id_offset, id_offset +
+    n_local), against the global `latency_weight` and `alive`."""
+    rows = n_nodes if n_local is None else n_local
     staked = stake.stake_enabled(cfg)
     if staked or cfg.n_clusters > 1 or cfg.weighted_sampling:
         w = latency_weight * alive.to(torch.float32)
         if staked and cfg.n_clusters > 1:
-            peers = sample_peers_hierarchical(key, w, n_nodes, cfg.k,
+            peers = sample_peers_hierarchical(key, w, rows, cfg.k,
                                               cfg.n_clusters)
         elif staked or cfg.n_clusters == 1:
-            peers = sample_peers_weighted(key, w, n_nodes, cfg.k)
+            peers = sample_peers_weighted(key, w, rows, cfg.k)
         else:
-            peers = sample_peers_clustered(key, w, n_nodes, cfg.k,
+            peers = sample_peers_clustered(key, w, rows, cfg.k,
                                            cfg.n_clusters,
-                                           cfg.cluster_locality)
-        return peers, self_sample_mask(peers)
+                                           cfg.cluster_locality,
+                                           id_offset=id_offset)
+        return peers, self_sample_mask(peers, id_offset)
     return sample_peers_uniform(key, n_nodes, cfg.k, cfg.exclude_self,
-                                cfg.sample_with_replacement), None
+                                cfg.sample_with_replacement,
+                                n_local=n_local, id_offset=id_offset), None

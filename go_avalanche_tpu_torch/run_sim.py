@@ -19,9 +19,16 @@ windowed record; `avalanche` — [nodes, txs] multi-target with gossip;
 txs streamed through a `--slots` working-set window; `streaming_dag` —
 `--txs` pending txs in `--conflict-size` conflict sets streamed through a
 `--slots`-set window; `node_stream` — a `--registry-nodes` population
-streamed through an `--active-nodes` window.  Flags of modules not ported
-yet (`--mesh`, `--donate`, `--fleet-shape`: ROADMAP.md Queue 1 item 15;
-`--audit`, `--report-memory`: item 17) raise `NotImplementedError`.
+streamed through an `--active-nodes` window.
+
+``--mesh A,B`` runs the sharded drivers (`parallel/`) for `avalanche`
+and `dag` over A*B ranks, and with ``--fleet`` lays the trial axis over
+them; start the ranks with ``torchrun --nproc-per-node A*B -m
+go_avalanche_tpu_torch.run_sim ...`` (``--backend gloo`` when they share
+one card).  ``--mesh 1,1`` runs in one process.  Only rank 0 prints the
+result and writes the sinks.  `--mesh` with the streaming models
+(ROADMAP.md Queue 1 item 15), and `--fleet-shape`, `--audit`,
+`--report-memory` (item 17) raise `NotImplementedError`.
 """
 
 from __future__ import annotations
@@ -49,9 +56,8 @@ from go_avalanche_tpu_torch.utils import metrics
 
 # Flags of ROADMAP.md Queue 1 items not ported yet -> the item.
 _UNPORTED_FLAGS = {
-    "mesh": "item 15, sharded drivers",
-    "donate": "item 15, sharded drivers",
-    "fleet_shape": "item 15, sharded drivers (the knee-table fleet sizing)",
+    "fleet_shape": "item 17, resource and analysis tooling (the TPU "
+                   "VMEM knee table that sizes the fleet)",
     "audit": "item 17, resource and analysis tooling",
     "report_memory": "item 17, resource and analysis tooling",
 }
@@ -209,6 +215,14 @@ def _key(args):
     return prng.key(args.seed, args.device_resolved)
 
 
+def _parse_mesh(mesh_arg: str):
+    """`--mesh N,T` -> a (nodes, txs) mesh over the running ranks."""
+    from go_avalanche_tpu_torch.parallel.mesh import make_mesh
+
+    n_shards, t_shards = (int(x) for x in mesh_arg.split(","))
+    return make_mesh(n_node_shards=n_shards, n_tx_shards=t_shards)
+
+
 def run_snowball(args, cfg: AvalancheConfig) -> Dict:
     from go_avalanche_tpu_torch.models import snowball as sb
     from go_avalanche_tpu_torch.ops import voterecord as vr
@@ -269,6 +283,8 @@ def _emit_trace(args, cfg: AvalancheConfig, buf, fleet: bool = False
             return wrote
         return obs_trace.write_trace(sink, buf)
 
+    if not args.lead:
+        return {}
     if args.trace_out:
         with obs.metrics_sink(args.trace_out,
                               tag=obs.config_tag(cfg)) as sink:
@@ -298,7 +314,15 @@ def run_avalanche(args, cfg: AvalancheConfig) -> Dict:
                     init_pref=init_pref, device=dev)
     state = av.with_trace(state, cfg, args.max_rounds)
     extra = {}
-    if args.check_invariants:
+    if args.mesh:
+        from go_avalanche_tpu_torch.parallel import sharded
+
+        mesh = _parse_mesh(args.mesh)
+        state = sharded.run_sharded(mesh, sharded.shard_state(state, mesh),
+                                    cfg, max_rounds=args.max_rounds,
+                                    donate=args.donate)
+        state = sharded.gather_state(state, mesh)
+    elif args.check_invariants:
         state, extra["invariant_checks"] = _watchdog_run(
             state, cfg, args.max_rounds, av.round_step, av.all_settled)
     else:
@@ -326,7 +350,15 @@ def run_dag(args, cfg: AvalancheConfig) -> Dict:
     state = dag.init(_key(args), args.nodes, conflict_set, cfg, device=dev)
     state = dag.with_trace(state, cfg, args.max_rounds)
     extra = {}
-    if args.check_invariants:
+    if args.mesh:
+        from go_avalanche_tpu_torch.parallel import sharded_dag
+
+        mesh = _parse_mesh(args.mesh)
+        state = sharded_dag.run_sharded_dag(
+            mesh, sharded_dag.shard_dag_state(state, mesh), cfg,
+            max_rounds=args.max_rounds, donate=args.donate)
+        state = sharded_dag.gather_dag_state(state, mesh)
+    elif args.check_invariants:
         state, extra["invariant_checks"] = _watchdog_run(
             state, cfg, args.max_rounds, dag.round_step, dag.settled)
     else:
@@ -492,20 +524,25 @@ def run_fleet_mode(args, cfg: AvalancheConfig) -> Dict:
     from go_avalanche_tpu_torch.obs.sink import active_sink
 
     sink = active_sink()
+    mesh = args.fleet_mesh
+    mesh_extra = ({"fleet_mesh": args.mesh, "fleet_devices": mesh.size}
+                  if mesh is not None else {})
     common = dict(fleet=args.fleet, n_nodes=args.nodes, n_txs=args.txs,
                   n_rounds=args.max_rounds, seed=args.seed,
                   conflict_size=args.conflict_size,
                   yes_fraction=args.yes_fraction,
                   contested=args.contested,
-                  window=args.slots, device=args.device_resolved)
+                  window=args.slots, mesh=mesh,
+                  device=args.device_resolved)
     if args.phase_grid_parsed is not None:
         rows = fl.run_phase_grid(args.model, cfg,
                                  args.phase_grid_parsed, sink=sink,
                                  **common)
         return {"fleet": args.fleet, "phase_points": len(rows),
-                "grid_rows": rows}
+                "grid_rows": rows, **mesh_extra}
     res = fl.run_fleet(args.model, cfg, **common)
     row = res.summary()
+    row.update(mesh_extra)
     realized = res.realizations()
     if realized:
         row["realizations"] = realized
@@ -821,6 +858,11 @@ def parse_args(argv=None):
                              "strategy.  Malformed grids (non-numeric "
                              "entries, unknown axes) are rejected HERE "
                              "at the parser")
+    parser.add_argument("--backend", choices=["nccl", "gloo"], default=None,
+                        help="with --mesh under torchrun: the process "
+                             "group's backend (default NCCL on CUDA, one "
+                             "card per rank; gloo on the CPU).  Ranks "
+                             "sharing one card need 'gloo'")
     parser.add_argument("--mesh", type=str, default=None, metavar="N,T",
                         help="run the sharded backend over an "
                              "(n node shards, t tx shards) device mesh "
@@ -1004,6 +1046,20 @@ def parse_args(argv=None):
                 f"{flag}: the PyTorch port does not implement this yet "
                 f"(ROADMAP.md Queue 1, {item})")
     args.device_resolved = _device(args.device)
+    if args.mesh and "WORLD_SIZE" in os.environ:
+        # Started by torchrun: join its process group, each rank on its
+        # own card (or the shared one, under gloo).
+        from go_avalanche_tpu_torch.parallel import runtime
+
+        runtime.initialize_runtime("env://", device=args.device,
+                                   backend=args.backend)
+    if args.mesh:
+        from go_avalanche_tpu_torch.parallel.runtime import rank_device
+
+        args.device_resolved = rank_device(args.device_resolved)
+    from go_avalanche_tpu_torch.parallel.mesh import world
+
+    args.lead = world()[1] == 0
 
     # Adversary-knob validation: mirror the config's inert-knob
     # rejections at the parser (the PR 5 rule — the _validate_adversary
@@ -1074,6 +1130,11 @@ def parse_args(argv=None):
                 "--adversary equivocate draws per-draw coin streams "
                 "the fused program cannot replay in-kernel; run it on "
                 "the phased engine")
+        if args.mesh:
+            parser.error(
+                "--round-engine megakernel is the single-device dense "
+                "lane; the --mesh drivers keep the phased path "
+                "(parallel/sharded.py rejects the knob)")
         if args.fleet is not None:
             parser.error(
                 "--round-engine megakernel is the single-sim dense "
@@ -1086,12 +1147,32 @@ def parse_args(argv=None):
 
     # Fleet-mode validation: everything parser-level (the PR 5 rule).
     args.phase_grid_parsed = None
+    args.fleet_mesh = None
     if args.fleet is not None:
         if args.fleet < 1:
             parser.error(f"--fleet must be >= 1 trials, got {args.fleet}")
         if args.model not in ("snowball", "avalanche", "dag", "backlog"):
             parser.error(f"--fleet supports models snowball/avalanche/"
                          f"dag/backlog, not {args.model}")
+        if args.mesh:
+            # --mesh A,B lays the trial axis over A*B ranks, each
+            # running F/(A*B) whole sims (parallel/sharded_fleet.py).
+            from go_avalanche_tpu_torch.parallel import sharded_fleet
+
+            try:
+                a_s, b_s = args.mesh.split(",")
+                args.fleet_mesh = sharded_fleet.make_fleet_mesh(
+                    int(a_s), int(b_s))
+                sharded_fleet.check_fleet_divisible(args.fleet,
+                                                    args.fleet_mesh)
+            except ValueError as e:
+                parser.error(f"--fleet x --mesh: {e}")
+            if args.donate:
+                parser.error(
+                    "--donate tunes the sharded single-sim drivers; "
+                    "the sharded fleet driver's input is the per-trial "
+                    "key plane (nothing worth donating — the bench "
+                    "lane's state-scan program donates instead)")
         if args.check_invariants:
             parser.error("--check-invariants steps ONE sim on the host; "
                          "it has no per-trial identity under --fleet")
@@ -1197,17 +1278,35 @@ def parse_args(argv=None):
                          f"occupancy fractions (e.g. 0.7,0.9), got "
                          f"{args.arrival_backpressure!r}")
 
+    if (args.mesh and args.fleet is None
+            and args.model not in ("avalanche", "dag", "backlog",
+                                   "streaming_dag", "node_stream")):
+        # Under --fleet the mesh shards the trial axis and every trial
+        # runs the dense per-trial program, so every fleet model
+        # composes; the single-sim restriction applies without --fleet.
+        parser.error(f"--mesh supports models avalanche/dag/backlog/"
+                     f"streaming_dag/node_stream, not {args.model}")
+    if args.donate and not args.mesh:
+        parser.error("--donate is a --mesh option (the single-chip "
+                     "avalanche path already donates unconditionally)")
     if args.chunk and args.model != "streaming_dag":
         parser.error("--chunk is a streaming_dag option")
     if args.chunk < 0:
         parser.error("--chunk must be >= 0 (0, the default, disables "
                      "chunking)")
+    if args.chunk and args.mesh:
+        parser.error("--chunk and --mesh are mutually exclusive (the "
+                     "sharded backend has its own dispatch loop)")
     if args.checkpoint and not args.chunk:
         parser.error("--checkpoint requires --chunk")
     if args.check_invariants:
         if args.model not in ("snowball", "avalanche", "dag"):
             parser.error(f"--check-invariants supports models snowball/"
                          f"avalanche/dag, not {args.model}")
+        if args.mesh:
+            parser.error("--check-invariants is a dense debug mode (the "
+                         "sharded while-loop drivers never surface "
+                         "intermediate states to the host)")
     # Trace-plane validation (the PR 5 rule: everything parser-level).
     if args.trace_every < 0:
         parser.error("--trace-every must be >= 0 (0 disables the "
@@ -1242,6 +1341,16 @@ def parse_args(argv=None):
                          f"in-graph tap; the family models "
                          f"(slush/snowflake) predate it — got "
                          f"{args.model}")
+        if (args.mesh and args.fleet is None
+                and (args.metrics_every or not args.trace_every)):
+            # Fleet runs stream phase rows host-side whatever the mesh,
+            # so the sharded-driver tap restriction applies only
+            # without --fleet.
+            parser.error("--metrics is the dense in-graph tap; sharded "
+                         "drivers stream stacked telemetry host-side "
+                         "(obs.MetricsSink.write_stacked) — or use "
+                         "--trace-every: the trace plane is replicated "
+                         "and legal under shard_map")
         if args.metrics_every == 0 and (args.trace_every == 0
                                         or args.trace_out):
             # The historic default: a sink implies the callback tap at
@@ -1299,6 +1408,12 @@ def parse_args(argv=None):
                 margin_base=args.adversary_margin)
         except ValueError as e:
             parser.error(f"--phase-grid: {e}")
+    if args.mesh and args.fleet is None and args.model not in ("avalanche",
+                                                               "dag"):
+        raise NotImplementedError(
+            f"--mesh with --model {args.model}: the sharded streaming "
+            f"drivers (backlog, streaming_dag, node_stream) are not "
+            f"ported yet (ROADMAP.md Queue 1, item 15)")
     try:
         cfg = build_config(args)
     except (ValueError, TypeError) as e:
@@ -1318,7 +1433,8 @@ def parse_args(argv=None):
 
 def main(argv=None) -> Dict:
     """Run the flags' simulation, print its result (one JSON line with
-    ``--json``) and return the result dict."""
+    ``--json``; rank 0 only under ``--mesh``) and return the result
+    dict."""
     args, cfg = parse_args(argv)
     if args.fleet is not None:
         runner = run_fleet_mode
@@ -1331,7 +1447,7 @@ def main(argv=None) -> Dict:
 
     ctx = (_profile(args.trace, args.device_resolved) if args.trace
            else contextlib.nullcontext())
-    if args.metrics:
+    if args.metrics and args.lead:
         from go_avalanche_tpu_torch import obs
 
         sink_ctx = obs.metrics_sink(
@@ -1367,6 +1483,8 @@ def main(argv=None) -> Dict:
         **extra,
         "elapsed_s": round(time.perf_counter() - t0, 3),
     }
+    if not args.lead:
+        return result
     if args.json:
         print(json.dumps(result))
     else:

@@ -29,6 +29,13 @@
              policy axis at 4096 x 1024, each with the JAX package's rows
              (`FLEET_RECORDS`) and a traced run's per-trial trace digest
              (`FLEET_TRACE_RECORDS`);
+  sharded  — the sharded drivers' cases (`SHARDED_CASES`): the flagship
+             at 4096 x 4096 with 20% byzantine (`mesh_flagship_state`),
+             5 rounds of `run_scan_sharded` on meshes 1x1, 2x1 and 4x1,
+             and the DAG baseline at 2048 x 2048 through
+             `run_sharded_dag` to settlement on 1x1 and 2x1, each with
+             the JAX package's sha256 of every final leaf and of the
+             telemetry (`SHARDED_RECORDS`, `leaf_digests`);
   DAG      — `benchmarks/baseline_suite.config2_dag`, BASELINE.json's
              "Avalanche DAG: 10k nodes, 10k-tx UTXO conflict graph":
              10000 nodes x 10000 txs in 2-tx double-spend sets
@@ -80,6 +87,7 @@ import hashlib
 import json
 from typing import Dict, Optional, Tuple
 
+import numpy as np
 import torch
 
 from go_avalanche_tpu_torch import prng
@@ -980,3 +988,409 @@ def trace_jsonl_digest(records) -> str:
     each."""
     text = "".join(json.dumps(r, sort_keys=True) + "\n" for r in records)
     return hashlib.sha256(text.encode()).hexdigest()
+
+
+def mesh_flagship_state(nodes: int, txs: int, device="cuda", **knobs
+                        ) -> Tuple[av.AvalancheSimState, AvalancheConfig]:
+    """``(state, cfg)`` of the sharded drivers' case: the flagship config
+    with 20% byzantine nodes (flipping every answer, so that the peer
+    draws matter), seeded with ``key(0)`` on `device`; `knobs` replace
+    config fields (the ingest engine)."""
+    cfg = dataclasses.replace(flagship_config(txs), byzantine_fraction=0.2,
+                              **knobs)
+    return av.init(prng.key(0, device), nodes, txs, cfg, device=device), cfg
+
+
+def leaf_digests(tree, prefix: str = "") -> Dict[str, str]:
+    """sha256 of every array leaf of a numpy state tree (the layout of
+    `convert.state_to_numpy` and its twins), keyed by its dotted field
+    path; None leaves and int statics are skipped, a trace buffer gives
+    its data and cursor.  A dict of numpy arrays (stacked telemetry)
+    works too."""
+    if tree is None or isinstance(tree, int):
+        return {}
+    if isinstance(tree, dict):
+        items = tree.items()
+    elif hasattr(tree, "_fields"):
+        items = ((f, getattr(tree, f)) for f in tree._fields)
+    elif hasattr(tree, "cursor"):
+        items = (("data", tree.data), ("cursor", tree.cursor))
+    else:
+        arr = np.ascontiguousarray(np.asarray(tree))
+        return {prefix: hashlib.sha256(
+            f"{arr.dtype.str}{arr.shape}".encode() + arr.tobytes()
+        ).hexdigest()}
+    out = {}
+    for name, leaf in items:
+        out.update(leaf_digests(leaf, f"{prefix}.{name}" if prefix else name))
+    return out
+
+
+# The sharded drivers' chip cases (`chip_smoke.py` phase 13, part c).
+SHARDED_CASES = {
+    **{f"flagship_{a}x1": dict(model="avalanche", mesh=(a, 1), nodes=4096,
+                               txs=4096, rounds=5) for a in (1, 2, 4)},
+    **{f"dag_{a}x1": dict(model="dag", mesh=(a, 1), nodes=2048, txs=2048,
+                          max_rounds=100) for a in (1, 2)},
+}
+
+
+# `SHARDED_RECORDS`: the JAX package's results for `SHARDED_CASES` on the
+# CPU over 8 virtual devices (``--xla_force_host_platform_device_count=8``):
+# for each case, with mesh = go_avalanche_tpu.parallel.mesh.make_mesh(
+# a, b, devices=jax.devices()[:a * b]), the flagship cases run
+#     cfg = AvalancheConfig(finalization_score=0x7FFE, k=8, gossip=False,
+#                           max_element_poll=4096, byzantine_fraction=0.2)
+#     state = avalanche.init(jax.random.key(0), nodes, txs, cfg)
+#     final, tel = sharded.run_scan_sharded(
+#         mesh, sharded.shard_state(state, mesh), cfg, n_rounds=rounds)
+# and the DAG cases
+#     cfg = AvalancheConfig(max_element_poll=4096)
+#     state = dag.init(jax.random.key(0), nodes,
+#                      jnp.arange(txs, dtype=jnp.int32) // 2, cfg)
+#     final = sharded_dag.run_sharded_dag(
+#         mesh, sharded_dag.shard_dag_state(state, mesh), cfg,
+#         max_rounds=max_rounds)
+# then carry `final` into the port's numpy layout
+# (``convert.state_to_numpy(convert.state_from_numpy(leaves))``, the DAG's
+# twins) and record `leaf_digests` of it and of the telemetry fields.
+# `chip_smoke.py` reproduces every digest on the card.
+SHARDED_RECORDS = {
+    "flagship_1x1": {
+        "rounds": 5,
+        "leaves": {
+            "records.votes":
+                "eb179d6abbe839c3cd2222ca66b07b8e"
+                "4796aa9328d2fa977cb4ab30384e4b65",
+            "records.consider":
+                "02f66cd7edba2012fa34d3b103b2a13e"
+                "a034e11e79883c66fc7404c697ad78e0",
+            "records.confidence":
+                "2335641a5eab4fe5ec368e5fb3fb40a4"
+                "1211a2e2e1d114d45686d9d11adfe9f2",
+            "added":
+                "e66c81718b6203a09f53a140230748a4"
+                "e2400d61029dabe1e9f5152842c53954",
+            "valid":
+                "4427f28501fba9286319abb2539b07a0"
+                "573d7904b0703a9ec1a79fab391a7573",
+            "score_rank":
+                "d3cbc72b145c55e267a1f20f0f46d404"
+                "d1428b3a4f25e9291db594f0c561ebcb",
+            "poll_order":
+                "d3cbc72b145c55e267a1f20f0f46d404"
+                "d1428b3a4f25e9291db594f0c561ebcb",
+            "poll_order_inv":
+                "d3cbc72b145c55e267a1f20f0f46d404"
+                "d1428b3a4f25e9291db594f0c561ebcb",
+            "byzantine":
+                "d34f8e743ed30a1584df244396d2a782"
+                "a76ec57d98606fd16ddc42afcf65e9d0",
+            "alive":
+                "4427f28501fba9286319abb2539b07a0"
+                "573d7904b0703a9ec1a79fab391a7573",
+            "latency_weight":
+                "37ace4eb572c8139296e746e1403d57c"
+                "134c9702a685839bdcc00f1acb36649d",
+            "finalized_at":
+                "a8b98be4a04781628ae94bfa54cfa896"
+                "8f6a9176a16da2556a83cd6dda7e5eb6",
+            "round":
+                "f54e9bc2ff412fd4b7a9edeb3afdb6b2"
+                "cfa139d6cb8d1c1afbabd6fa4725ec98",
+            "key":
+                "0074017b86fec763fe06bda0e0a1cb18"
+                "fea8a43285f2e8bc284608113c9e3fb4",
+        },
+        "telemetry": {
+            "polls":
+                "fb1ad7b4e717b4711b58c16b70f30696"
+                "070b19d0df1be1c49223e3098492a25a",
+            "votes_applied":
+                "8972c7d40aed70ce7e1652dd93731e86"
+                "dfa2780bf6a7a8143abc13ce305d4fcb",
+            "flips":
+                "9fafa8fc9689d66d44de9f6c19e8290b"
+                "86d1dd3bedf4994d9a3cf55c8c1eae6b",
+            "finalizations":
+                "57544fe0501b03451f39956c51e0a351"
+                "c3f6a1aa748d1dfe007b783fa4968502",
+            "admissions":
+                "57544fe0501b03451f39956c51e0a351"
+                "c3f6a1aa748d1dfe007b783fa4968502",
+            "deliveries":
+                "57544fe0501b03451f39956c51e0a351"
+                "c3f6a1aa748d1dfe007b783fa4968502",
+            "expiries":
+                "57544fe0501b03451f39956c51e0a351"
+                "c3f6a1aa748d1dfe007b783fa4968502",
+            "ring_occupancy":
+                "57544fe0501b03451f39956c51e0a351"
+                "c3f6a1aa748d1dfe007b783fa4968502",
+            "partition_blocked":
+                "57544fe0501b03451f39956c51e0a351"
+                "c3f6a1aa748d1dfe007b783fa4968502",
+            "gossip_writes":
+                "57544fe0501b03451f39956c51e0a351"
+                "c3f6a1aa748d1dfe007b783fa4968502",
+        },
+    },
+    "flagship_2x1": {
+        "rounds": 5,
+        "leaves": {
+            "records.votes":
+                "0cb3eb2447eaaa12d170f4d5a6dad3e5"
+                "a1effb28278b045a7889984c5cc2db30",
+            "records.consider":
+                "02f66cd7edba2012fa34d3b103b2a13e"
+                "a034e11e79883c66fc7404c697ad78e0",
+            "records.confidence":
+                "75a9e1477ac8e3cd58a94a6935f41e88"
+                "e8bca756196257f2b5ca61d0ffca110b",
+            "added":
+                "e66c81718b6203a09f53a140230748a4"
+                "e2400d61029dabe1e9f5152842c53954",
+            "valid":
+                "4427f28501fba9286319abb2539b07a0"
+                "573d7904b0703a9ec1a79fab391a7573",
+            "score_rank":
+                "d3cbc72b145c55e267a1f20f0f46d404"
+                "d1428b3a4f25e9291db594f0c561ebcb",
+            "poll_order":
+                "d3cbc72b145c55e267a1f20f0f46d404"
+                "d1428b3a4f25e9291db594f0c561ebcb",
+            "poll_order_inv":
+                "d3cbc72b145c55e267a1f20f0f46d404"
+                "d1428b3a4f25e9291db594f0c561ebcb",
+            "byzantine":
+                "d34f8e743ed30a1584df244396d2a782"
+                "a76ec57d98606fd16ddc42afcf65e9d0",
+            "alive":
+                "4427f28501fba9286319abb2539b07a0"
+                "573d7904b0703a9ec1a79fab391a7573",
+            "latency_weight":
+                "37ace4eb572c8139296e746e1403d57c"
+                "134c9702a685839bdcc00f1acb36649d",
+            "finalized_at":
+                "a8b98be4a04781628ae94bfa54cfa896"
+                "8f6a9176a16da2556a83cd6dda7e5eb6",
+            "round":
+                "f54e9bc2ff412fd4b7a9edeb3afdb6b2"
+                "cfa139d6cb8d1c1afbabd6fa4725ec98",
+            "key":
+                "0074017b86fec763fe06bda0e0a1cb18"
+                "fea8a43285f2e8bc284608113c9e3fb4",
+        },
+        "telemetry": {
+            "polls":
+                "fb1ad7b4e717b4711b58c16b70f30696"
+                "070b19d0df1be1c49223e3098492a25a",
+            "votes_applied":
+                "8972c7d40aed70ce7e1652dd93731e86"
+                "dfa2780bf6a7a8143abc13ce305d4fcb",
+            "flips":
+                "eda3c5cda552610f1a532ae9a7c39017"
+                "78f7b02d5d0922da5972ac05e7326445",
+            "finalizations":
+                "57544fe0501b03451f39956c51e0a351"
+                "c3f6a1aa748d1dfe007b783fa4968502",
+            "admissions":
+                "57544fe0501b03451f39956c51e0a351"
+                "c3f6a1aa748d1dfe007b783fa4968502",
+            "deliveries":
+                "57544fe0501b03451f39956c51e0a351"
+                "c3f6a1aa748d1dfe007b783fa4968502",
+            "expiries":
+                "57544fe0501b03451f39956c51e0a351"
+                "c3f6a1aa748d1dfe007b783fa4968502",
+            "ring_occupancy":
+                "57544fe0501b03451f39956c51e0a351"
+                "c3f6a1aa748d1dfe007b783fa4968502",
+            "partition_blocked":
+                "57544fe0501b03451f39956c51e0a351"
+                "c3f6a1aa748d1dfe007b783fa4968502",
+            "gossip_writes":
+                "57544fe0501b03451f39956c51e0a351"
+                "c3f6a1aa748d1dfe007b783fa4968502",
+        },
+    },
+    "flagship_4x1": {
+        "rounds": 5,
+        "leaves": {
+            "records.votes":
+                "4ea3927dcda86ed21784e27f34e1a283"
+                "264ebc332bd18ae9058aac7f02bb0e83",
+            "records.consider":
+                "02f66cd7edba2012fa34d3b103b2a13e"
+                "a034e11e79883c66fc7404c697ad78e0",
+            "records.confidence":
+                "2dfd5154894939be6d17d061009222a6"
+                "6c3aac17b7939bef99fb489d89ebaf82",
+            "added":
+                "e66c81718b6203a09f53a140230748a4"
+                "e2400d61029dabe1e9f5152842c53954",
+            "valid":
+                "4427f28501fba9286319abb2539b07a0"
+                "573d7904b0703a9ec1a79fab391a7573",
+            "score_rank":
+                "d3cbc72b145c55e267a1f20f0f46d404"
+                "d1428b3a4f25e9291db594f0c561ebcb",
+            "poll_order":
+                "d3cbc72b145c55e267a1f20f0f46d404"
+                "d1428b3a4f25e9291db594f0c561ebcb",
+            "poll_order_inv":
+                "d3cbc72b145c55e267a1f20f0f46d404"
+                "d1428b3a4f25e9291db594f0c561ebcb",
+            "byzantine":
+                "d34f8e743ed30a1584df244396d2a782"
+                "a76ec57d98606fd16ddc42afcf65e9d0",
+            "alive":
+                "4427f28501fba9286319abb2539b07a0"
+                "573d7904b0703a9ec1a79fab391a7573",
+            "latency_weight":
+                "37ace4eb572c8139296e746e1403d57c"
+                "134c9702a685839bdcc00f1acb36649d",
+            "finalized_at":
+                "a8b98be4a04781628ae94bfa54cfa896"
+                "8f6a9176a16da2556a83cd6dda7e5eb6",
+            "round":
+                "f54e9bc2ff412fd4b7a9edeb3afdb6b2"
+                "cfa139d6cb8d1c1afbabd6fa4725ec98",
+            "key":
+                "0074017b86fec763fe06bda0e0a1cb18"
+                "fea8a43285f2e8bc284608113c9e3fb4",
+        },
+        "telemetry": {
+            "polls":
+                "fb1ad7b4e717b4711b58c16b70f30696"
+                "070b19d0df1be1c49223e3098492a25a",
+            "votes_applied":
+                "8972c7d40aed70ce7e1652dd93731e86"
+                "dfa2780bf6a7a8143abc13ce305d4fcb",
+            "flips":
+                "46a04ac7ca1a831815b761c638ab4ce4"
+                "bbdb5beb531d243f62abf639ff8d7fb1",
+            "finalizations":
+                "57544fe0501b03451f39956c51e0a351"
+                "c3f6a1aa748d1dfe007b783fa4968502",
+            "admissions":
+                "57544fe0501b03451f39956c51e0a351"
+                "c3f6a1aa748d1dfe007b783fa4968502",
+            "deliveries":
+                "57544fe0501b03451f39956c51e0a351"
+                "c3f6a1aa748d1dfe007b783fa4968502",
+            "expiries":
+                "57544fe0501b03451f39956c51e0a351"
+                "c3f6a1aa748d1dfe007b783fa4968502",
+            "ring_occupancy":
+                "57544fe0501b03451f39956c51e0a351"
+                "c3f6a1aa748d1dfe007b783fa4968502",
+            "partition_blocked":
+                "57544fe0501b03451f39956c51e0a351"
+                "c3f6a1aa748d1dfe007b783fa4968502",
+            "gossip_writes":
+                "57544fe0501b03451f39956c51e0a351"
+                "c3f6a1aa748d1dfe007b783fa4968502",
+        },
+    },
+    "dag_1x1": {
+        "rounds": 17,
+        "leaves": {
+            "base.records.votes":
+                "0c55d8617a75215474b0991cb7658c77"
+                "74c81b8d0bfa3e291d855d260c889e17",
+            "base.records.consider":
+                "c048822e23a501e48ac522a57d9ff528"
+                "b6af047266f9a45e1f836d46a60f582b",
+            "base.records.confidence":
+                "00abf03be9067afb852bdc9ec206f585"
+                "ec5c37967234edbfb61a830f7d8f81e4",
+            "base.added":
+                "0f0720b1040cb9496a02d4572549491f"
+                "ef41edc6094f7da266945816b4afcb8c",
+            "base.valid":
+                "287185b46a1cf489c485a460cdcc301a"
+                "cbc624a52ada05821bc3940919ef53ed",
+            "base.score_rank":
+                "45221433347b79f82c19e17345ad7e2b"
+                "c47a35f46cc06580f2a53be61a4bb25b",
+            "base.poll_order":
+                "45221433347b79f82c19e17345ad7e2b"
+                "c47a35f46cc06580f2a53be61a4bb25b",
+            "base.poll_order_inv":
+                "45221433347b79f82c19e17345ad7e2b"
+                "c47a35f46cc06580f2a53be61a4bb25b",
+            "base.byzantine":
+                "8a58e1b28e5f484d7047a23288b57981"
+                "177ecb25f5e3694f94ec39373b00ea87",
+            "base.alive":
+                "287185b46a1cf489c485a460cdcc301a"
+                "cbc624a52ada05821bc3940919ef53ed",
+            "base.latency_weight":
+                "a6d20c9e8f20560458786837ec7ffa27"
+                "b0b49251ccb462b01b523aacc93f27b7",
+            "base.finalized_at":
+                "e51cf64a7bf1fdc8b223c83dbdedc5ac"
+                "bab044deacf6a0ae9e6f0e1d234bcc31",
+            "base.round":
+                "51d80ee7746adfb6d78d5cab21beaa61"
+                "6147f06818ed8f92c3c45f15e493b610",
+            "base.key":
+                "16202389cbbbc3e2e528cbf88a875519"
+                "1cec1d346ef243d5861181635491e54b",
+            "conflict_set":
+                "a059bd6664f3063ef182c2c0f1c92ee7"
+                "8d9eb436c97e714b7f5ada1d9b61963a",
+        },
+    },
+    "dag_2x1": {
+        "rounds": 17,
+        "leaves": {
+            "base.records.votes":
+                "0c55d8617a75215474b0991cb7658c77"
+                "74c81b8d0bfa3e291d855d260c889e17",
+            "base.records.consider":
+                "c048822e23a501e48ac522a57d9ff528"
+                "b6af047266f9a45e1f836d46a60f582b",
+            "base.records.confidence":
+                "00abf03be9067afb852bdc9ec206f585"
+                "ec5c37967234edbfb61a830f7d8f81e4",
+            "base.added":
+                "0f0720b1040cb9496a02d4572549491f"
+                "ef41edc6094f7da266945816b4afcb8c",
+            "base.valid":
+                "287185b46a1cf489c485a460cdcc301a"
+                "cbc624a52ada05821bc3940919ef53ed",
+            "base.score_rank":
+                "45221433347b79f82c19e17345ad7e2b"
+                "c47a35f46cc06580f2a53be61a4bb25b",
+            "base.poll_order":
+                "45221433347b79f82c19e17345ad7e2b"
+                "c47a35f46cc06580f2a53be61a4bb25b",
+            "base.poll_order_inv":
+                "45221433347b79f82c19e17345ad7e2b"
+                "c47a35f46cc06580f2a53be61a4bb25b",
+            "base.byzantine":
+                "8a58e1b28e5f484d7047a23288b57981"
+                "177ecb25f5e3694f94ec39373b00ea87",
+            "base.alive":
+                "287185b46a1cf489c485a460cdcc301a"
+                "cbc624a52ada05821bc3940919ef53ed",
+            "base.latency_weight":
+                "a6d20c9e8f20560458786837ec7ffa27"
+                "b0b49251ccb462b01b523aacc93f27b7",
+            "base.finalized_at":
+                "e51cf64a7bf1fdc8b223c83dbdedc5ac"
+                "bab044deacf6a0ae9e6f0e1d234bcc31",
+            "base.round":
+                "51d80ee7746adfb6d78d5cab21beaa61"
+                "6147f06818ed8f92c3c45f15e493b610",
+            "base.key":
+                "16202389cbbbc3e2e528cbf88a875519"
+                "1cec1d346ef243d5861181635491e54b",
+            "conflict_set":
+                "a059bd6664f3063ef182c2c0f1c92ee7"
+                "8d9eb436c97e714b7f5ada1d9b61963a",
+        },
+    },
+}

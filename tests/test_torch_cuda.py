@@ -707,3 +707,87 @@ def test_connector_on_cuda_matches_cpu(cuda):
             return out
 
     assert session("cuda") == session("cpu")
+
+
+# ------------------------------------------------------------ sharded
+
+
+def _sharded_start(n, t, cfg, device, seed=3):
+    from go_avalanche_tpu_torch import convert
+
+    pref = av.contested_init_pref(seed, n, t, device="cpu")
+    return convert.state_to_numpy(av.init(prng.key(seed, "cpu"), n, t, cfg,
+                                          init_pref=pref, device="cpu"))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("engine", ["u8", "swar32"])
+def test_sharded_round_on_the_card_matches_the_cpu(engine, cuda):
+    """A 1x1 mesh on the card launches the ingest kernel once a round
+    and walks the CPU's trajectory."""
+    from go_avalanche_tpu_torch import convert
+    from go_avalanche_tpu_torch.parallel import sharded
+    from go_avalanche_tpu_torch.parallel.mesh import make_mesh
+
+    cfg = AvalancheConfig(byzantine_fraction=0.2, ingest_engine=engine)
+    start = _sharded_start(256, 512, cfg, cuda)
+    mesh = make_mesh(1, 1)
+    finals = {}
+    for device in ("cpu", "cuda"):
+        block = sharded.shard_state(convert.state_from_numpy(start, device),
+                                    mesh)
+        name = "vote_swar" if engine == "swar32" else "vote_u8"
+        pv.launches[name] = 0
+        block, tel = sharded.run_scan_sharded(mesh, block, cfg, 4)
+        if device == "cuda":
+            assert pv.launches[name] == 4
+        finals[device] = convert.state_to_numpy(block)
+    for a, b in zip(finals["cpu"].records, finals["cuda"].records):
+        np.testing.assert_array_equal(a, b)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", [(2, 1), (1, 2)])
+def test_gloo_ranks_sharing_the_card_match_the_cpu(shape, cuda, tmp_path):
+    """Two gloo ranks with their blocks on the one card (collectives
+    staged through the host) walk the trajectory of the same mesh on
+    the CPU."""
+    import torch_ranks
+    from go_avalanche_tpu_torch.parallel.ranks import RankPool
+
+    knobs = dict(byzantine_fraction=0.2, drop_probability=0.1)
+    start = _sharded_start(64, 96, AvalancheConfig(**knobs), cuda)
+    pool = RankPool(2, str(tmp_path))
+    try:
+        on_cpu = pool.run(2, torch_ranks.avalanche_case, start, knobs, shape,
+                          "scan", 4, "cpu")
+        on_card = pool.run(2, torch_ranks.avalanche_case, start, knobs,
+                           shape, "scan", 4, "cuda")
+    finally:
+        pool.close()
+    for a, b in zip(on_cpu[0][0].records, on_card[0][0].records):
+        np.testing.assert_array_equal(a, b)
+    for name in on_cpu[0][1]:
+        np.testing.assert_array_equal(on_cpu[0][1][name], on_card[0][1][name])
+
+
+@pytest.mark.cuda
+def test_sharded_dag_on_the_card_matches_the_cpu(cuda):
+    from go_avalanche_tpu_torch import convert
+    from go_avalanche_tpu_torch.parallel import sharded_dag
+    from go_avalanche_tpu_torch.parallel.mesh import make_mesh
+
+    cfg = AvalancheConfig(byzantine_fraction=0.2)
+    start = convert.dag_state_to_numpy(dag.init(
+        prng.key(1, "cpu"), 128, torch.arange(256, dtype=torch.int32) // 2,
+        cfg, device="cpu"))
+    mesh = make_mesh(1, 1)
+    finals = []
+    for device in ("cpu", "cuda"):
+        block = sharded_dag.shard_dag_state(
+            convert.dag_state_from_numpy(start, device), mesh)
+        block = sharded_dag.run_sharded_dag(mesh, block, cfg, max_rounds=60)
+        finals.append(convert.dag_state_to_numpy(block))
+    for a, b in zip(finals[0].base.records, finals[1].base.records):
+        np.testing.assert_array_equal(a, b)
+    assert int(finals[0].base.round) == int(finals[1].base.round)

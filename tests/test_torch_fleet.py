@@ -481,10 +481,18 @@ def test_run_phase_grid_refusals_match_jax(model, knobs, grid):
 
 
 def test_unported_fleet_surfaces_name_their_item():
+    # The trial-sharded mesh (item 15) is ported: a one-rank fleet mesh
+    # runs the dense loop (tests/test_torch_sharded_fleet.py holds the
+    # multi-rank meshes).
+    from go_avalanche_tpu_torch.parallel.sharded_fleet import make_fleet_mesh
+
     cfg = AvalancheConfig(finalization_score=8)
-    with pytest.raises(NotImplementedError, match="item 15"):
-        tfleet.run_fleet("snowball", cfg, fleet=2, n_nodes=8, mesh=object(),
-                         device="cpu")
+    one = tfleet.run_fleet("snowball", cfg, fleet=2, n_nodes=8,
+                           mesh=make_fleet_mesh(1), device="cpu")
+    dense = tfleet.run_fleet("snowball", cfg, fleet=2, n_nodes=8,
+                             device="cpu")
+    assert one.summary() == dense.summary()
+    np.testing.assert_array_equal(one.finality_round, dense.finality_round)
     # The per-trial trace plane (item 14) is ported: both decoders give
     # the fleet-stacked records the JAX package gives.
     knobs = dict(finalization_score=8, trace_every=1)

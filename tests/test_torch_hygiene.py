@@ -43,7 +43,15 @@ MODULES = ["go_avalanche_tpu_torch", "go_avalanche_tpu_torch.config",
            "go_avalanche_tpu_torch.utils.checkpoint",
            "go_avalanche_tpu_torch.run_sim",
            "go_avalanche_tpu_torch.connector",
-           "go_avalanche_tpu_torch.connector.server"]
+           "go_avalanche_tpu_torch.connector.server",
+           "go_avalanche_tpu_torch.parallel",
+           "go_avalanche_tpu_torch.parallel.mesh",
+           "go_avalanche_tpu_torch.parallel.collectives",
+           "go_avalanche_tpu_torch.parallel.runtime",
+           "go_avalanche_tpu_torch.parallel.sharded",
+           "go_avalanche_tpu_torch.parallel.sharded_dag",
+           "go_avalanche_tpu_torch.parallel.sharded_fleet",
+           "go_avalanche_tpu_torch.parallel.distributed_smoke"]
 
 
 def _forbidden(module: str) -> bool:

@@ -190,16 +190,11 @@ def test_config_rejections_match_jax(kwargs, match):
     dict(strict_validation=True), dict(fused_sharded_gossip=True),
 ])
 def test_unported_fields_raise_not_implemented(kwargs):
-    """A field still unported raises naming its ROADMAP item;
-    `strict_validation`, ported with the host Processor, is accepted."""
-    from go_avalanche_tpu_torch import config
-
+    """Fields once refused as unported are accepted now:
+    `strict_validation`, ported with the host Processor, and
+    `fused_sharded_gossip`, ported with the sharded drivers."""
     (name, value), = kwargs.items()
-    if name in config._UNPORTED:
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            AvalancheConfig(**kwargs)
-    else:
-        assert getattr(AvalancheConfig(**kwargs), name) == value
+    assert getattr(AvalancheConfig(**kwargs), name) == value
 
 
 @pytest.mark.parametrize("field", ["metrics_every", "trace_every"])

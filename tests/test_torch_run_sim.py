@@ -183,6 +183,13 @@ REFUSALS = [
     ["--k", "0"],
     ["--arrival-backpressure", "0.9"],
     ["--arrival-cluster-weights", "a,b"],
+    ["--mesh", "1,1", "--round-engine", "megakernel"],
+    ["--donate"],
+    ["--mesh", "1,1", "--model", "snowball"],
+    ["--mesh", "1,1", "--model", "streaming_dag", "--chunk", "2"],
+    ["--mesh", "1,1", "--check-invariants"],
+    ["--mesh", "1,1", "--metrics", "m.jsonl"],
+    ["--fleet", "2", "--mesh", "1,1", "--donate"],
 ]
 
 
@@ -211,11 +218,17 @@ def test_build_config_exits_match(argv):
 
 
 @pytest.mark.parametrize("flag,item", [
-    (["--mesh", "2,2"], "item 15"), (["--donate"], "item 15"),
-    (["--fleet-shape", "auto"], "item 15"), (["--audit"], "item 17"),
+    (["--mesh", "1,1", "--model", "backlog"], "item 15"),
+    (["--mesh", "1,1", "--model", "node_stream", "--stake-mode", "zipf",
+      "--registry-nodes", "24", "--active-nodes", "8"], "item 15"),
+    (["--fleet-shape", "auto"], "item 17"), (["--audit"], "item 17"),
     (["--report-memory"], "item 17"),
-])
+], ids=["flag0-item 15", "flag1-item 15", "flag2-item 15", "flag3-item 17",
+        "flag4-item 17"])
 def test_unported_flags_name_their_item(flag, item):
+    """`--mesh` with the streaming models (item 15) and the flags of the
+    XLA resource tooling (item 17) name their item; `--mesh` and
+    `--donate` themselves are ported (the cases below)."""
     with pytest.raises(NotImplementedError, match=item):
         trun.main(flag + ["--device", "cpu"])
 
@@ -228,3 +241,59 @@ def test_text_output_trace_and_cli(tmp_path, capsys):
     out = capsys.readouterr().out
     assert "model=snowball" in out and "backend=cpu" in out
     assert any(p.name.endswith(".json") for p in trace_dir.rglob("*"))
+
+
+# ------------------------------------------------------------ --mesh
+
+
+@pytest.fixture
+def jax_devices(monkeypatch):
+    """Give the JAX package's `make_mesh` the first `n` devices, so its
+    ``--mesh A,B`` takes A*B of the 8 virtual devices, as the port's
+    takes A*B ranks."""
+    import jax
+
+    real = jax.devices
+
+    def take(n):
+        monkeypatch.setattr(jax, "devices", lambda *a: real(*a)[:n])
+    return take
+
+
+@pytest.mark.parametrize("argv", [
+    ["--model", "avalanche", "--contested", "--byzantine", "0.2",
+     "--donate"],
+    ["--model", "dag", "--conflict-size", "4", "--drop", "0.1"],
+    ["--model", "avalanche", "--trace-every", "2", "--metrics", "TRACE"],
+    ["--model", "snowball", "--fleet", "3"],
+    ["--model", "avalanche", "--fleet", "2", "--phase-grid",
+     '{"byzantine_fraction": [0.1, 0.3]}', "--byzantine", "0.1"],
+], ids=["avalanche", "dag", "avalanche-traced", "fleet", "phase-grid"])
+def test_mesh_1x1_matches_jax(argv, jax_devices, tmp_path):
+    jax_devices(1)
+    argv = [str(tmp_path / "t.jsonl") if a == "TRACE" else a for a in argv]
+    got = _both(SMALL + argv + ["--mesh", "1,1"])
+    assert "rounds" in got or "grid_rows" in got
+
+
+def test_mesh_2x1_on_two_ranks_matches_jax(jax_devices, tmp_path_factory):
+    """Two spawned gloo ranks run `run_sim.main --mesh 2,1`; both return
+    the result of the JAX package's `--mesh 2,1`."""
+    import torch_ranks
+    from go_avalanche_tpu_torch.parallel.ranks import RankPool
+
+    jax_devices(2)
+    pool = RankPool(2, str(tmp_path_factory.mktemp("ranks")))
+    try:
+        for extra in (["--model", "avalanche", "--contested", "--byzantine",
+                       "0.2"],
+                      ["--model", "dag", "--conflict-size", "2"]):
+            argv = SMALL + extra + ["--mesh", "2,1"]
+            want = jrun.main(list(argv))
+            got = pool.run(2, torch_ranks.run_sim_case,
+                           argv + ["--device", "cpu"])
+            for d in [want, *got]:
+                d.pop("elapsed_s"), d.pop("backend")
+            assert got == [want, want]
+    finally:
+        pool.close()

@@ -1,0 +1,245 @@
+"""The port's side of the sharded tests, run in spawned gloo ranks.
+
+The JAX side of a sharded test runs in the pytest process over its 8
+virtual devices; the port's side runs in ranks that import torch and
+the port only: a `RankPool` (`go_avalanche_tpu_torch/parallel/ranks.py`,
+one pool per test module) hands each case function below to the first
+`world` ranks, each in a fresh gloo process group over a `FileStore` in
+the pool's directory (no TCP ports, so it works under xdist).  The case
+functions take and return numpy trees (`convert.py`'s layout), so no
+torch tensor crosses a process boundary.
+"""
+
+from __future__ import annotations
+
+import numpy as np
+
+
+# ---------------------------------------------------------------- cases
+
+
+def config(knobs: dict):
+    """The port's config from plain knobs (enum values as strings)."""
+    from go_avalanche_tpu_torch.config import (AdversaryStrategy,
+                                               AvalancheConfig, VoteMode)
+
+    kw = dict(knobs)
+    if "adversary_strategy" in kw:
+        kw["adversary_strategy"] = AdversaryStrategy(
+            kw["adversary_strategy"])
+    if "vote_mode" in kw:
+        kw["vote_mode"] = VoteMode(kw["vote_mode"])
+    return AvalancheConfig(**kw)
+
+
+def _tel_numpy(tel):
+    return None if tel is None else {f: getattr(tel, f).cpu().numpy()
+                                     for f in tel._fields}
+
+
+def avalanche_case(state_np, knobs: dict, mesh_shape, mode: str,
+                   rounds: int, device: str = "cpu"):
+    """The port's sharded avalanche drive on this rank: the global state
+    from numpy, this rank's block, then `rounds` rounds of
+    `run_scan_sharded` ("scan"), the step ("step"), or `run_sharded` to
+    settlement with `rounds` as its cap ("run"); returns the gathered
+    global state, the telemetry rows, the collectives one round
+    recorded, and `sync.reads`.  With ``device="cuda"`` every rank's
+    block lies on the one card (gloo ranks sharing it)."""
+    from go_avalanche_tpu_torch import convert, sync
+    from go_avalanche_tpu_torch.parallel import collectives, sharded
+    from go_avalanche_tpu_torch.parallel.mesh import make_mesh
+
+    cfg = config(knobs)
+    mesh = make_mesh(*mesh_shape)
+    block = sharded.shard_state(
+        convert.state_from_numpy(state_np, device=device), mesh)
+    collectives.recorded.clear()
+    sync.reads = 0
+    tel = None
+    if mode == "run":
+        block = sharded.run_sharded(mesh, block, cfg, max_rounds=rounds)
+    elif mode == "scan":
+        block, tel = sharded.run_scan_sharded(mesh, block, cfg, rounds)
+    else:
+        step = sharded.make_sharded_round_step(mesh, cfg)
+        rows = []
+        for _ in range(rounds):
+            block, t = step(block)
+            rows.append(t)
+        tel = sharded.stack_telemetry(rows)
+    recorded = set(collectives.recorded)
+    reads = sync.reads
+    whole = sharded.gather_state(block, mesh)
+    return (convert.state_to_numpy(whole), _tel_numpy(tel), recorded, reads)
+
+
+def dag_case(state_np, knobs: dict, mesh_shape, mode: str, rounds: int,
+             device: str = "cpu"):
+    """`avalanche_case` for the DAG: "step" rounds or `run_sharded_dag`
+    ("run")."""
+    from go_avalanche_tpu_torch import convert, sync
+    from go_avalanche_tpu_torch.parallel import (collectives, sharded,
+                                                 sharded_dag)
+    from go_avalanche_tpu_torch.parallel.mesh import make_mesh
+
+    cfg = config(knobs)
+    mesh = make_mesh(*mesh_shape)
+    block = sharded_dag.shard_dag_state(
+        convert.dag_state_from_numpy(state_np, device=device), mesh)
+    collectives.recorded.clear()
+    sync.reads = 0
+    tel = None
+    if mode == "run":
+        block = sharded_dag.run_sharded_dag(mesh, block, cfg,
+                                            max_rounds=rounds)
+    else:
+        step = sharded_dag.make_sharded_dag_round_step(mesh, cfg)
+        rows = []
+        for _ in range(rounds):
+            block, t = step(block)
+            rows.append(t)
+        tel = sharded.stack_telemetry(rows)
+    recorded = set(collectives.recorded)
+    reads = sync.reads
+    whole = sharded_dag.gather_dag_state(block, mesh)
+    return (convert.dag_state_to_numpy(whole), _tel_numpy(tel), recorded,
+            reads)
+
+
+def poll_cap_case(pollable, rank, cap: int, mesh_shape):
+    """`sharded.global_capped_poll_mask` on this rank's block of the
+    global bool ``[N, T]`` plane and int32 ``[T]`` ranks; the gathered
+    global mask."""
+    import torch
+
+    from go_avalanche_tpu_torch.parallel import collectives as C
+    from go_avalanche_tpu_torch.parallel import sharded
+    from go_avalanche_tpu_torch.parallel.mesh import (NODES_AXIS, TXS_AXIS,
+                                                      make_mesh)
+
+    mesh = make_mesh(*mesh_shape)
+    block = sharded.block_of(torch.from_numpy(pollable),
+                             (NODES_AXIS, TXS_AXIS), mesh)
+    rank_t = sharded.block_of(torch.from_numpy(rank), (TXS_AXIS,), mesh)
+    # The orders the one-shard path reads (`init` keeps them).
+    order = torch.from_numpy(np.argsort(rank).astype(np.int32))
+    with C.bind(mesh):
+        out = sharded.global_capped_poll_mask(block, rank_t, cap,
+                                              mesh.shape[TXS_AXIS], order,
+                                              torch.from_numpy(rank))
+        return sharded.assemble(out, (NODES_AXIS, TXS_AXIS)).numpy()
+
+
+def gossip_case(peers, polled, fused: bool, mesh_shape):
+    """`sharded._gossip_heard_packed` on this rank's rows (all peers'
+    ids global) and columns; the gathered, unpacked global plane."""
+    import torch
+
+    from go_avalanche_tpu_torch.ops.bitops import unpack_bool_plane
+    from go_avalanche_tpu_torch.parallel import collectives as C
+    from go_avalanche_tpu_torch.parallel import sharded
+    from go_avalanche_tpu_torch.parallel.mesh import (NODES_AXIS, TXS_AXIS,
+                                                      make_mesh)
+
+    mesh = make_mesh(*mesh_shape)
+    peers_b = sharded.block_of(torch.from_numpy(peers), (NODES_AXIS, None),
+                               mesh)
+    polled_b = sharded.block_of(torch.from_numpy(polled),
+                                (NODES_AXIS, TXS_AXIS), mesh)
+    with C.bind(mesh):
+        heard = sharded._gossip_heard_packed(peers_b, polled_b,
+                                             peers.shape[0], fused=fused)
+        heard = unpack_bool_plane(heard, polled_b.shape[1])
+        return sharded.assemble(heard, (NODES_AXIS, TXS_AXIS)).numpy()
+
+
+FLEET_VECTORS = ("violations", "settled", "finality_round",
+                 "finalized_fraction", "stalled", "cut_windows", "cut_split",
+                 "spike_windows", "region_windows", "lat_percentiles",
+                 "arrived")
+
+
+def fleet_case(model: str, knobs: dict, kw: dict, mesh_shape):
+    """`fleet.run_fleet` over a ``(trials, nodes)`` fleet mesh of the
+    ranks; the result's vectors, telemetry, trace, summary row,
+    realizations and recorded collectives."""
+    from go_avalanche_tpu_torch import fleet
+    from go_avalanche_tpu_torch.parallel import collectives
+    from go_avalanche_tpu_torch.parallel.sharded_fleet import make_fleet_mesh
+
+    mesh = make_fleet_mesh(*mesh_shape)
+    collectives.recorded.clear()
+    res = fleet.run_fleet(model, config(knobs), mesh=mesh, device="cpu",
+                          **kw)
+    trace = None if res.trace is None else (res.trace.data, res.trace.cursor)
+    return ({name: getattr(res, name) for name in FLEET_VECTORS},
+            res.telemetry, trace, res.summary(), res.realizations(),
+            set(collectives.recorded))
+
+
+def phase_grid_case(model: str, knobs: dict, grid: dict, kw: dict,
+                    mesh_shape):
+    """`fleet.run_phase_grid` over a fleet mesh of the ranks."""
+    from go_avalanche_tpu_torch import fleet
+    from go_avalanche_tpu_torch.parallel.sharded_fleet import make_fleet_mesh
+
+    return fleet.run_phase_grid(model, config(knobs), grid,
+                                mesh=make_fleet_mesh(*mesh_shape),
+                                device="cpu", **kw)
+
+
+def fleet_refusal_case(fleet_size: int, mesh_shape) -> str:
+    """The message with which `run_fleet` refuses `fleet_size` trials on
+    this fleet mesh."""
+    from go_avalanche_tpu_torch import fleet
+    from go_avalanche_tpu_torch.parallel.sharded_fleet import make_fleet_mesh
+
+    try:
+        fleet.run_fleet("snowball", config({}), fleet=fleet_size, n_nodes=8,
+                        n_rounds=1, mesh=make_fleet_mesh(*mesh_shape),
+                        device="cpu")
+    except ValueError as e:
+        return str(e)
+    return ""
+
+
+def run_sim_case(argv):
+    """`run_sim.main(argv)` on this rank; the result dict."""
+    from go_avalanche_tpu_torch import run_sim
+
+    return run_sim.main(list(argv))
+
+
+def collectives_case(mesh_shape, seed: int):
+    """Each collective on this rank's seeded inputs (uint8, int32 and
+    bool blocks): the inputs and every result, for a numpy oracle."""
+    import torch
+
+    from go_avalanche_tpu_torch.parallel import collectives as C
+    from go_avalanche_tpu_torch.parallel.mesh import (NODES_AXIS, TXS_AXIS,
+                                                      make_mesh)
+
+    mesh = make_mesh(*mesh_shape)
+    rng = np.random.default_rng(seed + mesh.rank)
+    n = mesh.shape[NODES_AXIS]
+    inputs = {"u8": rng.integers(0, 256, (2 * n, 3)).astype(np.uint8),
+              "i32": rng.integers(-9, 9, (2 * n, 3)).astype(np.int32),
+              "bool": rng.random((2 * n, 3)) < 0.5}
+    out = {}
+    with C.bind(mesh):
+        out["index"] = (C.axis_index(NODES_AXIS), C.axis_index(TXS_AXIS))
+        for name, x in inputs.items():
+            t = torch.from_numpy(x)
+            out[name] = {
+                "gather_nodes": C.all_gather(t, NODES_AXIS).numpy(),
+                "gather_txs_dim1": C.all_gather(t, TXS_AXIS, dim=1).numpy(),
+                "gather_both": C.all_gather(t, (NODES_AXIS,
+                                                TXS_AXIS)).numpy(),
+                "to_all_nodes": C.all_to_all(t, NODES_AXIS).numpy(),
+            }
+            if name != "bool":
+                out[name]["psum_both"] = C.psum(
+                    t, (NODES_AXIS, TXS_AXIS)).numpy()
+                out[name]["psum_txs"] = C.psum(t, TXS_AXIS).numpy()
+    return inputs, out, mesh.ranks
