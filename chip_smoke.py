@@ -159,8 +159,8 @@ package is missing.  Phases, each printing JSON lines:
                `run_scan_sharded` on phased-u8 and phased-swar32,
                leaf-equal, one launch a round each, ms a round beside
                the dense phased round.  (b) Gloo ranks sharing the card
-               at the same width: 1x2 and 1x4 leaf-equal to (a)'s 1x1,
-               2x2 to 2x1 (the tx-only contract), compared tile by tile
+               at 8192 x 8192: 1x2 and 1x4 leaf-equal to 1x1, 2x2 to 2x1
+               (the tx-only contract), compared tile by tile
                (`tile_digests`), each mesh's ms a round, host-staged
                collectives and ingest paths.  (c) `workload.SHARDED_CASES`
                (4096 x 4096 on 1x1, 2x1, 4x1; the DAG at 2048 x 2048 to
@@ -168,9 +168,26 @@ package is missing.  Phases, each printing JSON lines:
                equal to the JAX package's `SHARDED_RECORDS`, every set
                settled.  (d) The policy grid's "off" point over a 2-rank
                fleet mesh, equal to its `FLEET_RECORDS` row.  (e) The
-               distributed smoke as two processes.  A rank's failure or
-               a rank silent for `MESH_TIMEOUT` s fails the phase.  The
-               kernels line's launches add phase 13's, every rank's.
+               distributed smoke as two processes.  Part streaming, the
+               streaming drivers: (f) config 6's width (100000 nodes, a
+               1024-set window of 2-tx sets) with its backlog cut to
+               2048 sets, to settlement through the sharded streaming
+               DAG on the 1x1 NCCL mesh on u8 and swar32 (leaf-equal,
+               one launch a round, all on the fast path, gated as phase
+               8 is, beside the dense round), and on 1x2 gloo ranks
+               equal to 1x1 tile by tile but for the per-shard rank
+               leaves, saved with the DCP pair at round 17, restored and
+               run on to an equal end; (g) config 5's width (1024 x a
+               4096-slot window) with 16,384 txs through the sharded
+               backlog to settlement on 1x1 and 2x1, equal outputs; (h)
+               the 1M-node registry (16384 active x 4096 txs, 3 rounds)
+               through the sharded node stream on 1x1 and 2x1, its
+               working set equal to the dense `run_scan`'s; (i) every
+               `workload.STREAMING_SHARDED_RECORDS` digest on 1x1, 2x1
+               and 1x2.  A rank's failure or a rank silent for
+               `MESH_TIMEOUT` s fails the phase, as does a DCP error.
+               The kernels line's launches add phase 13's, every
+               rank's.
 
 With ``--config6-full-depth`` it builds the kernels and runs only BASELINE
 config 6 at full width and full depth (500,000 sets, ~8313 rounds,
@@ -2723,8 +2740,14 @@ def run_host(quick: bool = False, device="cuda") -> dict:
     return out
 
 
-MESH_SHAPES = {          # phase 13: (a) and (b)'s flagship, rounds a run
+MESH_SHAPES = {          # phase 13: (a)'s flagship, rounds a run
     "full": dict(nodes=16_384, txs=16_384, rounds=5),
+    "quick": dict(nodes=256, txs=512, rounds=3),
+}
+# (b)'s flagship: the tx-only contract holds at any width, so (b) runs
+# at a quarter of (a)'s cells.
+MESH_CONTRACT_SHAPES = {
+    "full": dict(nodes=8192, txs=8192, rounds=5),
     "quick": dict(nodes=256, txs=512, rounds=3),
 }
 # (b): each mesh with only tx shards against its node-only twin.
@@ -2806,16 +2829,11 @@ def mesh_flagship_rank(nodes: int, txs: int, rounds: int, shape,
                        engine: str, device="cuda") -> dict:
     """Part (b), in a rank: the mesh flagship built on this rank's
     device, its block cut, `rounds` sharded rounds (`_mesh_scan`)."""
-    import torch
-
     from go_avalanche_tpu_torch import workload
     from go_avalanche_tpu_torch.parallel import sharded
     from go_avalanche_tpu_torch.parallel.mesh import make_mesh
-    from go_avalanche_tpu_torch.parallel.runtime import rank_device
 
-    dev = rank_device(device)
-    if dev.type == "cuda":
-        torch.cuda.set_device(dev)
+    dev = _rank_setup(device)
     mesh = make_mesh(*shape)
     start, cfg = workload.mesh_flagship_state(nodes, txs, device=dev,
                                               ingest_engine=engine)
@@ -2830,19 +2848,14 @@ def mesh_flagship_rank(nodes: int, txs: int, rounds: int, shape,
 def sharded_record_rank(name: str, device="cuda") -> dict:
     """Part (c), in a rank: a `workload.SHARDED_CASES` case through the
     sharded driver; rank 0 digests the gathered state."""
-    import torch
-
     from go_avalanche_tpu_torch import convert, workload
     from go_avalanche_tpu_torch.models import dag
     from go_avalanche_tpu_torch.ops import voterecord as vr
     from go_avalanche_tpu_torch.parallel import sharded, sharded_dag
     from go_avalanche_tpu_torch.parallel.mesh import make_mesh
-    from go_avalanche_tpu_torch.parallel.runtime import rank_device
 
     case = workload.SHARDED_CASES[name]
-    dev = rank_device(device)
-    if dev.type == "cuda":
-        torch.cuda.set_device(dev)
+    dev = _rank_setup(device)
     mesh = make_mesh(*case["mesh"])
     out = {}
     reset_launches()
@@ -2882,18 +2895,13 @@ def sharded_record_rank(name: str, device="cuda") -> dict:
 def mesh_fleet_rank(shape, device="cuda") -> dict:
     """Part (d), in a rank: the policy grid's "off" point over a fleet
     mesh of the ranks; the row with its point and tag."""
-    import torch
-
     from go_avalanche_tpu_torch import fleet, workload
     from go_avalanche_tpu_torch.config import AvalancheConfig
     from go_avalanche_tpu_torch.obs.tags import config_tag
-    from go_avalanche_tpu_torch.parallel.runtime import rank_device
     from go_avalanche_tpu_torch.parallel.sharded_fleet import make_fleet_mesh
 
     case = workload.FLEET_CASES["policy_grid"]
-    dev = rank_device(device)
-    if dev.type == "cuda":
-        torch.cuda.set_device(dev)
+    dev = _rank_setup(device)
     cfg = AvalancheConfig(**case["knobs"])
     reset_launches()
     t0 = time.perf_counter()
@@ -2911,6 +2919,477 @@ def _add_launches(total: dict, paths: dict, row: dict) -> None:
     for name, by in row["launches_by_ingest_path"].items():
         for path, n in by.items():
             paths[name][path] += n
+
+
+# Phase 13, part streaming: (f) config 6's width through the sharded
+# streaming DAG, its backlog cut to 2 waves; (g) config 5's width through
+# the sharded backlog, its backlog cut to 16,384 txs; (h) the 1M-node
+# registry through the sharded node stream, 3 rounds.
+STREAMING_MESH = {
+    "full": dict(nodes=100_000, window_sets=1024, set_cap=2, sets=2048,
+                 save_round=17, backlog_txs=16_384, registry=1_000_000,
+                 active=16_384, node_txs=4096, node_rounds=3),
+    "quick": dict(nodes=64, window_sets=32, set_cap=2, sets=64,
+                  save_round=17, backlog_txs=1024, registry=4096, active=64,
+                  node_txs=256, node_rounds=3),
+}
+# The per-tx-shard poll-order rank leaves: the one by-design difference
+# between a tx-sharded streaming run and its node-only twin.
+RANK_LEAVES = ("score_rank", "poll_order", "poll_order_inv")
+
+
+def _without_ranks(tiles: dict) -> dict:
+    return {k: v for k, v in tiles.items()
+            if k.split("[")[0].rsplit(".", 1)[-1] not in RANK_LEAVES}
+
+
+def _rank_setup(device):
+    """This rank's device, made current."""
+    import torch
+
+    from go_avalanche_tpu_torch.parallel.runtime import rank_device
+
+    dev = rank_device(device)
+    if dev.type == "cuda":
+        torch.cuda.set_device(dev)
+        torch.cuda.reset_peak_memory_stats(dev)
+    return dev
+
+
+def _peak_gib(device) -> float:
+    import torch
+
+    if torch.device(device).type != "cuda":
+        return 0.0
+    return torch.cuda.max_memory_allocated() / 2**30
+
+
+def _counted_run(fn, device) -> dict:
+    """`fn()` timed, with launches and host-staged tensors counted from
+    0; ``{"out", "wall_s", "launches", "launches_by_ingest_path",
+    "host_staged"}``."""
+    from go_avalanche_tpu_torch.parallel import collectives
+
+    collectives.host_staged = 0
+    reset_launches()
+    _synchronize(device)
+    t0 = time.perf_counter()
+    out = fn()
+    _synchronize(device)
+    return {"out": out, "wall_s": time.perf_counter() - t0,
+            "launches": read_launches(),
+            "launches_by_ingest_path": read_path_launches(),
+            "host_staged": collectives.host_staged}
+
+
+def _check_one_launch_a_round(where: str, row: dict, kernel: str,
+                              rounds: int) -> None:
+    want = {"vote_u8": 0, "vote_swar": 0, "megakernel": 0, kernel: rounds}
+    if row["launches"] != want:
+        raise AssertionError(f"{where}: launches {row['launches']} != one "
+                             f"{kernel} a round over {rounds}")
+    if row["launches_by_ingest_path"][kernel] != {"fast": rounds, "any": 0}:
+        raise AssertionError(f"{where}: launches by path "
+                             f"{row['launches_by_ingest_path']} are not "
+                             f"all on the fast path")
+
+
+def _northstar(shape: dict, device):
+    from go_avalanche_tpu_torch import workload
+
+    return workload.northstar_state(shape["nodes"], shape["sets"],
+                                    shape["set_cap"], shape["window_sets"],
+                                    device=device)
+
+
+def _config6_gate(final, shape: dict, quick: bool) -> dict:
+    """Phase 8's gate: waves x 17 rounds and the outcome fractions."""
+    from go_avalanche_tpu_torch import workload
+    from go_avalanche_tpu_torch.models import streaming_dag as sdg
+
+    reference = workload.REFERENCE_QUICK if quick else workload.REFERENCE
+    waves = -(-shape["sets"] // shape["window_sets"])
+    want = {**reference["config6"], "rounds": waves * WAVE_ROUNDS}
+    got = {"rounds": int(final.dag.base.round),
+           **sdg.resolution_summary(final)}
+    check_result("(f) config 6", got, want)
+    return got
+
+
+def _working_set(state, tel) -> dict:
+    """sha256 of the node stream's working-set leaves and departures."""
+    import hashlib
+
+    leaves = {name: getattr(state, name) for name in
+              ("slot_node", "resident", "stake", "churned_in",
+               "churned_out")}
+    leaves["latency_weight"] = state.sim.latency_weight
+    leaves["departed"] = tel.departed
+    return {name: hashlib.sha256(x.cpu().numpy().tobytes()).hexdigest()
+            for name, x in leaves.items()}
+
+
+def _node_stream_config(shape: dict):
+    from go_avalanche_tpu_torch.config import AvalancheConfig
+
+    return AvalancheConfig(stake_mode="zipf", stake_zipf_s=1.0,
+                           registry_nodes=shape["registry"],
+                           active_nodes=shape["active"],
+                           node_churn_rate=1e-3,
+                           max_element_poll=max(4096, shape["node_txs"]))
+
+
+def streaming_1x1(quick: bool, device, total: dict, paths: dict) -> dict:
+    """Part streaming on the 1x1 NCCL mesh of part (a), in this process:
+    (f) the streaming DAG on u8 and swar32, leaf-equal, gated, beside
+    the dense round; (g) the backlog; (h) the node stream against the
+    dense `run_scan`."""
+    import torch
+
+    from go_avalanche_tpu_torch import prng, workload
+    from go_avalanche_tpu_torch.models import node_stream
+    from go_avalanche_tpu_torch.models import streaming_dag as sdg
+    from go_avalanche_tpu_torch.parallel import sharded_backlog as sbl
+    from go_avalanche_tpu_torch.parallel import sharded_node_stream as sns
+    from go_avalanche_tpu_torch.parallel import sharded_streaming_dag as ssd
+    from go_avalanche_tpu_torch.parallel.mesh import make_mesh
+
+    shape = STREAMING_MESH["quick" if quick else "full"]
+    mesh = make_mesh(1, 1)
+    out = {}
+    if torch.device(device).type == "cuda":
+        torch.cuda.reset_peak_memory_stats()
+
+    # (f)
+    start, cfg = _northstar(shape, device)
+    finals, rows = {}, {}
+    for kernel, c in (("vote_u8", cfg), ("vote_swar", dataclasses.replace(
+            cfg, ingest_engine="swar32"))):
+        row = _counted_run(lambda: ssd.run_sharded_streaming_dag(
+            mesh, ssd.shard_streaming_dag_state(start, mesh), c,
+            max_rounds=STREAM_MAX_ROUNDS), device)
+        finals[kernel] = row.pop("out")
+        rounds = int(finals[kernel].dag.base.round)
+        _check_one_launch_a_round(f"(f) 1x1 {kernel}", row, kernel, rounds)
+        _add_launches(total, paths, row)
+        rows[kernel] = {**row, "rounds": rounds,
+                        "ms_per_round": row["wall_s"] * 1e3 / rounds}
+    assert_trees_equal(finals["vote_u8"], finals["vote_swar"],
+                       "(f) 1x1 u8 vs swar32")
+    gate = _config6_gate(finals["vote_u8"], shape, quick)
+    tiles = tile_digests(finals["vote_u8"], mesh,
+                         ssd.specs_of(finals["vote_u8"]))
+    del finals
+    reset_launches()
+    _synchronize(device)
+    t0 = time.perf_counter()
+    dense = sdg.run(start, cfg, max_rounds=STREAM_MAX_ROUNDS, device=device)
+    _synchronize(device)
+    dense_ms = (time.perf_counter() - t0) * 1e3 / int(dense.dag.base.round)
+    out["streaming_dag"] = {
+        "mesh": [1, 1], "nodes": shape["nodes"],
+        "window_sets": shape["window_sets"], "backlog_sets": shape["sets"],
+        "depth_cut": f"backlog cut to {shape['sets']} sets to fit the "
+                     f"part's time; width unchanged",
+        **gate, "engines": rows,
+        "dense_streaming_dag_ms_per_round": dense_ms,
+        "peak_gib": _peak_gib(device)}
+    del start, dense
+    _empty_cache(device)
+
+    # (g)
+    start, cfg = workload.config5_state(quick, device=device,
+                                        n_txs=shape["backlog_txs"])
+    row = _counted_run(lambda: sbl.run_sharded_backlog(
+        mesh, sbl.shard_backlog_state(start, mesh), cfg,
+        max_rounds=STREAM_MAX_ROUNDS), device)
+    final = row.pop("out")
+    rounds = int(final.sim.round)
+    _check_one_launch_a_round("(g) 1x1", row, "vote_u8", rounds)
+    _add_launches(total, paths, row)
+    if not (bool(final.outputs.settled.all())
+            and bool(final.outputs.accepted.all())):
+        raise AssertionError("(g) 1x1: not every tx settled accepted")
+    out["backlog"] = {"mesh": [1, 1], "backlog_txs": shape["backlog_txs"],
+                      "window": int(start.slot_tx.shape[0]), **row,
+                      "rounds": rounds,
+                      "ms_per_round": row["wall_s"] * 1e3 / rounds,
+                      "outputs": workload.leaf_digests(
+                          {f: getattr(final.outputs, f).cpu().numpy()
+                           for f in final.outputs._fields})}
+    del start, final
+    _empty_cache(device)
+
+    # (h)
+    ncfg = _node_stream_config(shape)
+    start = node_stream.init(prng.key(0, device), shape["node_txs"], ncfg,
+                             device=device)
+    n_rounds = shape["node_rounds"]
+    row = _counted_run(lambda: sns.run_scan_sharded_node_stream(
+        mesh, sns.shard_node_stream_state(start, mesh), ncfg, n_rounds),
+        device)
+    final, tel = row.pop("out")
+    _check_one_launch_a_round("(h) 1x1", row, "vote_u8", n_rounds)
+    _add_launches(total, paths, row)
+    dense, dtel = node_stream.run_scan(start, ncfg, n_rounds, device=device)
+    got, want = _working_set(final, tel), _working_set(dense, dtel)
+    if got != want:
+        raise AssertionError(f"(h) 1x1: working set differs from the dense "
+                             f"run_scan's: {sorted(k for k in got if got[k] != want[k])}")
+    out["node_stream"] = {"mesh": [1, 1], "registry": shape["registry"],
+                          "active": shape["active"],
+                          "txs": shape["node_txs"], **row,
+                          "rounds": n_rounds, "departed": int(
+                              tel.departed.sum()),
+                          "ms_per_round": row["wall_s"] * 1e3 / n_rounds}
+    del start, final, dense
+    _empty_cache(device)
+    return {"rows": out, "tiles": tiles, "working_set": want,
+            "backlog_outputs": out["backlog"]["outputs"],
+            "backlog_rounds": rounds}
+
+
+def stream_dag_rank(quick: bool, mesh_shape, path: str,
+                    device="cuda") -> dict:
+    """Part (f), in a rank: the streaming DAG at config 6's width on
+    `mesh_shape` to settlement, saved with the DCP pair at
+    `save_round`, then restored and run on to the end again; the tile
+    digests of both ends, the save and restore seconds and the
+    checkpoint's bytes."""
+    import os
+
+    from go_avalanche_tpu_torch.parallel import sharded_streaming_dag as ssd
+    from go_avalanche_tpu_torch.parallel.mesh import make_mesh
+    from go_avalanche_tpu_torch.utils import checkpoint
+
+    dev = _rank_setup(device)
+    shape = STREAMING_MESH["quick" if quick else "full"]
+    mesh = make_mesh(*mesh_shape)
+    start, cfg = _northstar(shape, dev)
+    template = ssd.shard_streaming_dag_state(start, mesh)
+    del start
+    step = ssd.make_sharded_streaming_dag_step(mesh, cfg)
+
+    def through():
+        block = template
+        for _ in range(shape["save_round"]):
+            block = step(block)[0]
+        t0 = time.perf_counter()
+        checkpoint.save_checkpoint_dcp(path, block, mesh)
+        saved_s = time.perf_counter() - t0
+        block = ssd.run_sharded_streaming_dag(mesh, block, cfg,
+                                              max_rounds=STREAM_MAX_ROUNDS)
+        return block, saved_s
+
+    row = _counted_run(through, device)
+    final, save_s = row.pop("out")
+    rounds = int(final.dag.base.round)
+    tiles = tile_digests(final, mesh, ssd.specs_of(final))
+    # The outputs, backlog and round are replicated: the block has them.
+    gate = _config6_gate(final, shape, quick)
+    del final
+    t0 = time.perf_counter()
+    block = checkpoint.restore_checkpoint_dcp(path, template, mesh)
+    _synchronize(dev)
+    restore_s = time.perf_counter() - t0
+    resumed = _counted_run(lambda: ssd.run_sharded_streaming_dag(
+        mesh, block, cfg, max_rounds=STREAM_MAX_ROUNDS), device)
+    final = resumed.pop("out")
+    if tile_digests(final, mesh, ssd.specs_of(final)) != tiles:
+        raise AssertionError(f"(f) {mesh_shape}: the run resumed from the "
+                             f"DCP checkpoint differs from the "
+                             f"uninterrupted one")
+    size = sum(os.path.getsize(os.path.join(d, f))
+               for d, _, files in os.walk(path) for f in files)
+    return {"tiles": tiles, **gate, "rounds": rounds,
+            "ms_per_round": (row["wall_s"] - save_s) * 1e3 / rounds,
+            "run": row, "resumed": resumed,
+            "resumed_rounds": int(final.dag.base.round) - shape["save_round"],
+            "block": list(template.dag.base.records.votes.shape),
+            "dcp_save_s": save_s, "dcp_restore_s": restore_s,
+            "dcp_bytes": size, "peak_gib": _peak_gib(dev)}
+
+
+def stream_backlog_rank(quick: bool, mesh_shape, device="cuda") -> dict:
+    """Part (g), in a rank: the backlog at config 5's width on
+    `mesh_shape` to settlement; the gathered outputs' digests."""
+    from go_avalanche_tpu_torch import workload
+    from go_avalanche_tpu_torch.parallel import sharded_backlog as sbl
+    from go_avalanche_tpu_torch.parallel.mesh import make_mesh
+
+    dev = _rank_setup(device)
+    shape = STREAMING_MESH["quick" if quick else "full"]
+    mesh = make_mesh(*mesh_shape)
+    start, cfg = workload.config5_state(quick, device=dev,
+                                        n_txs=shape["backlog_txs"])
+    block = sbl.shard_backlog_state(start, mesh)
+    del start
+    row = _counted_run(lambda: sbl.run_sharded_backlog(
+        mesh, block, cfg, max_rounds=STREAM_MAX_ROUNDS), device)
+    final = sbl.gather_backlog_state(row.pop("out"), mesh)
+    rounds = int(final.sim.round)
+    return {**row, "rounds": rounds,
+            "ms_per_round": row["wall_s"] * 1e3 / rounds,
+            "block": list(block.sim.records.votes.shape),
+            "outputs": workload.leaf_digests(
+                {f: getattr(final.outputs, f).cpu().numpy()
+                 for f in final.outputs._fields}),
+            "peak_gib": _peak_gib(dev)}
+
+
+def stream_node_rank(quick: bool, mesh_shape, device="cuda") -> dict:
+    """Part (h), in a rank: the node stream on `mesh_shape`; the working
+    set's digests."""
+    from go_avalanche_tpu_torch import prng
+    from go_avalanche_tpu_torch.models import node_stream
+    from go_avalanche_tpu_torch.parallel import sharded_node_stream as sns
+    from go_avalanche_tpu_torch.parallel.mesh import make_mesh
+
+    dev = _rank_setup(device)
+    shape = STREAMING_MESH["quick" if quick else "full"]
+    mesh = make_mesh(*mesh_shape)
+    ncfg = _node_stream_config(shape)
+    start = node_stream.init(prng.key(0, dev), shape["node_txs"], ncfg,
+                             device=dev)
+    block = sns.shard_node_stream_state(start, mesh)
+    del start
+    n_rounds = shape["node_rounds"]
+    row = _counted_run(lambda: sns.run_scan_sharded_node_stream(
+        mesh, block, ncfg, n_rounds), device)
+    final, tel = row.pop("out")
+    return {**row, "rounds": n_rounds,
+            "ms_per_round": row["wall_s"] * 1e3 / n_rounds,
+            "block": list(block.sim.records.votes.shape),
+            "working_set": _working_set(final, tel),
+            "peak_gib": _peak_gib(dev)}
+
+
+def stream_record_rank(name: str, device="cuda") -> dict:
+    """Part (i), in a rank: a `workload.STREAMING_SHARDED_CASES` case
+    through its scan driver; rank 0 digests the gathered state and the
+    telemetry."""
+    from go_avalanche_tpu_torch import convert, workload
+    from go_avalanche_tpu_torch.parallel import sharded_backlog as sbl
+    from go_avalanche_tpu_torch.parallel import sharded_node_stream as sns
+    from go_avalanche_tpu_torch.parallel import sharded_streaming_dag as ssd
+    from go_avalanche_tpu_torch.parallel.mesh import make_mesh
+
+    dev = _rank_setup(device)
+    case = workload.STREAMING_SHARDED_CASES[name]
+    model = case["model"]
+    drivers = {
+        "backlog": (sbl.shard_backlog_state, sbl.run_scan_sharded_backlog,
+                    sbl.gather_backlog_state,
+                    convert.backlog_state_to_numpy),
+        "streaming_dag": (ssd.shard_streaming_dag_state,
+                          ssd.run_scan_sharded_streaming_dag,
+                          ssd.gather_streaming_dag_state,
+                          convert.streaming_dag_state_to_numpy),
+        "node_stream": (sns.shard_node_stream_state,
+                        sns.run_scan_sharded_node_stream,
+                        sns.gather_node_stream_state,
+                        convert.node_stream_state_to_numpy)}
+    shard, scan, gather, to_numpy = drivers[model]
+    mesh = make_mesh(*case["mesh"])
+    start, cfg = workload.streaming_sharded_state(model, device=dev)
+    row = _counted_run(lambda: scan(mesh, shard(start, mesh), cfg,
+                                    case["rounds"]), device)
+    block, tel = row.pop("out")
+    whole = to_numpy(gather(block, mesh))
+    out = {**row, "rounds": case["rounds"]}
+    if mesh.rank == 0:
+        out["leaves"] = workload.short_digests(whole)
+        out["telemetry"] = workload.short_digests(workload.numpy_tree(tel))
+    return out
+
+
+def streaming_ranks(pool, quick: bool, device, work: str, one: dict,
+                    total: dict, paths: dict) -> dict:
+    """Part streaming in the gloo ranks sharing the card: (f) 1x2 against
+    (f)'s 1x1 by tile digests (every leaf but the per-shard rank leaves:
+    the tx-only contract as the JAX drivers show it) with the DCP pair;
+    (g) and (h) on 2x1 against their 1x1 runs; (i) every
+    `STREAMING_SHARDED_RECORDS` digest."""
+    import os
+
+    from go_avalanche_tpu_torch import workload
+
+    out = {}
+    rows = pool.run(2, "chip_smoke:stream_dag_rank", quick, (1, 2),
+                    os.path.join(work, "dcp"), device, timeout=MESH_TIMEOUT)
+    tiles = {}
+    for row in rows:
+        tiles.update(row.pop("tiles"))
+        _check_one_launch_a_round("(f) 1x2", row["run"], "vote_u8",
+                                  row["rounds"])
+        _check_one_launch_a_round("(f) 1x2 resumed", row["resumed"],
+                                  "vote_u8", row["resumed_rounds"])
+        _add_launches(total, paths, row["run"])
+        _add_launches(total, paths, row["resumed"])
+    if _without_ranks(tiles) != _without_ranks(one["tiles"]):
+        raise AssertionError("(f) 1x2 is not leaf-equal to 1x1 (rank "
+                             "leaves aside)")
+    out["streaming_dag"] = {
+        "mesh": [1, 2], "block": rows[0]["block"],
+        "rounds": rows[0]["rounds"],
+        "ms_per_round": max(r["ms_per_round"] for r in rows),
+        "host_staged": sum(r["run"]["host_staged"] for r in rows),
+        "dcp_save_s": max(r["dcp_save_s"] for r in rows),
+        "dcp_restore_s": max(r["dcp_restore_s"] for r in rows),
+        "dcp_bytes": rows[0]["dcp_bytes"],
+        "rank_peak_gib": [r["peak_gib"] for r in rows]}
+
+    rows = pool.run(2, "chip_smoke:stream_backlog_rank", quick, (2, 1),
+                    device, timeout=MESH_TIMEOUT)
+    for row in rows:
+        _add_launches(total, paths, row)
+        _check_one_launch_a_round("(g) 2x1", row, "vote_u8", row["rounds"])
+        if (row["outputs"] != one["backlog_outputs"]
+                or row["rounds"] != one["backlog_rounds"]):
+            raise AssertionError("(g) 2x1: outputs or rounds differ from "
+                                 "the 1x1 run's")
+    out["backlog"] = {"mesh": [2, 1], "block": rows[0]["block"],
+                      "rounds": rows[0]["rounds"],
+                      "ms_per_round": max(r["ms_per_round"] for r in rows),
+                      "host_staged": sum(r["host_staged"] for r in rows),
+                      "rank_peak_gib": [r["peak_gib"] for r in rows]}
+
+    rows = pool.run(2, "chip_smoke:stream_node_rank", quick, (2, 1), device,
+                    timeout=MESH_TIMEOUT)
+    for row in rows:
+        _add_launches(total, paths, row)
+        _check_one_launch_a_round("(h) 2x1", row, "vote_u8", row["rounds"])
+        if row["working_set"] != one["working_set"]:
+            raise AssertionError("(h) 2x1: the working set differs from "
+                                 "the dense run_scan's")
+    out["node_stream"] = {"mesh": [2, 1], "block": rows[0]["block"],
+                          "rounds": rows[0]["rounds"],
+                          "ms_per_round": max(r["ms_per_round"]
+                                              for r in rows),
+                          "host_staged": sum(r["host_staged"] for r in rows),
+                          "rank_peak_gib": [r["peak_gib"] for r in rows]}
+
+    records = []
+    for name, case in workload.STREAMING_SHARDED_CASES.items():
+        rows = pool.run(case["mesh"][0] * case["mesh"][1],
+                        "chip_smoke:stream_record_rank", name, device,
+                        timeout=MESH_TIMEOUT)
+        want = workload.STREAMING_SHARDED_RECORDS[name]
+        for key in ("leaves", "telemetry"):
+            if rows[0][key] != want[key]:
+                bad = sorted(k for k in want[key]
+                             if rows[0][key].get(k) != want[key][k])
+                raise AssertionError(f"(i) {name}: {key} {bad} differ "
+                                     f"from the JAX package's record")
+        for row in rows:
+            _add_launches(total, paths, row)
+        records.append({"case": name, "mesh": list(case["mesh"]),
+                        "rounds": case["rounds"],
+                        "wall_s": max(r["wall_s"] for r in rows),
+                        "leaves_checked": len(want["leaves"]),
+                        "telemetry_checked": len(want["telemetry"])})
+    out["records"] = records
+    return out
 
 
 def run_mesh(quick: bool = False, device="cuda") -> dict:
@@ -2956,7 +3435,7 @@ def run_mesh(quick: bool = False, device="cuda") -> dict:
     for name, c in cfgs.items():
         sharded.run_scan_sharded(mesh, start, c, 1)    # warm-up, untimed
         row = _mesh_scan(mesh, sharded.shard_state(start, mesh), c, rounds,
-                         device, digests=name == "vote_u8")
+                         device, digests=False)
         if row["launches"][name] != rounds or sum(
                 row["launches"].values()) != rounds:
             raise AssertionError(f"(a) {name}: launches {row['launches']} "
@@ -2979,20 +3458,26 @@ def run_mesh(quick: bool = False, device="cuda") -> dict:
     _synchronize(device)
     part_a["dense_phased_u8_ms_per_round"] = (
         (time.perf_counter() - t0) * 1e3 / rounds)
-    del start, state
+    del start, state, finals
+    _empty_cache(device)
+    # Part streaming's 1x1 runs on the same NCCL world.
+    t_stream = time.perf_counter()
+    one = streaming_1x1(quick, device, total, paths)
+    stream_wall = time.perf_counter() - t_stream
     dist.destroy_process_group()
     _empty_cache(device)
 
     pool = RankPool(MESH_RANKS, work, threads=2)
     try:
         # (b) gloo ranks sharing the card: the tx-only contract.
-        runs = {(1, 1): {k: finals["vote_u8"][k]
-                         for k in ("tiles", "telemetry")}}
+        contract = MESH_CONTRACT_SHAPES["quick" if quick else "full"]
+        runs = {}
         part_b = []
-        for mesh_shape in ((2, 1), (1, 2), (1, 4), (2, 2)):
+        for mesh_shape in ((1, 1), (2, 1), (1, 2), (1, 4), (2, 2)):
             t0 = time.perf_counter()
             rows = pool.run(mesh_shape[0] * mesh_shape[1],
-                            "chip_smoke:mesh_flagship_rank", n, t, rounds,
+                            "chip_smoke:mesh_flagship_rank",
+                            contract["nodes"], contract["txs"], rounds,
                             mesh_shape, "u8", device, timeout=MESH_TIMEOUT)
             tiles = {}
             for row in rows:
@@ -3049,8 +3534,20 @@ def run_mesh(quick: bool = False, device="cuda") -> dict:
             _add_launches(total, paths, row)
         part_d = {"mesh": [2, 1], "row": rows[0]["row"],
                   "wall_s": max(r["wall_s"] for r in rows)}
+
+        # part streaming in the ranks
+        t_stream = time.perf_counter()
+        ranked = streaming_ranks(pool, quick, device, work, one, total,
+                                 paths)
+        stream_wall += time.perf_counter() - t_stream
     finally:
         pool.close()
+    streaming = []
+    for name in ("streaming_dag", "backlog", "node_stream"):
+        streaming += [{"model": name, **one["rows"][name]},
+                      {"model": name, **ranked[name]}]
+    streaming.append({"records": ranked["records"],
+                      "part_wall_s": stream_wall})
 
     # (e) the distributed smoke's two lines.
     part_e = []
@@ -3068,7 +3565,8 @@ def run_mesh(quick: bool = False, device="cuda") -> dict:
     if {d["polls"] for d in part_e} != {part_e[0]["polls"]}:
         raise AssertionError(f"(e) ranks disagree: {part_e}")
     return {"flagship": part_a, "contract": part_b, "records": part_c,
-            "fleet": part_d, "smoke": part_e, "launches": total,
+            "fleet": part_d, "smoke": part_e, "streaming": streaming,
+            "launches": total,
             "launches_by_ingest_path": paths,
             "wall_s": time.perf_counter() - t_phase}
 
@@ -3227,7 +3725,8 @@ def main() -> int:
     # 13. the sharded drivers on one card: NCCL world 1, gloo ranks
     # sharing it, the JAX package's records, the fleet, the smoke
     mesh = run_mesh()
-    for part in ("flagship", "contract", "records", "fleet", "smoke"):
+    for part in ("flagship", "contract", "records", "fleet", "smoke",
+                 "streaming"):
         rows = mesh[part]
         for r in (rows if isinstance(rows, list) else [rows]):
             emit({"phase": "mesh", "part": part, **r, **label})

@@ -190,6 +190,37 @@ def _settled_slots(state: BacklogSimState,
     return occupied & (~pending.any(dim=0) | ~sim.valid)
 
 
+def refill_slots(sim: av.AvalancheSimState, queue: Backlog,
+                 settled: torch.Tensor, take: torch.Tensor,
+                 cand: torch.Tensor, new_tx: torch.Tensor
+                 ) -> av.AvalancheSimState:
+    """The window after a retire and refill pass: `take` slots seed fresh
+    records from their backlog entries `cand` on every node, the other
+    slots keep theirs (cleared where `new_tx` is empty), and the scores,
+    poll-order ranks, finality stamps and in-flight columns follow."""
+    b = queue.score.shape[0]
+    cand_safe = cand.clamp(0, b - 1).long()
+    fresh = vr.init_state(queue.init_pref[cand_safe][None, :])
+    records = vr.VoteRecordState(*(torch.where(take[None, :], f, p)
+                                   for p, f in zip(sim.records, fresh)))
+    occupied_after = new_tx != NO_TX
+    # Admission seeds every node; retired slots clear.
+    added = take[None, :] | (sim.added & occupied_after[None, :])
+    valid = torch.where(take, queue.valid[cand_safe],
+                        sim.valid & occupied_after)
+    score = torch.where(occupied_after,
+                        queue.score[new_tx.clamp(0, b - 1).long()],
+                        EMPTY_SCORE)
+    score_rank, poll_order, poll_order_inv = av.score_rank_with_orders(score)
+    return sim._replace(
+        records=records, added=added, valid=valid, score_rank=score_rank,
+        poll_order=poll_order, poll_order_inv=poll_order_inv,
+        finalized_at=av.reset_finality(sim.finalized_at, take),
+        # Responses still in flight for a retired slot must not land on
+        # its new occupant.
+        inflight=inflight.clear_columns(sim.inflight, settled | take))
+
+
 def _retire_and_refill(state: BacklogSimState, cfg: AvalancheConfig,
                        refill: bool = True
                        ) -> Tuple[BacklogSimState, torch.Tensor]:
@@ -238,30 +269,7 @@ def _retire_and_refill(state: BacklogSimState, cfg: AvalancheConfig,
                          torch.where(settled, NO_TX, state.slot_tx))
     n_taken = take.sum(dtype=torch.int32)
 
-    cand_safe = cand.clamp(0, b - 1).long()
-    fresh = vr.init_state(state.backlog.init_pref[cand_safe][None, :])
-
-    def fill(plane, fresh_plane):
-        return torch.where(take[None, :], fresh_plane, plane)
-
-    records = vr.VoteRecordState(*(fill(p, f) for p, f in
-                                   zip(sim.records, fresh)))
-    occupied_after = new_tx != NO_TX
-    # Admission seeds every node; retired slots clear.
-    added = take[None, :] | (sim.added & occupied_after[None, :])
-    valid = torch.where(take, state.backlog.valid[cand_safe],
-                        sim.valid & occupied_after)
-    score = torch.where(occupied_after,
-                        state.backlog.score[new_tx.clamp(0, b - 1).long()],
-                        EMPTY_SCORE)
-    score_rank, poll_order, poll_order_inv = av.score_rank_with_orders(score)
-    new_sim = sim._replace(
-        records=records, added=added, valid=valid, score_rank=score_rank,
-        poll_order=poll_order, poll_order_inv=poll_order_inv,
-        finalized_at=av.reset_finality(sim.finalized_at, take),
-        # Responses still in flight for a retired slot must not land on
-        # its new occupant.
-        inflight=inflight.clear_columns(sim.inflight, settled | take))
+    new_sim = refill_slots(sim, state.backlog, settled, take, cand, new_tx)
     return BacklogSimState(
         sim=new_sim,
         slot_tx=new_tx,

@@ -200,6 +200,64 @@ def _first_true(mask: torch.Tensor, size: int) -> torch.Tensor:
     return torch.sort(torch.where(mask, pos, n)).values[:size]
 
 
+def refill_planes(base, settled: torch.Tensor, take: torch.Tensor,
+                  occupied_after_w: torch.Tensor, pref_rows: torch.Tensor,
+                  k_slots: Optional[int] = None) -> tuple:
+    """``(records, added, finalized_at)`` of the window after a retire
+    and refill pass: `take` (bool ``[S_w]``) set-slots seed fresh records
+    from `pref_rows` (``[S_w, c]``) on every node and `settled` ones
+    clear.  With `k_slots` (the retire cap) only the columns of the at
+    most `k_slots` slots that change are rewritten."""
+    w = base.records.votes.shape[1]
+    s_w, c = pref_rows.shape
+    take_w = take.repeat_interleave(c)                           # [W]
+    if k_slots is not None:
+        # Columns of the slots that change (retire or admit).  The
+        # reference pads the slot list with s_w, whose columns its
+        # scatter drops; here a pad entry repeats the first listed slot
+        # (the same columns, the same values), so the writes are the
+        # reference's without a host read.
+        changed = settled | take
+        slot_ids = _first_true(changed, k_slots)                 # [K]
+        first = slot_ids[:1].clamp_max(s_w - 1)
+        sid = torch.where(slot_ids < s_w, slot_ids, first).long()
+        lanes = torch.arange(c, device=sid.device)
+        cols = (sid[:, None] * c + lanes[None, :]).reshape(-1)   # [K*c]
+        take_cols = take[sid].repeat_interleave(c)[None, :]
+        real_cols = changed[sid].repeat_interleave(c)[None, :]
+        fresh = vr.init_state(pref_rows[sid].reshape(-1)[None, :])
+
+        def fill_cols(plane, fresh_plane):
+            # Admitted columns seed fresh; retiring-only columns keep
+            # their values (added and valid mask them out of every poll).
+            new = plane.clone()
+            new[:, cols] = torch.where(take_cols, fresh_plane,
+                                       plane[:, cols])
+            return new
+
+        records = vr.VoteRecordState(*(fill_cols(p, f) for p, f in
+                                       zip(base.records, fresh)))
+        # A retiring column clears and an admitted one seeds every node;
+        # a pad entry of an unchanged slot writes its values back.
+        added = base.added.clone()
+        added[:, cols] = torch.where(real_cols, take_cols,
+                                     base.added[:, cols])
+        finalized_at = base.finalized_at
+        if finalized_at is not None:   # stamps reset at admitted columns
+            finalized_at = fill_cols(finalized_at, -1)
+        return records, added, finalized_at
+    fresh = vr.init_state(pref_rows.reshape(w)[None, :])
+
+    def fill(plane, fresh_plane):
+        return torch.where(take_w[None, :], fresh_plane, plane)
+
+    records = vr.VoteRecordState(*(fill(p, f) for p, f in
+                                   zip(base.records, fresh)))
+    # Admission seeds every node; retired slots clear.
+    added = take_w[None, :] | (base.added & occupied_after_w[None, :])
+    return records, added, av.reset_finality(base.finalized_at, take_w)
+
+
 def _retire_and_refill(state: StreamingDagState, cfg: AvalancheConfig,
                        refill: bool = True
                        ) -> Tuple[StreamingDagState, torch.Tensor]:
@@ -276,52 +334,9 @@ def _retire_and_refill(state: StreamingDagState, cfg: AvalancheConfig,
     take_w = take.repeat_interleave(c)                           # [W]
     occupied_after_w = (new_set != NO_SET).repeat_interleave(c)
 
-    if sparse:
-        # Columns of the slots that change (retire or admit).  The
-        # reference pads the slot list with s_w, whose columns its
-        # scatter drops; here a pad entry repeats the first listed slot
-        # (the same columns, the same values), so the writes are the
-        # reference's without a host read.
-        changed = settled | take
-        slot_ids = _first_true(changed, k_slots)                 # [K]
-        first = slot_ids[:1].clamp_max(s_w - 1)
-        sid = torch.where(slot_ids < s_w, slot_ids, first).long()
-        lanes = torch.arange(c, device=sid.device)
-        cols = (sid[:, None] * c + lanes[None, :]).reshape(-1)   # [K*c]
-        take_cols = take[sid].repeat_interleave(c)[None, :]
-        real_cols = changed[sid].repeat_interleave(c)[None, :]
-        fresh = vr.init_state(pref_rows[sid].reshape(-1)[None, :])
-
-        def fill_cols(plane, fresh_plane):
-            # Admitted columns seed fresh; retiring-only columns keep
-            # their values (added and valid mask them out of every poll).
-            new = plane.clone()
-            new[:, cols] = torch.where(take_cols, fresh_plane,
-                                       plane[:, cols])
-            return new
-
-        records = vr.VoteRecordState(*(fill_cols(p, f) for p, f in
-                                       zip(base.records, fresh)))
-        # A retiring column clears and an admitted one seeds every node;
-        # a pad entry of an unchanged slot writes its values back.
-        added = base.added.clone()
-        added[:, cols] = torch.where(real_cols, take_cols,
-                                     base.added[:, cols])
-        finalized_at = base.finalized_at
-        if finalized_at is not None:   # stamps reset at admitted columns
-            finalized_at = fill_cols(finalized_at, -1)
-    else:
-        fresh = vr.init_state(pref_rows.reshape(w)[None, :])
-
-        def fill(plane, fresh_plane):
-            return torch.where(take_w[None, :], fresh_plane, plane)
-
-        records = vr.VoteRecordState(*(fill(p, f) for p, f in
-                                       zip(base.records, fresh)))
-        # Admission seeds every node; retired slots clear.
-        added = take_w[None, :] | (base.added & occupied_after_w[None, :])
-        finalized_at = av.reset_finality(base.finalized_at, take_w)
-
+    records, added, finalized_at = refill_planes(
+        base, settled, take, occupied_after_w, pref_rows,
+        k_slots if sparse else None)
     valid = torch.where(take_w, state.backlog.valid[cand_safe].reshape(w),
                         base.valid & occupied_after_w)
     score = torch.where(

@@ -6,11 +6,15 @@
   sharded            the sharded avalanche round and its drivers
   sharded_dag        the sharded conflict-set DAG
   sharded_fleet      the trial-sharded Monte-Carlo fleet
+  sharded_backlog    the sharded streaming backlog
+  sharded_streaming_dag  the sharded streaming conflict DAG
+  sharded_node_stream    the sharded node-axis stream
+  ranks              a pool of spawned ranks taking one case at a time
   distributed_smoke  an N-process smoke of the sharded round
 
 Each rank runs the reference's `shard_map` body for its own block; the
-collectives are explicit calls.  The streaming drivers (backlog,
-streaming DAG, node stream) and the reference's `footprint_cases`
-(which reads its XLA resource tooling) are not ported yet (ROADMAP.md
-Queue 1, items 15 and 17).
+collectives are explicit calls.  A sharded state is saved and restored
+with `utils/checkpoint.save_checkpoint_dcp` / `restore_checkpoint_dcp`.
+The reference's `footprint_cases`, which reads its XLA resource
+tooling, is not ported yet (ROADMAP.md Queue 1, item 17).
 """

@@ -59,7 +59,7 @@ def dag_state_specs(n_sets: int, set_size: Optional[int] = None,
                        set_size=set_size)
 
 
-def _specs_of(state: DagSimState) -> DagSimState:
+def specs_of(state: DagSimState) -> DagSimState:
     base = state.base
     return dag_state_specs(state.n_sets, state.set_size,
                            base.finalized_at is not None,
@@ -94,14 +94,14 @@ def shard_dag_state(state: DagSimState, mesh) -> DagSimState:
         inflight=inflight.repack_polled_for_shards(state.base.inflight, t,
                                                    n_tx_shards)))
     return sharded.map_specs(lambda x, s: sharded.block_of(x, s, mesh),
-                             state, _specs_of(state))
+                             state, specs_of(state))
 
 
 def gather_dag_state(state: DagSimState, mesh) -> DagSimState:
     """The global DAG state assembled from every rank's block, on every
     rank."""
     with C.bind(mesh):
-        return sharded.map_specs(sharded.assemble, state, _specs_of(state))
+        return sharded.map_specs(sharded.assemble, state, specs_of(state))
 
 
 def _local_sets(conflict_set_local: torch.Tensor) -> torch.Tensor:

@@ -21,14 +21,15 @@ txs streamed through a `--slots` working-set window; `streaming_dag` —
 `--slots`-set window; `node_stream` — a `--registry-nodes` population
 streamed through an `--active-nodes` window.
 
-``--mesh A,B`` runs the sharded drivers (`parallel/`) for `avalanche`
-and `dag` over A*B ranks, and with ``--fleet`` lays the trial axis over
-them; start the ranks with ``torchrun --nproc-per-node A*B -m
-go_avalanche_tpu_torch.run_sim ...`` (``--backend gloo`` when they share
-one card).  ``--mesh 1,1`` runs in one process.  Only rank 0 prints the
-result and writes the sinks.  `--mesh` with the streaming models
-(ROADMAP.md Queue 1 item 15), and `--fleet-shape`, `--audit`,
-`--report-memory` (item 17) raise `NotImplementedError`.
+``--mesh A,B`` runs the sharded drivers (`parallel/`) for `avalanche`,
+`dag`, `backlog`, `streaming_dag` and `node_stream` over A*B ranks, and
+with ``--fleet`` lays the trial axis over them; start the ranks with
+``torchrun --nproc-per-node A*B -m go_avalanche_tpu_torch.run_sim ...``
+(``--backend gloo`` when they share one card).  ``--mesh 1,1`` runs in
+one process.  Only rank 0 prints the result and writes the sinks.  The
+flags of the analysis tooling not ported yet (ROADMAP.md Queue 1 item
+17), `--fleet-shape`, `--audit` and `--report-memory`, raise
+`NotImplementedError`.
 """
 
 from __future__ import annotations
@@ -434,7 +435,15 @@ def run_streaming_dag(args, cfg: AvalancheConfig) -> Dict:
     state = sdg.init(_key(args), args.nodes, args.slots, backlog, cfg,
                      device=dev)
     state = sdg.with_trace(state, cfg, args.max_rounds)
-    if args.chunk:
+    if args.mesh:
+        from go_avalanche_tpu_torch.parallel import sharded_streaming_dag as ssd
+
+        mesh = _parse_mesh(args.mesh)
+        final = ssd.run_sharded_streaming_dag(
+            mesh, ssd.shard_streaming_dag_state(state, mesh), cfg,
+            max_rounds=args.max_rounds, donate=args.donate)
+        final = ssd.gather_streaming_dag_state(final, mesh)
+    elif args.chunk:
         # Host-chunked dispatch (the same final state as one run), and
         # --checkpoint resumes a killed run from the last saved boundary.
         state = _maybe_restore(args.checkpoint, state, dev)
@@ -473,7 +482,16 @@ def run_backlog(args, cfg: AvalancheConfig) -> Dict:
     b = bl.make_backlog(torch.arange(args.txs, dtype=torch.int32))
     state = bl.init(_key(args), args.nodes, args.slots, b, cfg, device=dev)
     state = bl.with_trace(state, cfg, args.max_rounds)
-    final = bl.run(state, cfg, args.max_rounds, device=dev)
+    if args.mesh:
+        from go_avalanche_tpu_torch.parallel import sharded_backlog
+
+        mesh = _parse_mesh(args.mesh)
+        final = sharded_backlog.run_sharded_backlog(
+            mesh, sharded_backlog.shard_backlog_state(state, mesh), cfg,
+            max_rounds=args.max_rounds, donate=args.donate)
+        final = sharded_backlog.gather_backlog_state(final, mesh)
+    else:
+        final = bl.run(state, cfg, args.max_rounds, device=dev)
     trace_extra = _emit_trace(args, cfg, final.sim.trace)
     settled = _np(final.outputs.settled)
     latency = (_np(final.outputs.settle_round)
@@ -501,7 +519,16 @@ def run_node_stream(args, cfg: AvalancheConfig) -> Dict:
     dev = args.device_resolved
     state = ns.init(_key(args), args.txs, cfg, device=dev)
     state = ns.with_trace(state, cfg, args.max_rounds)
-    final, _ = ns.run_scan(state, cfg, args.max_rounds, device=dev)
+    if args.mesh:
+        from go_avalanche_tpu_torch.parallel import sharded_node_stream as sns
+
+        mesh = _parse_mesh(args.mesh)
+        final, _ = sns.run_scan_sharded_node_stream(
+            mesh, sns.shard_node_stream_state(state, mesh), cfg,
+            n_rounds=args.max_rounds, donate=args.donate)
+        final = sns.gather_node_stream_state(final, mesh)
+    else:
+        final, _ = ns.run_scan(state, cfg, args.max_rounds, device=dev)
     return {
         # Overrides the generic "nodes" key (--nodes is unread here —
         # the window height is --active-nodes).
@@ -1408,12 +1435,6 @@ def parse_args(argv=None):
                 margin_base=args.adversary_margin)
         except ValueError as e:
             parser.error(f"--phase-grid: {e}")
-    if args.mesh and args.fleet is None and args.model not in ("avalanche",
-                                                               "dag"):
-        raise NotImplementedError(
-            f"--mesh with --model {args.model}: the sharded streaming "
-            f"drivers (backlog, streaming_dag, node_stream) are not "
-            f"ported yet (ROADMAP.md Queue 1, item 15)")
     try:
         cfg = build_config(args)
     except (ValueError, TypeError) as e:

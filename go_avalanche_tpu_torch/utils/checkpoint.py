@@ -18,14 +18,26 @@ Every device→host transfer of a save is bounded by `max_fetch_bytes`
 `fetch_timeout_s` deadline; every host→device transfer of a restore is
 bounded by `max_transfer_bytes`.  The file is written to ``path.tmp``
 and moved into place with `os.replace`, so an interrupted save never
-leaves a torn checkpoint.  The sharding-aware orbax backend is ROADMAP.md
-Queue 1 item 15 (`torch.distributed.checkpoint`).
+leaves a torn checkpoint.
+
+`save_checkpoint_dcp` / `restore_checkpoint_dcp` are the counterpart of
+the reference's orbax pair: a `torch.distributed.checkpoint` directory,
+for a state placed on a rank mesh (`parallel/`).  Each rank writes only
+its own block of every leaf, as a chunk of the global leaf (a `DTensor`
+over a `DeviceMesh` of the mesh's rank grid, `Shard` along the leaf's
+cut dimensions, `Replicate` elsewhere; replicated leaves are written
+once), and a restore reshards: onto the same mesh shape, another one,
+or one device.  The leaves are the npz backend's: the reference's order,
+names and dtypes through `convert.py`, PRNG keys as their plain uint32
+key words (the reference's `_split_keys`).  The directory is written as
+``path.tmp`` and renamed into place by rank 0 after every rank is done.
 """
 
 from __future__ import annotations
 
 import dataclasses
 import os
+import shutil
 import threading
 from typing import Any, Iterator, List, Optional, Tuple
 
@@ -312,3 +324,221 @@ def restore_checkpoint(path: str, template: Any, *,
     state = from_numpy(_replace_leaves(tree, iter(restored)), device="cpu")
     return _map_tensors(state, lambda t: _put_bounded(t, dev,
                                                       max_transfer_bytes))
+
+
+# ---------------------------------------------------------------------------
+# torch.distributed.checkpoint backend (sharding-aware, multi-process)
+
+
+def _sharded_specs(state) -> Any:
+    """The per-leaf spec tree of a state kind the sharded drivers place
+    (`parallel/`)."""
+    from go_avalanche_tpu_torch.parallel import (sharded, sharded_backlog,
+                                                 sharded_dag,
+                                                 sharded_node_stream,
+                                                 sharded_streaming_dag)
+
+    specs_of = {
+        avalanche.AvalancheSimState: sharded.specs_of,
+        dag.DagSimState: sharded_dag.specs_of,
+        backlog.BacklogSimState: sharded_backlog.specs_of,
+        streaming_dag.StreamingDagState: sharded_streaming_dag.specs_of,
+        node_stream.NodeStreamState: sharded_node_stream.specs_of,
+    }.get(type(state))
+    if specs_of is None:
+        raise TypeError(f"no mesh layout for {type(state).__name__}; the "
+                        f"DCP backend takes the sharded drivers' states")
+    return specs_of(state)
+
+
+def _spec_leaves(tree, specs) -> Iterator[tuple]:
+    """The spec of every leaf of a port state, in `_leaves` order (a
+    trace buffer's two leaves are replicated)."""
+    if tree is None:
+        return
+    if isinstance(tree, TraceBuffer):
+        yield specs
+        yield specs
+    elif isinstance(tree, dag.DagSimState):
+        yield from _spec_leaves(tree.base, specs.base)
+        yield specs.conflict_set
+    elif isinstance(tree, tuple) and hasattr(tree, "_fields"):
+        for name in tree._fields:
+            yield from _spec_leaves(getattr(tree, name),
+                                    getattr(specs, name))
+    else:
+        yield specs
+
+
+def _dcp_names(leaves) -> List[str]:
+    return [f"{_KEY_PREFIX}{i}" if is_key else f"leaf_{i}"
+            for i, (is_key, _) in enumerate(leaves)]
+
+
+def _mesh_view(mesh):
+    """``(DeviceMesh, device type)`` of a multi-rank `mesh`, built once
+    per mesh (every rank builds it: `DeviceMesh` makes a group per axis);
+    None for one rank.  The blocks travel on the host over gloo and on
+    the card over NCCL."""
+    import torch.distributed as dist
+
+    if mesh is None or mesh.size == 1:
+        return None
+    view = getattr(mesh, "_dcp_view", None)
+    if view is None:
+        from torch.distributed.device_mesh import DeviceMesh
+
+        dev_type = "cuda" if dist.get_backend() == "nccl" else "cpu"
+        view = (DeviceMesh(dev_type, torch.as_tensor(mesh.ranks),
+                           mesh_dim_names=mesh.axis_names), dev_type)
+        mesh._dcp_view = view
+    return view
+
+
+def _as_global(local: torch.Tensor, spec, mesh, view):
+    """`local` (this rank's block) as the global leaf DCP writes or
+    fills: a `DTensor` when the leaf is cut along a mesh axis, else the
+    tensor itself (a replicated leaf, written once)."""
+    if view is None or not any(spec):
+        return local
+    from torch.distributed.tensor import DTensor, Replicate, Shard
+
+    device_mesh, dev_type = view
+    shape = list(local.shape)
+    placements = [Replicate()] * len(mesh.axis_names)
+    for dim, axis in enumerate(spec):
+        if axis is not None:
+            shape[dim] *= mesh.shape[axis]
+            placements[mesh.axis_names.index(axis)] = Shard(dim)
+    stride = torch.empty(shape, dtype=torch.uint8, device="meta").stride()
+    return DTensor.from_local(local.to(dev_type), device_mesh, placements,
+                              run_check=False, shape=torch.Size(shape),
+                              stride=stride)
+
+
+def _dcp(call, payload, path: str, view) -> None:
+    """`dcp.save` or `dcp.load` of `payload` at `path`: over the mesh's
+    ranks, or in this process alone when there is no mesh view (whose
+    notice that it assumes so is silenced)."""
+    import warnings
+
+    with warnings.catch_warnings():
+        warnings.filterwarnings("ignore", "torch.distributed is disabled")
+        call(payload, checkpoint_id=path, no_dist=view is None)
+
+
+def _barrier(mesh) -> None:
+    import torch.distributed as dist
+
+    if mesh is not None and mesh.size > 1:
+        dist.barrier()
+
+
+def _install(tmp: str, path: str) -> None:
+    """Move a finished save at `tmp` into place at `path`: an older
+    checkpoint goes aside to ``path.old`` first and is deleted last, so
+    at every instant `path` or ``path.old`` holds a complete checkpoint
+    (`restore_checkpoint_dcp` reads ``path.old`` when `path` is
+    missing)."""
+    old = path + ".old"
+    if os.path.exists(path):
+        shutil.rmtree(old, ignore_errors=True)
+        os.replace(path, old)
+    os.replace(tmp, path)
+    shutil.rmtree(old, ignore_errors=True)
+
+
+def _complete(path: str) -> str:
+    """The directory of the last complete DCP checkpoint at `path`."""
+    for where in (path, path + ".old"):
+        if os.path.isfile(os.path.join(where, ".metadata")):
+            return where
+    raise FileNotFoundError(f"no complete DCP checkpoint at {path}")
+
+
+def save_checkpoint_dcp(path: str, state: Any, mesh=None) -> None:
+    """Save a state — this rank's block on `mesh`, or a whole state with
+    `mesh` None — as a `torch.distributed.checkpoint` directory at
+    `path`; every rank of the mesh calls it.
+
+    Each rank writes its own block of every leaf as a chunk of the
+    global leaf, and the replicated leaves once.  The directory is
+    written as ``path.tmp``; after every rank is done, rank 0 moves it
+    into place (`_install`), so a save that dies on the way leaves the
+    last complete checkpoint, or none, never a torn one."""
+    import torch.distributed.checkpoint as dcp
+
+    to_numpy, _ = _kind(state)
+    specs = _sharded_specs(state)
+    host = _map_tensors(state, lambda t: t.detach().to("cpu", copy=True))
+    leaves = list(_leaves(to_numpy(host)))
+    leaf_specs = list(_spec_leaves(state, specs))
+    view = _mesh_view(mesh)
+    payload = {"__leaf_count__": torch.tensor(len(leaves))}
+    for name, (_, leaf), spec in zip(_dcp_names(leaves), leaves,
+                                     leaf_specs):
+        local = torch.from_numpy(np.array(leaf, order="C"))
+        payload[name] = _as_global(local, spec, mesh, view)
+    lead = mesh is None or mesh.rank == 0
+    tmp = path + ".tmp"
+    if lead:
+        shutil.rmtree(tmp, ignore_errors=True)
+    _barrier(mesh)
+    _dcp(dcp.save, payload, tmp, view)
+    _barrier(mesh)
+    if lead:
+        _install(tmp, path)
+    _barrier(mesh)
+
+
+def restore_checkpoint_dcp(path: str, template: Any, mesh=None) -> Any:
+    """Restore a checkpoint of `save_checkpoint_dcp`, resharded as
+    `template` says: this rank's block of a state placed on `mesh` (any
+    mesh shape the leaves divide over), or with `mesh` None a whole
+    state (the "one device" restore; each caller reads every chunk).
+    Every rank of the mesh calls it.  The result's leaves lie on the
+    template's devices.  A leaf count, name, shape or dtype that differs
+    from the checkpoint's raises ValueError; nothing is cast."""
+    import torch.distributed.checkpoint as dcp
+    from torch.distributed.checkpoint.metadata import TensorStorageMetadata
+
+    path = _complete(path)
+    to_numpy, from_numpy = _kind(template)
+    specs = _sharded_specs(template)
+    tree = to_numpy(_map_tensors(template, _spec))
+    wanted = list(_leaves(tree))
+    leaf_specs = list(_spec_leaves(template, specs))
+    names = _dcp_names(wanted)
+    saved = dcp.FileSystemReader(path).read_metadata().state_dict_metadata
+    n_saved = len([k for k in saved if k != "__leaf_count__"])
+    if n_saved != len(wanted):
+        raise ValueError(
+            f"checkpoint has {n_saved} leaves, template has {len(wanted)} "
+            f"— saved from a structurally different state (e.g. the "
+            f"opposite `track_finality` mode, or another model/config); "
+            f"rebuild the template to match how the checkpoint was "
+            f"produced")
+    view = _mesh_view(mesh)
+    payload, locals_ = {}, []
+    for i, (name, (_, want), spec) in enumerate(zip(names, wanted,
+                                                    leaf_specs)):
+        meta = saved.get(name)
+        if not isinstance(meta, TensorStorageMetadata):
+            raise ValueError(f"checkpoint missing leaf {i} ({name}: "
+                             f"template/checkpoint structure mismatch)")
+        local = torch.from_numpy(np.zeros(want.shape, want.dtype))
+        glob = _as_global(local, spec, mesh, view)
+        got = (meta.properties.dtype, list(meta.size))
+        if got != (local.dtype, list(glob.shape)):
+            raise ValueError(
+                f"checkpoint leaf {i}: got {got[0]}{got[1]}, template has "
+                f"{local.dtype}{list(glob.shape)}")
+        payload[name] = glob
+        locals_.append(glob)
+    _dcp(dcp.load, payload, path, view)
+    restored = [(x.to_local() if hasattr(x, "to_local") else x).cpu()
+                .numpy() for x in locals_]
+    devices = []
+    _map_tensors(template, lambda t: devices.append(t.device) or t)
+    dev = devices[0] if devices else torch.device("cpu")
+    return from_numpy(_replace_leaves(tree, iter(restored)), device=dev)

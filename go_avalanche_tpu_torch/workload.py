@@ -1394,3 +1394,465 @@ SHARDED_RECORDS = {
         },
     },
 }
+
+
+# The streaming drivers' chip cases (`chip_smoke.py` phase 13, part i):
+# each model at a small width, `STREAMING_SHARDED_ROUNDS` steps of its
+# scan driver on meshes 1x1, 2x1 and 1x2, seeded with ``key(0)``.
+STREAMING_SHARDED_MODELS = {
+    "backlog": dict(nodes=512, window=256, txs=1024,
+                    knobs=dict(byzantine_fraction=0.2)),
+    "streaming_dag": dict(nodes=512, window_sets=128, sets=512, set_cap=2,
+                          knobs=dict(byzantine_fraction=0.2)),
+    "node_stream": dict(txs=256, knobs=dict(
+        stake_mode="zipf", registry_nodes=4096, active_nodes=512,
+        node_churn_rate=0.05, byzantine_fraction=0.2)),
+}
+STREAMING_SHARDED_ROUNDS = {"backlog": 30, "streaming_dag": 30,
+                            "node_stream": 5}
+STREAMING_SHARDED_CASES = {
+    f"{model}_{a}x{b}": dict(model=model, mesh=(a, b),
+                             rounds=STREAMING_SHARDED_ROUNDS[model])
+    for model in STREAMING_SHARDED_MODELS for a, b in ((1, 1), (2, 1),
+                                                       (1, 2))}
+
+
+def streaming_sharded_state(model: str, device="cuda"):
+    """``(state, cfg)`` of a `STREAMING_SHARDED_MODELS` entry on
+    `device`."""
+    from go_avalanche_tpu_torch.models import node_stream
+
+    spec = STREAMING_SHARDED_MODELS[model]
+    cfg = AvalancheConfig(**spec["knobs"])
+    key = prng.key(0, device)
+    if model == "backlog":
+        queue = backlog.make_backlog(torch.arange(spec["txs"],
+                                                  dtype=torch.int32))
+        return backlog.init(key, spec["nodes"], spec["window"], queue, cfg,
+                            device=device), cfg
+    if model == "streaming_dag":
+        n = spec["sets"] * spec["set_cap"]
+        queue = streaming_dag.make_set_backlog(
+            torch.arange(n, dtype=torch.int32).reshape(spec["sets"],
+                                                       spec["set_cap"]))
+        return streaming_dag.init(key, spec["nodes"], spec["window_sets"],
+                                  queue, cfg, device=device), cfg
+    return node_stream.init(key, spec["txs"], cfg, device=device), cfg
+
+
+def numpy_tree(tel):
+    """A (stacked) telemetry tree of nested NamedTuples of tensors, None
+    slots kept, as nested dicts of numpy arrays (`leaf_digests`'
+    input)."""
+    if tel is None:
+        return None
+    if hasattr(tel, "_fields"):
+        return {f: numpy_tree(getattr(tel, f)) for f in tel._fields}
+    return tel.cpu().numpy()
+
+
+def short_digests(tree) -> Dict[str, str]:
+    """`leaf_digests` cut to 16 hex digits, without the node stream's
+    float `resident_stake` (its float64 sum differs from the reference's
+    float32 one in the last bits; ROADMAP.md Queue 3)."""
+    return {k: v[:16] for k, v in leaf_digests(tree).items()
+            if not k.endswith("resident_stake")}
+
+
+# `STREAMING_SHARDED_RECORDS`: the JAX package's results for
+# `STREAMING_SHARDED_CASES` on the CPU over 8 virtual devices: for each
+# case, with mesh = go_avalanche_tpu.parallel.mesh.make_mesh(a, b,
+# devices=jax.devices()[:a * b]) and the JAX package's twin of
+# `streaming_sharded_state` (its `init` from ``jax.random.key(0)``, the
+# same backlog scores and config), the scan driver
+#     final, tel = sharded_backlog.run_scan_sharded_backlog(
+#         mesh, sharded_backlog.shard_backlog_state(state, mesh), cfg,
+#         n_rounds=rounds)
+# (`sharded_streaming_dag.run_scan_sharded_streaming_dag`,
+# `sharded_node_stream.run_scan_sharded_node_stream` for the others),
+# then `final` carried into the port's numpy layout (`convert`'s
+# ``*_to_numpy(*_from_numpy(leaves))``) and `short_digests` of it and of
+# the stacked telemetry (nested by field).
+STREAMING_SHARDED_RECORDS = {
+    "backlog_1x1": {
+        "leaves": {
+            "sim.records.votes": "247f30eb8aa2a983",
+            "sim.records.consider": "c623c888349d945b",
+            "sim.records.confidence": "bdaea92cd1de9bf7",
+            "sim.added": "b3d24a31ac3b8eee",
+            "sim.valid": "ddd4feab53353d08",
+            "sim.score_rank": "509268e99a84b4c2",
+            "sim.poll_order": "509268e99a84b4c2",
+            "sim.poll_order_inv": "509268e99a84b4c2",
+            "sim.byzantine": "bb29100d3805f11c",
+            "sim.alive": "bfeba188e703ab45",
+            "sim.latency_weight": "acb5558ac27051d0",
+            "sim.finalized_at": "28cecbacb65be723",
+            "sim.round": "2f575888e01f5e58",
+            "sim.key": "e7e8784880cc38a3",
+            "slot_tx": "509268e99a84b4c2",
+            "slot_admit_round": "cfac015c14cee3cf",
+            "backlog.score": "c7d26e7f04fe6d48",
+            "backlog.init_pref": "cb02dccaf1a4e48b",
+            "backlog.valid": "cb02dccaf1a4e48b",
+            "outputs.settled": "129bea5a03e512eb",
+            "outputs.accepted": "129bea5a03e512eb",
+            "outputs.accept_votes": "fe7f2a3bdee1fb6f",
+            "outputs.settle_round": "9e91446cedada12b",
+            "outputs.admit_round": "9e91446cedada12b",
+            "next_idx": "7f8531a94e801213",
+        },
+        "telemetry": {
+            "round.polls": "aa32b23c29b1ba06",
+            "round.votes_applied": "efbb4fdf6023f964",
+            "round.flips": "d5f50514515c21cd",
+            "round.finalizations": "747c93ea9a044f88",
+            "round.admissions": "56a234aa955edaaf",
+            "round.deliveries": "56a234aa955edaaf",
+            "round.expiries": "56a234aa955edaaf",
+            "round.ring_occupancy": "56a234aa955edaaf",
+            "round.partition_blocked": "56a234aa955edaaf",
+            "round.gossip_writes": "282b700aaa37a7a1",
+            "retired": "56a234aa955edaaf",
+            "occupied": "190a146f02d07bfd",
+            "backlog_left": "6b6494bcd044987e",
+        },
+    },
+    "backlog_2x1": {
+        "leaves": {
+            "sim.records.votes": "bee409429e9eee3e",
+            "sim.records.consider": "c623c888349d945b",
+            "sim.records.confidence": "28511a9bafc56976",
+            "sim.added": "b3d24a31ac3b8eee",
+            "sim.valid": "ddd4feab53353d08",
+            "sim.score_rank": "509268e99a84b4c2",
+            "sim.poll_order": "509268e99a84b4c2",
+            "sim.poll_order_inv": "509268e99a84b4c2",
+            "sim.byzantine": "bb29100d3805f11c",
+            "sim.alive": "bfeba188e703ab45",
+            "sim.latency_weight": "acb5558ac27051d0",
+            "sim.finalized_at": "5a3e0da50cfa785f",
+            "sim.round": "2f575888e01f5e58",
+            "sim.key": "e7e8784880cc38a3",
+            "slot_tx": "509268e99a84b4c2",
+            "slot_admit_round": "cfac015c14cee3cf",
+            "backlog.score": "c7d26e7f04fe6d48",
+            "backlog.init_pref": "cb02dccaf1a4e48b",
+            "backlog.valid": "cb02dccaf1a4e48b",
+            "outputs.settled": "129bea5a03e512eb",
+            "outputs.accepted": "129bea5a03e512eb",
+            "outputs.accept_votes": "fe7f2a3bdee1fb6f",
+            "outputs.settle_round": "9e91446cedada12b",
+            "outputs.admit_round": "9e91446cedada12b",
+            "next_idx": "7f8531a94e801213",
+        },
+        "telemetry": {
+            "round.polls": "faac95143e061315",
+            "round.votes_applied": "7e08f79eef34d6e9",
+            "round.flips": "8977a49baaa1939a",
+            "round.finalizations": "97a57799afbc442c",
+            "round.admissions": "56a234aa955edaaf",
+            "round.deliveries": "56a234aa955edaaf",
+            "round.expiries": "56a234aa955edaaf",
+            "round.ring_occupancy": "56a234aa955edaaf",
+            "round.partition_blocked": "56a234aa955edaaf",
+            "round.gossip_writes": "e04a4a77746304f3",
+            "retired": "56a234aa955edaaf",
+            "occupied": "190a146f02d07bfd",
+            "backlog_left": "6b6494bcd044987e",
+        },
+    },
+    "backlog_1x2": {
+        "leaves": {
+            "sim.records.votes": "247f30eb8aa2a983",
+            "sim.records.consider": "c623c888349d945b",
+            "sim.records.confidence": "bdaea92cd1de9bf7",
+            "sim.added": "b3d24a31ac3b8eee",
+            "sim.valid": "ddd4feab53353d08",
+            "sim.score_rank": "93156a07db9a8638",
+            "sim.poll_order": "93156a07db9a8638",
+            "sim.poll_order_inv": "93156a07db9a8638",
+            "sim.byzantine": "bb29100d3805f11c",
+            "sim.alive": "bfeba188e703ab45",
+            "sim.latency_weight": "acb5558ac27051d0",
+            "sim.finalized_at": "28cecbacb65be723",
+            "sim.round": "2f575888e01f5e58",
+            "sim.key": "e7e8784880cc38a3",
+            "slot_tx": "509268e99a84b4c2",
+            "slot_admit_round": "cfac015c14cee3cf",
+            "backlog.score": "c7d26e7f04fe6d48",
+            "backlog.init_pref": "cb02dccaf1a4e48b",
+            "backlog.valid": "cb02dccaf1a4e48b",
+            "outputs.settled": "129bea5a03e512eb",
+            "outputs.accepted": "129bea5a03e512eb",
+            "outputs.accept_votes": "fe7f2a3bdee1fb6f",
+            "outputs.settle_round": "9e91446cedada12b",
+            "outputs.admit_round": "9e91446cedada12b",
+            "next_idx": "7f8531a94e801213",
+        },
+        "telemetry": {
+            "round.polls": "aa32b23c29b1ba06",
+            "round.votes_applied": "efbb4fdf6023f964",
+            "round.flips": "d5f50514515c21cd",
+            "round.finalizations": "747c93ea9a044f88",
+            "round.admissions": "56a234aa955edaaf",
+            "round.deliveries": "56a234aa955edaaf",
+            "round.expiries": "56a234aa955edaaf",
+            "round.ring_occupancy": "56a234aa955edaaf",
+            "round.partition_blocked": "56a234aa955edaaf",
+            "round.gossip_writes": "282b700aaa37a7a1",
+            "retired": "56a234aa955edaaf",
+            "occupied": "190a146f02d07bfd",
+            "backlog_left": "6b6494bcd044987e",
+        },
+    },
+    "streaming_dag_1x1": {
+        "leaves": {
+            "dag.base.records.votes": "fc5cf972719cf9db",
+            "dag.base.records.consider": "c623c888349d945b",
+            "dag.base.records.confidence": "05d49debb21b4c7f",
+            "dag.base.added": "b3d24a31ac3b8eee",
+            "dag.base.valid": "ddd4feab53353d08",
+            "dag.base.score_rank": "f73940e1d6b7d4cc",
+            "dag.base.poll_order": "f73940e1d6b7d4cc",
+            "dag.base.poll_order_inv": "f73940e1d6b7d4cc",
+            "dag.base.byzantine": "bb29100d3805f11c",
+            "dag.base.alive": "bfeba188e703ab45",
+            "dag.base.latency_weight": "acb5558ac27051d0",
+            "dag.base.finalized_at": "28cecbacb65be723",
+            "dag.base.round": "2f575888e01f5e58",
+            "dag.base.key": "e7e8784880cc38a3",
+            "dag.conflict_set": "753e2ea3c34c5290",
+            "slot_set": "6e2afde7862b5863",
+            "slot_admit_round": "c3ff5a79580a67bf",
+            "backlog.score": "ff3f4c810f4150c5",
+            "backlog.init_pref": "64398e1320e1ceff",
+            "backlog.valid": "23ba96b6bad8a596",
+            "outputs.settled": "0da1ff6c735c9f3f",
+            "outputs.accepted": "0da1ff6c735c9f3f",
+            "outputs.accept_votes": "659d56cec3610481",
+            "outputs.settle_round": "d8611f9979b5c493",
+            "outputs.admit_round": "d8611f9979b5c493",
+            "next_idx": "a93bd38f7bdf975a",
+        },
+        "telemetry": {
+            "round.polls": "aa32b23c29b1ba06",
+            "round.votes_applied": "efbb4fdf6023f964",
+            "round.flips": "d5f50514515c21cd",
+            "round.finalizations": "747c93ea9a044f88",
+            "round.admissions": "56a234aa955edaaf",
+            "round.deliveries": "56a234aa955edaaf",
+            "round.expiries": "56a234aa955edaaf",
+            "round.ring_occupancy": "56a234aa955edaaf",
+            "round.partition_blocked": "56a234aa955edaaf",
+            "round.gossip_writes": "56a234aa955edaaf",
+            "retired_sets": "56a234aa955edaaf",
+            "occupied_sets": "c9d8516d3ad46d48",
+            "backlog_left": "4defc29560e47db7",
+        },
+    },
+    "streaming_dag_2x1": {
+        "leaves": {
+            "dag.base.records.votes": "476f518f987e2e40",
+            "dag.base.records.consider": "c623c888349d945b",
+            "dag.base.records.confidence": "f5108b18e43dce4c",
+            "dag.base.added": "b3d24a31ac3b8eee",
+            "dag.base.valid": "ddd4feab53353d08",
+            "dag.base.score_rank": "f73940e1d6b7d4cc",
+            "dag.base.poll_order": "f73940e1d6b7d4cc",
+            "dag.base.poll_order_inv": "f73940e1d6b7d4cc",
+            "dag.base.byzantine": "bb29100d3805f11c",
+            "dag.base.alive": "bfeba188e703ab45",
+            "dag.base.latency_weight": "acb5558ac27051d0",
+            "dag.base.finalized_at": "5a3e0da50cfa785f",
+            "dag.base.round": "2f575888e01f5e58",
+            "dag.base.key": "e7e8784880cc38a3",
+            "dag.conflict_set": "753e2ea3c34c5290",
+            "slot_set": "6e2afde7862b5863",
+            "slot_admit_round": "c3ff5a79580a67bf",
+            "backlog.score": "ff3f4c810f4150c5",
+            "backlog.init_pref": "64398e1320e1ceff",
+            "backlog.valid": "23ba96b6bad8a596",
+            "outputs.settled": "0da1ff6c735c9f3f",
+            "outputs.accepted": "0da1ff6c735c9f3f",
+            "outputs.accept_votes": "659d56cec3610481",
+            "outputs.settle_round": "d8611f9979b5c493",
+            "outputs.admit_round": "d8611f9979b5c493",
+            "next_idx": "a93bd38f7bdf975a",
+        },
+        "telemetry": {
+            "round.polls": "faac95143e061315",
+            "round.votes_applied": "7e08f79eef34d6e9",
+            "round.flips": "8977a49baaa1939a",
+            "round.finalizations": "97a57799afbc442c",
+            "round.admissions": "56a234aa955edaaf",
+            "round.deliveries": "56a234aa955edaaf",
+            "round.expiries": "56a234aa955edaaf",
+            "round.ring_occupancy": "56a234aa955edaaf",
+            "round.partition_blocked": "56a234aa955edaaf",
+            "round.gossip_writes": "56a234aa955edaaf",
+            "retired_sets": "56a234aa955edaaf",
+            "occupied_sets": "c9d8516d3ad46d48",
+            "backlog_left": "4defc29560e47db7",
+        },
+    },
+    "streaming_dag_1x2": {
+        "leaves": {
+            "dag.base.records.votes": "fc5cf972719cf9db",
+            "dag.base.records.consider": "c623c888349d945b",
+            "dag.base.records.confidence": "05d49debb21b4c7f",
+            "dag.base.added": "b3d24a31ac3b8eee",
+            "dag.base.valid": "ddd4feab53353d08",
+            "dag.base.score_rank": "624e01dbc8d34758",
+            "dag.base.poll_order": "624e01dbc8d34758",
+            "dag.base.poll_order_inv": "624e01dbc8d34758",
+            "dag.base.byzantine": "bb29100d3805f11c",
+            "dag.base.alive": "bfeba188e703ab45",
+            "dag.base.latency_weight": "acb5558ac27051d0",
+            "dag.base.finalized_at": "28cecbacb65be723",
+            "dag.base.round": "2f575888e01f5e58",
+            "dag.base.key": "e7e8784880cc38a3",
+            "dag.conflict_set": "753e2ea3c34c5290",
+            "slot_set": "6e2afde7862b5863",
+            "slot_admit_round": "c3ff5a79580a67bf",
+            "backlog.score": "ff3f4c810f4150c5",
+            "backlog.init_pref": "64398e1320e1ceff",
+            "backlog.valid": "23ba96b6bad8a596",
+            "outputs.settled": "0da1ff6c735c9f3f",
+            "outputs.accepted": "0da1ff6c735c9f3f",
+            "outputs.accept_votes": "659d56cec3610481",
+            "outputs.settle_round": "d8611f9979b5c493",
+            "outputs.admit_round": "d8611f9979b5c493",
+            "next_idx": "a93bd38f7bdf975a",
+        },
+        "telemetry": {
+            "round.polls": "aa32b23c29b1ba06",
+            "round.votes_applied": "efbb4fdf6023f964",
+            "round.flips": "d5f50514515c21cd",
+            "round.finalizations": "747c93ea9a044f88",
+            "round.admissions": "56a234aa955edaaf",
+            "round.deliveries": "56a234aa955edaaf",
+            "round.expiries": "56a234aa955edaaf",
+            "round.ring_occupancy": "56a234aa955edaaf",
+            "round.partition_blocked": "56a234aa955edaaf",
+            "round.gossip_writes": "56a234aa955edaaf",
+            "retired_sets": "56a234aa955edaaf",
+            "occupied_sets": "c9d8516d3ad46d48",
+            "backlog_left": "4defc29560e47db7",
+        },
+    },
+    "node_stream_1x1": {
+        "leaves": {
+            "sim.records.votes": "3894140c68f5bc33",
+            "sim.records.consider": "451aadf49dfab05b",
+            "sim.records.confidence": "9e9b51fad7f8e1c8",
+            "sim.added": "b3d24a31ac3b8eee",
+            "sim.valid": "ddd4feab53353d08",
+            "sim.score_rank": "509268e99a84b4c2",
+            "sim.poll_order": "509268e99a84b4c2",
+            "sim.poll_order_inv": "509268e99a84b4c2",
+            "sim.byzantine": "6de98419dbef0199",
+            "sim.alive": "bfeba188e703ab45",
+            "sim.latency_weight": "62f6ba914682e86d",
+            "sim.finalized_at": "2a4356c95e7e1431",
+            "sim.round": "f54e9bc2ff412fd4",
+            "sim.key": "0074017b86fec763",
+            "slot_node": "0ea026aa278dc976",
+            "resident": "93a898e58db181c9",
+            "stake": "4f5c47f863a13c02",
+            "init_pref": "ddd4feab53353d08",
+            "churn_key": "766a22efaa8b6ad5",
+            "churned_in": "5771a0bf44864d57",
+            "churned_out": "5771a0bf44864d57",
+        },
+        "telemetry": {
+            "round.polls": "0f838c738e05774f",
+            "round.votes_applied": "989e47558d1bf4e9",
+            "round.flips": "67d19bc6e862cd4a",
+            "round.finalizations": "57544fe0501b0345",
+            "round.admissions": "57544fe0501b0345",
+            "round.deliveries": "57544fe0501b0345",
+            "round.expiries": "57544fe0501b0345",
+            "round.ring_occupancy": "57544fe0501b0345",
+            "round.partition_blocked": "57544fe0501b0345",
+            "round.gossip_writes": "ecad52d2a234ebcb",
+            "departed": "a178a42fb0fdf41b",
+        },
+    },
+    "node_stream_2x1": {
+        "leaves": {
+            "sim.records.votes": "2071164c6e31a665",
+            "sim.records.consider": "c1d154174dcdbf50",
+            "sim.records.confidence": "fbf6545309a24ff1",
+            "sim.added": "b3d24a31ac3b8eee",
+            "sim.valid": "ddd4feab53353d08",
+            "sim.score_rank": "509268e99a84b4c2",
+            "sim.poll_order": "509268e99a84b4c2",
+            "sim.poll_order_inv": "509268e99a84b4c2",
+            "sim.byzantine": "6de98419dbef0199",
+            "sim.alive": "bfeba188e703ab45",
+            "sim.latency_weight": "62f6ba914682e86d",
+            "sim.finalized_at": "2a4356c95e7e1431",
+            "sim.round": "f54e9bc2ff412fd4",
+            "sim.key": "0074017b86fec763",
+            "slot_node": "0ea026aa278dc976",
+            "resident": "93a898e58db181c9",
+            "stake": "4f5c47f863a13c02",
+            "init_pref": "ddd4feab53353d08",
+            "churn_key": "766a22efaa8b6ad5",
+            "churned_in": "5771a0bf44864d57",
+            "churned_out": "5771a0bf44864d57",
+        },
+        "telemetry": {
+            "round.polls": "0f838c738e05774f",
+            "round.votes_applied": "e498d08ac5f1966d",
+            "round.flips": "0d04cbc6bf16122b",
+            "round.finalizations": "57544fe0501b0345",
+            "round.admissions": "57544fe0501b0345",
+            "round.deliveries": "57544fe0501b0345",
+            "round.expiries": "57544fe0501b0345",
+            "round.ring_occupancy": "57544fe0501b0345",
+            "round.partition_blocked": "57544fe0501b0345",
+            "round.gossip_writes": "d0c0688106909be3",
+            "departed": "a178a42fb0fdf41b",
+        },
+    },
+    "node_stream_1x2": {
+        "leaves": {
+            "sim.records.votes": "3894140c68f5bc33",
+            "sim.records.consider": "451aadf49dfab05b",
+            "sim.records.confidence": "9e9b51fad7f8e1c8",
+            "sim.added": "b3d24a31ac3b8eee",
+            "sim.valid": "ddd4feab53353d08",
+            "sim.score_rank": "509268e99a84b4c2",
+            "sim.poll_order": "509268e99a84b4c2",
+            "sim.poll_order_inv": "509268e99a84b4c2",
+            "sim.byzantine": "6de98419dbef0199",
+            "sim.alive": "bfeba188e703ab45",
+            "sim.latency_weight": "62f6ba914682e86d",
+            "sim.finalized_at": "2a4356c95e7e1431",
+            "sim.round": "f54e9bc2ff412fd4",
+            "sim.key": "0074017b86fec763",
+            "slot_node": "0ea026aa278dc976",
+            "resident": "93a898e58db181c9",
+            "stake": "4f5c47f863a13c02",
+            "init_pref": "ddd4feab53353d08",
+            "churn_key": "766a22efaa8b6ad5",
+            "churned_in": "5771a0bf44864d57",
+            "churned_out": "5771a0bf44864d57",
+        },
+        "telemetry": {
+            "round.polls": "0f838c738e05774f",
+            "round.votes_applied": "989e47558d1bf4e9",
+            "round.flips": "67d19bc6e862cd4a",
+            "round.finalizations": "57544fe0501b0345",
+            "round.admissions": "57544fe0501b0345",
+            "round.deliveries": "57544fe0501b0345",
+            "round.expiries": "57544fe0501b0345",
+            "round.ring_occupancy": "57544fe0501b0345",
+            "round.partition_blocked": "57544fe0501b0345",
+            "round.gossip_writes": "ecad52d2a234ebcb",
+            "departed": "a178a42fb0fdf41b",
+        },
+    },
+}

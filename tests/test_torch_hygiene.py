@@ -51,6 +51,9 @@ MODULES = ["go_avalanche_tpu_torch", "go_avalanche_tpu_torch.config",
            "go_avalanche_tpu_torch.parallel.sharded",
            "go_avalanche_tpu_torch.parallel.sharded_dag",
            "go_avalanche_tpu_torch.parallel.sharded_fleet",
+           "go_avalanche_tpu_torch.parallel.sharded_backlog",
+           "go_avalanche_tpu_torch.parallel.sharded_streaming_dag",
+           "go_avalanche_tpu_torch.parallel.sharded_node_stream",
            "go_avalanche_tpu_torch.parallel.distributed_smoke"]
 
 

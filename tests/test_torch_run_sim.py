@@ -218,17 +218,13 @@ def test_build_config_exits_match(argv):
 
 
 @pytest.mark.parametrize("flag,item", [
-    (["--mesh", "1,1", "--model", "backlog"], "item 15"),
-    (["--mesh", "1,1", "--model", "node_stream", "--stake-mode", "zipf",
-      "--registry-nodes", "24", "--active-nodes", "8"], "item 15"),
     (["--fleet-shape", "auto"], "item 17"), (["--audit"], "item 17"),
     (["--report-memory"], "item 17"),
-], ids=["flag0-item 15", "flag1-item 15", "flag2-item 15", "flag3-item 17",
-        "flag4-item 17"])
+], ids=["flag2-item 15", "flag3-item 17", "flag4-item 17"])
 def test_unported_flags_name_their_item(flag, item):
-    """`--mesh` with the streaming models (item 15) and the flags of the
-    XLA resource tooling (item 17) name their item; `--mesh` and
-    `--donate` themselves are ported (the cases below)."""
+    """The flags of the XLA resource tooling (item 17) name their item;
+    `--mesh` (every model) and `--donate` are ported (the cases
+    below)."""
     with pytest.raises(NotImplementedError, match=item):
         trun.main(flag + ["--device", "cpu"])
 
@@ -244,6 +240,18 @@ def test_text_output_trace_and_cli(tmp_path, capsys):
 
 
 # ------------------------------------------------------------ --mesh
+
+
+# The streaming models under --mesh (their sharded drivers).
+STREAMING_MESH_ARGV = [
+    ["--model", "backlog", "--slots", "4", "--byzantine", "0.2",
+     "--donate"],
+    ["--model", "streaming_dag", "--txs", "16", "--slots", "2",
+     "--byzantine", "0.2"],
+    ["--model", "node_stream", "--stake-mode", "zipf", "--registry-nodes",
+     "24", "--active-nodes", "8", "--node-churn-rate", "0.2",
+     "--max-rounds", "6"],
+]
 
 
 @pytest.fixture
@@ -268,7 +276,9 @@ def jax_devices(monkeypatch):
     ["--model", "snowball", "--fleet", "3"],
     ["--model", "avalanche", "--fleet", "2", "--phase-grid",
      '{"byzantine_fraction": [0.1, 0.3]}', "--byzantine", "0.1"],
-], ids=["avalanche", "dag", "avalanche-traced", "fleet", "phase-grid"])
+] + STREAMING_MESH_ARGV,
+    ids=["avalanche", "dag", "avalanche-traced", "fleet", "phase-grid",
+         "backlog", "streaming_dag", "node_stream"])
 def test_mesh_1x1_matches_jax(argv, jax_devices, tmp_path):
     jax_devices(1)
     argv = [str(tmp_path / "t.jsonl") if a == "TRACE" else a for a in argv]
@@ -277,17 +287,19 @@ def test_mesh_1x1_matches_jax(argv, jax_devices, tmp_path):
 
 
 def test_mesh_2x1_on_two_ranks_matches_jax(jax_devices, tmp_path_factory):
-    """Two spawned gloo ranks run `run_sim.main --mesh 2,1`; both return
-    the result of the JAX package's `--mesh 2,1`."""
+    """Two spawned gloo ranks run `run_sim.main --mesh 2,1` for every
+    model with a sharded driver; both return the result of the JAX
+    package's `--mesh 2,1`."""
     import torch_ranks
     from go_avalanche_tpu_torch.parallel.ranks import RankPool
 
     jax_devices(2)
     pool = RankPool(2, str(tmp_path_factory.mktemp("ranks")))
     try:
-        for extra in (["--model", "avalanche", "--contested", "--byzantine",
+        for extra in [["--model", "avalanche", "--contested", "--byzantine",
                        "0.2"],
-                      ["--model", "dag", "--conflict-size", "2"]):
+                      ["--model", "dag", "--conflict-size", "2"],
+                      *STREAMING_MESH_ARGV]:
             argv = SMALL + extra + ["--mesh", "2,1"]
             want = jrun.main(list(argv))
             got = pool.run(2, torch_ranks.run_sim_case,

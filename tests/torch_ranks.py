@@ -107,6 +107,99 @@ def dag_case(state_np, knobs: dict, mesh_shape, mode: str, rounds: int,
             reads)
 
 
+# The streaming drivers: (sharded module, state carrier, placement,
+# gather, step builder, scan driver, settle driver or None).
+STREAMS = {
+    "backlog": ("sharded_backlog", "backlog_state", "shard_backlog_state",
+                "gather_backlog_state", "make_sharded_backlog_step",
+                "run_scan_sharded_backlog", "run_sharded_backlog"),
+    "streaming_dag": ("sharded_streaming_dag", "streaming_dag_state",
+                      "shard_streaming_dag_state",
+                      "gather_streaming_dag_state",
+                      "make_sharded_streaming_dag_step",
+                      "run_scan_sharded_streaming_dag",
+                      "run_sharded_streaming_dag"),
+    "node_stream": ("sharded_node_stream", "node_stream_state",
+                    "shard_node_stream_state", "gather_node_stream_state",
+                    "make_sharded_node_stream_step",
+                    "run_scan_sharded_node_stream", None),
+}
+
+
+def stream_case(kind: str, state_np, knobs: dict, mesh_shape, mode: str,
+                rounds: int, device: str = "cpu"):
+    """A streaming driver on this rank: the global state of `kind` from
+    numpy, this rank's block, then `rounds` steps ("step"), the scan
+    driver ("scan") or the settle driver to settlement with `rounds` as
+    its cap ("run"); returns the gathered global state, the telemetry
+    (nested dicts), the collectives recorded and `sync.reads`."""
+    import importlib
+
+    from go_avalanche_tpu_torch import convert, sync, workload
+    from go_avalanche_tpu_torch.models.backlog import stack_tree
+    from go_avalanche_tpu_torch.parallel import collectives
+    from go_avalanche_tpu_torch.parallel.mesh import make_mesh
+
+    mod_name, carrier, shard, gather, make_step, scan, settle = STREAMS[kind]
+    mod = importlib.import_module(
+        f"go_avalanche_tpu_torch.parallel.{mod_name}")
+    cfg = config(knobs)
+    mesh = make_mesh(*mesh_shape)
+    block = getattr(mod, shard)(
+        getattr(convert, f"{carrier}_from_numpy")(state_np, device=device),
+        mesh)
+    collectives.recorded.clear()
+    sync.reads = 0
+    tel = None
+    if mode == "run":
+        block = getattr(mod, settle)(mesh, block, cfg, max_rounds=rounds)
+    elif mode == "scan":
+        block, tel = getattr(mod, scan)(mesh, block, cfg, rounds)
+    else:
+        step = getattr(mod, make_step)(mesh, cfg)
+        rows = []
+        for _ in range(rounds):
+            block, t = step(block)
+            rows.append(t)
+        tel = stack_tree(rows)
+    recorded = set(collectives.recorded)
+    reads = sync.reads
+    whole = getattr(mod, gather)(block, mesh)
+    return (getattr(convert, f"{carrier}_to_numpy")(whole),
+            workload.numpy_tree(tel), recorded, reads)
+
+
+def dcp_case(state_np, knobs: dict, mesh_shape, rounds: int, path: str,
+             stage: str, device: str = "cpu"):
+    """The DCP pair on the streaming DAG, on this rank.
+
+    "save": `rounds` steps from `state_np`, then `save_checkpoint_dcp` to
+    `path`; returns the gathered state.  "resume": restore `path` onto
+    this mesh (the template a fresh placement of `state_np`), then
+    `rounds` more steps; returns the gathered state.  "restore": restore
+    onto this mesh and gather, no steps."""
+    from go_avalanche_tpu_torch import convert
+    from go_avalanche_tpu_torch.parallel import sharded_streaming_dag as ssd
+    from go_avalanche_tpu_torch.parallel.mesh import make_mesh
+    from go_avalanche_tpu_torch.utils import checkpoint
+
+    cfg = config(knobs)
+    mesh = make_mesh(*mesh_shape)
+    block = ssd.shard_streaming_dag_state(
+        convert.streaming_dag_state_from_numpy(state_np, device=device),
+        mesh)
+    step = ssd.make_sharded_streaming_dag_step(mesh, cfg)
+    if stage in ("resume", "restore"):
+        block = checkpoint.restore_checkpoint_dcp(path, block, mesh)
+    if stage != "restore":
+        for _ in range(rounds):
+            block = step(block)[0]
+    if stage == "save":
+        checkpoint.save_checkpoint_dcp(path, block, mesh)
+    return convert.streaming_dag_state_to_numpy(
+        ssd.gather_streaming_dag_state(block, mesh))
+
+
 def poll_cap_case(pollable, rank, cap: int, mesh_shape):
     """`sharded.global_capped_poll_mask` on this rank's block of the
     global bool ``[N, T]`` plane and int32 ``[T]`` ranks; the gathered
