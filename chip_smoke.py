@@ -21,14 +21,17 @@ package is missing.  Phases, each printing JSON lines:
                `models.avalanche.init` / `round_step`: the megakernel,
                phased-u8 (ingest kernel 1) and phased-swar32 (kernel 2)
                trajectories leaf-equal, timed rounds, and the launch
-               counts of the kernels during that run;
+               counts of the kernels during that run; the timed
+               rounds inside `analysis.retrace.CompileCounter`, which
+               must count 0 (no kernel library built or loaded there);
   5. dag     — the DAG baseline (10000 nodes x 10000 txs in 2-tx
                conflict sets, `workload.dag_baseline_state`) through
                `models.dag.run` to settlement and `run_scan`, on both
                ingest engines: leaf-equal, timed, compared with the
                reference's recorded result, launch counts;
   6. timing  — each kernel alone at the main path's shape, against its
-               plain version and its bound;
+               plain version and its bound, the timed launches guarded
+               as phase 4's are;
   7. baselines — BASELINE configs 0, 1, 3 and 4 (`workload.config*`)
                through `avalanche.run`, `snowball.run` and `dag.run` on
                both ingest engines, config 4 also on the megakernel:
@@ -188,6 +191,23 @@ package is missing.  Phases, each printing JSON lines:
                `MESH_TIMEOUT` s fails the phase, as does a DCP error.
                The kernels line's launches add phase 13's, every
                rank's.
+ 14. resources — the resource and tracing plane on the flagship
+               (16384 x 16384, k=8).  (a) On the megakernel, phased-u8
+               and phased-swar32: the state's analytic footprint
+               (`obs/resources.footprint`, 2,416,230,412 bytes in the
+               reference's dtypes, 8 more on the card for the key)
+               against its allocation and one round's ledger
+               (`memory_record`: allocated state, round peak, live
+               bytes once the old state is released), held by
+               `check_memory`; (b) two replays of one round from the
+               same state, byte-equal (`utils/tracing.
+               determinism_audit`); (c) `collect_phase_times` over 3
+               phased-u8 rounds, wall ms per span, the spans' sum
+               within the rounds' wall; (e) `run_sim --report-memory`
+               at the flagship's width, its report on stderr and its
+               stdout result equal to the same run's without the flag.
+               (d), the compile guards of phases 4 and 6, prints here.
+               The kernels line's launches add phase 14's.
 
 With ``--config6-full-depth`` it builds the kernels and runs only BASELINE
 config 6 at full width and full depth (500,000 sets, ~8313 rounds,
@@ -271,6 +291,18 @@ def time_ms(fn, reps: int) -> float:
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / reps
+
+
+def guarded_time_ms(fn, reps: int, what: str) -> tuple:
+    """`time_ms` inside `analysis.retrace.CompileCounter`, which must
+    count 0: the warm-up built and loaded every kernel library the timed
+    loop launches.  Returns (ms, compiles)."""
+    from go_avalanche_tpu_torch.analysis.retrace import CompileCounter
+
+    with CompileCounter() as compiles:
+        ms = time_ms(fn, reps)
+    compiles.expect_at_most(0, what)
+    return ms, compiles.count
 
 
 def random_ints(g, lo: int, hi: int, shape, dtype=None):
@@ -531,6 +563,8 @@ def run_main_path(n: int, t: int, timed_rounds: int, device="cuda") -> dict:
         assert_states_equal(states["megakernel"], states[name],
                             f"megakernel vs phased {name} after 3 rounds")
 
+    compiles = {}
+
     def timed(name: str, warm: int, reps: int) -> float:
         def one_round():
             states[name] = av.round_step(states[name], cfgs[name])[0]
@@ -539,7 +573,9 @@ def run_main_path(n: int, t: int, timed_rounds: int, device="cuda") -> dict:
         for _ in range(warm):
             one_round()
         torch.cuda.synchronize()
-        return time_ms(one_round, reps)
+        ms, compiles[name] = guarded_time_ms(
+            one_round, reps, f"phase 4's timed {name} rounds")
+        return ms
 
     round_ms = timed("megakernel", 2, timed_rounds)
     phased_ms = {name: timed(name, 1, PHASED_TIMED_ROUNDS)
@@ -554,6 +590,7 @@ def run_main_path(n: int, t: int, timed_rounds: int, device="cuda") -> dict:
     if int(state.records.votes.sum()) == 0:
         raise AssertionError("no vote reached the windows")
     return {"launches": launches, "rounds": rounds,
+            "timed_compiles": compiles,
             "round_ms": round_ms,
             "phased_u8_round_ms": phased_ms["vote_u8"],
             "phased_swar32_round_ms": phased_ms["vote_swar"],
@@ -884,13 +921,16 @@ def time_megakernel(n: int, t: int, device="cuda") -> dict:
     del got, want
     for _ in range(3):
         megakernel.fused_round(*args, cfg)
-    kernel_ms = time_ms(lambda: megakernel.fused_round(*args, cfg), 20)
+    kernel_ms, compiles = guarded_time_ms(
+        lambda: megakernel.fused_round(*args, cfg), 20,
+        "phase 6's timed megakernel launches")
     plain_ms = time_ms(lambda: megakernel.fused_round_reference(*args, cfg),
                        3)
     bound_ms, bound_by = megakernel_bound(n, t, cfg.k)
     torch.cuda.empty_cache()
     return {"max_abs_err": err, "ms": kernel_ms, "plain_ms": plain_ms,
-            "bound_ms": bound_ms, "bound_by": bound_by}
+            "bound_ms": bound_ms, "bound_by": bound_by,
+            "timed_compiles": compiles}
 
 
 def device_ms_by_symbol(fn, reps: int, part: str) -> dict:
@@ -931,7 +971,9 @@ def time_ingest(name: str, n: int, t: int, device="cuda") -> dict:
     del got, want
     for _ in range(3):
         kernel(*args[:3], cfg.k, cfg, args[3])
-    kernel_ms = time_ms(lambda: kernel(*args[:3], cfg.k, cfg, args[3]), 20)
+    kernel_ms, compiles = guarded_time_ms(
+        lambda: kernel(*args[:3], cfg.k, cfg, args[3]), 20,
+        f"phase 6's timed {name} launches")
     symbols = device_ms_by_symbol(
         lambda: kernel(*args[:3], cfg.k, cfg, args[3]), 20, f"{name}_kernel")
     if len(symbols) != 1:
@@ -943,7 +985,8 @@ def time_ingest(name: str, n: int, t: int, device="cuda") -> dict:
     (symbol, device_ms), = symbols.items()
     return {"max_abs_err": err, "ms": kernel_ms, "device_ms": device_ms,
             "symbol": symbol, "plain_ms": plain_ms,
-            "bound_ms": bound_ms, "bound_by": bound_by}
+            "bound_ms": bound_ms, "bound_by": bound_by,
+            "timed_compiles": compiles}
 
 
 # Phase 8's shapes.  Config 6 runs at full width (100000 nodes, a 1024-set
@@ -3571,6 +3614,160 @@ def run_mesh(quick: bool = False, device="cuda") -> dict:
             "wall_s": time.perf_counter() - t_phase}
 
 
+# Phase 14: the resource and tracing plane on the flagship.
+RESOURCE_SHAPES = {"full": (16_384, 16_384), "quick": (64, 64)}
+# The flagship state's analytic footprint at 16384^2, k=8: the reference's
+# `obs/resources.footprint` of `jax.eval_shape(flagship_state(16384,
+# 16384, 8))` in its dtypes, and the card's (the key is int64[2] here,
+# 8 bytes more).
+FLAGSHIP_REFERENCE_BYTES = 2_416_230_412
+FLAGSHIP_DEVICE_BYTES = FLAGSHIP_REFERENCE_BYTES + 8
+RESOURCE_ENGINES = {"megakernel": dict(round_engine="megakernel"),
+                    "vote_u8": dict(ingest_engine="u8"),
+                    "vote_swar": dict(ingest_engine="swar32")}
+RESOURCE_PHASE_ROUNDS = 3
+RESOURCE_CLI_ROUNDS = 3
+
+
+def resource_engine(n: int, t: int, name: str, device) -> dict:
+    """Phase 14 (a)-(b) on one engine: the state's analytic footprint
+    against its allocation and one round's ledger (`memory_record`,
+    `check_memory`), then two replays of one round from the same state
+    compared byte for byte (`determinism_audit`)."""
+    from go_avalanche_tpu_torch import workload
+    from go_avalanche_tpu_torch.models import avalanche as av
+    from go_avalanche_tpu_torch.obs import resources
+    from go_avalanche_tpu_torch.utils import tracing
+
+    knobs = dict(RESOURCE_ENGINES[name])
+    state, cfg = workload.flagship_state(
+        n, t, round_engine=knobs.pop("round_engine", "phased"),
+        device=device)
+    cfg = dataclasses.replace(cfg, **knobs)
+    fp = resources.footprint(state)
+    ref = resources.footprint(state, dtypes="reference")
+    if (n, t) == RESOURCE_SHAPES["full"] and (
+            ref["total_bytes"], fp["total_bytes"]) != (
+            FLAGSHIP_REFERENCE_BYTES, FLAGSHIP_DEVICE_BYTES):
+        raise AssertionError(
+            f"{name}: flagship footprint {ref['total_bytes']} / "
+            f"{fp['total_bytes']} != the predicted "
+            f"{FLAGSHIP_REFERENCE_BYTES} / {FLAGSHIP_DEVICE_BYTES}")
+
+    def step(s):
+        return av.round_step(s, cfg)[0]
+
+    rec = resources.memory_record(step, state)
+    failures = resources.check_memory(rec, fp["total_bytes"], what=name)
+    if failures:
+        raise AssertionError("; ".join(failures))
+    t0 = time.perf_counter()
+    audit = tracing.determinism_audit(step, state)
+    audit_s = time.perf_counter() - t0
+    if not audit["deterministic"]:
+        raise AssertionError(f"{name}: two replays of one round differ "
+                             f"at {audit['mismatches']}")
+    top = sorted(fp["planes"].items(), key=lambda kv: -kv[1])[:5]
+    return {"engine": name, "device_bytes": fp["total_bytes"],
+            "reference_bytes": ref["total_bytes"], **rec,
+            "temp_gib": rec["temp_bytes"] / 2**30,
+            "top_planes": dict(top), "check_memory": "clean",
+            "deterministic": True, "audit_s": audit_s}
+
+
+def resource_phase_times(n: int, t: int, device) -> dict:
+    """Phase 14 (c): `collect_phase_times` over phased-u8 rounds: wall
+    ms per span, each span's boundary waiting for the card."""
+    from go_avalanche_tpu_torch import workload
+    from go_avalanche_tpu_torch.models import avalanche as av
+    from go_avalanche_tpu_torch.utils import tracing
+
+    state, cfg = workload.flagship_state(n, t, device=device)
+    state = av.round_step(state, cfg)[0]            # warm
+    _synchronize(device)
+    t0 = time.perf_counter()
+    with tracing.collect_phase_times() as spans:
+        for _ in range(RESOURCE_PHASE_ROUNDS):
+            state = av.round_step(state, cfg)[0]
+    wall_ms = (time.perf_counter() - t0) * 1e3 / RESOURCE_PHASE_ROUNDS
+    span_ms = {k: v * 1e3 / RESOURCE_PHASE_ROUNDS for k, v in spans.items()}
+    want = {"poll_mask", "sample_peers", "gather_prefs", "ingest_votes"}
+    if set(span_ms) != want:
+        raise AssertionError(f"phase spans {sorted(span_ms)} != "
+                             f"{sorted(want)}")
+    if sum(span_ms.values()) > wall_ms:
+        raise AssertionError(f"the spans' sum {sum(span_ms.values())} ms "
+                             f"exceeds the rounds' wall {wall_ms} ms")
+    return {"rounds": RESOURCE_PHASE_ROUNDS, "span_ms": span_ms,
+            "spans_sum_ms": sum(span_ms.values()),
+            "round_wall_ms": wall_ms}
+
+
+def resource_report_memory(n: int, t: int, device) -> dict:
+    """Phase 14 (e): `run_sim --report-memory` at the flagship's width:
+    the report on stderr, the stdout result equal to the same run's
+    without the flag."""
+    import contextlib
+    import io
+
+    from go_avalanche_tpu_torch import run_sim
+
+    argv = ["--model", "avalanche", "--nodes", str(n), "--txs", str(t),
+            "--k", "8", "--no-gossip", "--max-element-poll",
+            str(max(4096, t)), "--finalization-score", "32766",
+            "--max-rounds", str(RESOURCE_CLI_ROUNDS), "--json",
+            "--device", str(device)]
+    outputs = {}
+    for flag in ((), ("--report-memory",)):
+        out, err = io.StringIO(), io.StringIO()
+        with contextlib.redirect_stdout(out), contextlib.redirect_stderr(err):
+            result = run_sim.main(argv + list(flag))
+        if json.loads(out.getvalue().strip().splitlines()[-1]) != result:
+            raise AssertionError("run_sim: the JSON line is not the "
+                                 "result dict")
+        outputs[flag] = (_without_wall(result), err.getvalue())
+    (plain, plain_err), (reported, report) = outputs.values()
+    if reported != plain or plain_err:
+        raise AssertionError(f"--report-memory changed the run: {reported} "
+                             f"!= {plain} (stderr {plain_err!r})")
+    lines = report.splitlines()
+    ledger = torch_device_type(device) == "cuda"   # none on the CPU
+    if (not lines or not lines[0].startswith("memory report [avalanche")
+            or ledger != ("  check_memory: clean" in lines)):
+        raise AssertionError(f"--report-memory wrote {report!r}")
+    return {"result": reported, "report": lines}
+
+
+def run_resources(quick: bool = False, device="cuda") -> dict:
+    """Phase 14: the resource and tracing plane on the flagship.  Launch
+    counts are reset just before and read just after."""
+    n, t = RESOURCE_SHAPES["quick" if quick else "full"]
+    _synchronize(device)
+    t0 = time.perf_counter()
+    reset_launches()
+    engines = []
+    for name in RESOURCE_ENGINES:
+        engines.append(resource_engine(n, t, name, device))
+        _empty_cache(device)
+    spans = resource_phase_times(n, t, device)
+    _empty_cache(device)
+    cli = resource_report_memory(n, t, device)
+    _synchronize(device)
+    launches = read_launches()
+    # (a) one round and (b) two replays a engine; (c) a warm round and
+    # the timed rounds; (e) both runs, and the report's ledger round
+    # (on the card only).
+    want = {"megakernel": 3, "vote_swar": 3,
+            "vote_u8": 3 + 1 + RESOURCE_PHASE_ROUNDS
+            + 2 * RESOURCE_CLI_ROUNDS
+            + (torch_device_type(device) == "cuda")}
+    if launches != want:
+        raise AssertionError(f"phase 14 launches {launches} != {want}")
+    _empty_cache(device)
+    return {"engines": engines, "spans": spans, "cli": cli,
+            "launches": launches, "wall_s": time.perf_counter() - t0}
+
+
 def _empty_cache(device) -> None:
     import torch
 
@@ -3734,6 +3931,21 @@ def main() -> int:
           "launches_by_ingest_path": mesh["launches_by_ingest_path"],
           "wall_s": mesh["wall_s"], **label})
 
+    # 14. the resource and tracing plane: footprints against the
+    # allocator, determinism replays, phase timers, --report-memory
+    resources = run_resources()
+    for row in resources["engines"]:
+        emit({"phase": "resources", "part": "engine", **row, **label})
+    emit({"phase": "resources", "part": "spans", **resources["spans"],
+          **label})
+    emit({"phase": "resources", "part": "cli", **resources["cli"],
+          **label})
+    emit({"phase": "resources", "launches": resources["launches"],
+          "timed_compiles": {"main": main_path["timed_compiles"],
+                             "timing": {k: v["timed_compiles"]
+                                        for k, v in timing.items()}},
+          "wall_s": resources["wall_s"], **label})
+
     emit({"kernels": [{
         "name": name,
         "route": "cuda",
@@ -3742,7 +3954,8 @@ def main() -> int:
         "launches": (main_path["launches"][name]
                      + adversary["launches"][name]
                      + host["launches"][name]
-                     + mesh["launches"][name]),
+                     + mesh["launches"][name]
+                     + resources["launches"][name]),
         "max_abs_err": max(worst[name], timing[name]["max_abs_err"]),
         "ms": timing[name]["ms"],
         "plain_ms": timing[name]["plain_ms"],

@@ -15,9 +15,12 @@ A second package beside the JAX reference, mirroring its module names:
                    single-decree Snowball, Slush and Snowflake, and the
                    streaming schedulers
   convert          state carried to and from the reference's numpy leaves
-  utils/           the golden oracle, npz checkpoints, metrics
+  utils/           the golden oracle, npz checkpoints, metrics, tracing
+  obs/             the flight recorder and the resource plane
+  analysis/        the compile counter and the port-convention linter
   run_sim          the command-line runner
-  connector/       the Connector server and client over TCP
+  connector/       the Connector server and client over TCP, and the Go
+                   client's golden frames
   workload         the flagship and BASELINE configurations
 
 Entry points run on the CUDA device unless the caller passes

@@ -5,6 +5,10 @@ alone (no PyTorch headers) into `build/lib<name>-<digest>.so`, where the
 digest covers the source, every `csrc/*.cuh` header a source may include
 and the flags, so an edited source or header rebuilds and an unchanged
 one is reused.  Nothing here runs at import.
+
+`compiles` counts the kernel libraries this process compiled or loaded
+anew: one for each `build` that ran nvcc, and one for each first `load`
+of a library that was already current (`analysis/retrace.py` reads it).
 """
 
 from __future__ import annotations
@@ -24,6 +28,12 @@ CSRC_DIR = PACKAGE_DIR / "csrc"
 BUILD_DIR = PACKAGE_DIR / "build"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+compiles = 0
+
+
+def _count_compile() -> None:
+    global compiles
+    compiles += 1
 
 
 class Built(NamedTuple):
@@ -75,13 +85,17 @@ def build(name: str) -> Built:
         raise RuntimeError(f"kernel build failed: {name}: nvcc exited "
                            f"{proc.returncode}\n{proc.stdout}")
     os.replace(tmp, lib)
+    _count_compile()
     return Built(lib, time.perf_counter() - start, proc.stdout)
 
 
 @functools.lru_cache(maxsize=None)
 def load(name: str) -> ctypes.CDLL:
     """The kernel library `name`, built first if needed."""
-    return ctypes.CDLL(str(build(name).path))
+    built = build(name)
+    if not built.seconds:
+        _count_compile()    # a current library: this first load counts
+    return ctypes.CDLL(str(built.path))
 
 
 def check_arg(t, name: str, dtype, shape: tuple, device, align: int = 8

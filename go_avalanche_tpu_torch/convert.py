@@ -67,6 +67,15 @@ def _records_from_numpy(rec) -> VoteRecordState:
         confidence=torch.from_numpy(confidence.view(np.int16).copy()))
 
 
+def reference_numpy(x) -> np.ndarray:
+    """A tensor (or array) on the host in the reference's dtype: the
+    port's int16 planes are the reference's uint16 bit patterns; every
+    other dtype is the reference's own."""
+    a = x.detach().cpu().numpy() if isinstance(x, torch.Tensor) else \
+        np.asarray(x)
+    return a.view(np.uint16) if a.dtype == np.int16 else a
+
+
 def _key_from_numpy(words) -> torch.Tensor:
     return torch.from_numpy(np.asarray(words, np.uint32).astype(np.int64))
 

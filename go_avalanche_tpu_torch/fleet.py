@@ -56,6 +56,7 @@ import numpy as np
 import torch
 
 from go_avalanche_tpu_torch import convert, prng
+from go_avalanche_tpu_torch.analysis import retrace
 from go_avalanche_tpu_torch.config import (ADVERSARY_POLICIES,
                                            AdversaryStrategy, AvalancheConfig)
 from go_avalanche_tpu_torch.models import avalanche as av
@@ -307,32 +308,32 @@ def _outcome_backlog(state, cfg: AvalancheConfig) -> TrialOutcome:
 # The trial: init -> n_rounds of round_step -> outcome, on the device.
 
 
-def _trial_fn(model: str, cfg: AvalancheConfig, n_nodes: int, n_txs: int,
-              n_rounds: int, conflict_size: int, yes_fraction: float,
-              contested: bool, window: int, device: torch.device):
-    """``key -> (TrialOutcome, telemetry [R], trace [S, M] | None)``: one
-    trial's init from its key (with its trace plane when
-    `cfg.trace_every > 0`), `n_rounds` rounds and the outcome reduction,
-    all on `device`."""
+def trial_init(model: str, cfg: AvalancheConfig, n_nodes: int, n_txs: int,
+               n_rounds: int, conflict_size: int, yes_fraction: float,
+               contested: bool, window: int, device: torch.device):
+    """``key -> (state, step, outcome, trace_of)``: one trial's initial
+    state from its key (with its trace plane when `cfg.trace_every >
+    0`), on `device`, with its round step, its outcome reduction and
+    the reader of its trace plane."""
 
-    def trial(key):
+    def init(key):
         if model == "snowball":
             from go_avalanche_tpu_torch.models import snowball as sb
 
             state = sb.with_trace(
                 sb.init(key, n_nodes, cfg, yes_fraction=yes_fraction,
                         device=device), cfg, n_rounds)
-            step, outcome = sb.round_step, _outcome_snowball
-            trace_of = lambda s: s.trace                    # noqa: E731
-        elif model == "avalanche":
+            return (state, sb.round_step, _outcome_snowball,
+                    lambda s: s.trace)
+        if model == "avalanche":
             init_pref = (av.contested_init_pref_from_key(key, n_nodes, n_txs)
                          if contested else None)
             state = av.with_trace(
                 av.init(key, n_nodes, n_txs, cfg, init_pref=init_pref,
                         device=device), cfg, n_rounds)
-            step, outcome = av.round_step, _outcome_avalanche
-            trace_of = lambda s: s.trace                    # noqa: E731
-        elif model == "backlog":
+            return (state, av.round_step, _outcome_avalanche,
+                    lambda s: s.trace)
+        if model == "backlog":
             from go_avalanche_tpu_torch.models import backlog as bl
 
             # The backlog (arrival order) is shared across trials; only
@@ -344,23 +345,36 @@ def _trial_fn(model: str, cfg: AvalancheConfig, n_nodes: int, n_txs: int,
                                               device=device)),
                                           cfg, device=device),
                                   cfg, n_rounds)
-            step = bl.step
 
             def outcome(final, c):
                 final, _ = bl._retire_and_refill(final, c, refill=False)
                 return _outcome_backlog(final, c)
-            trace_of = lambda s: s.sim.trace                # noqa: E731
-        else:
-            from go_avalanche_tpu_torch.models import dag as dag_model
+            return state, bl.step, outcome, lambda s: s.sim.trace
+        from go_avalanche_tpu_torch.models import dag as dag_model
 
-            state = dag_model.with_trace(dag_model.init(
-                key, n_nodes,
-                torch.arange(n_txs, dtype=torch.int32,
-                             device=device) // conflict_size,
-                cfg, n_sets=n_txs // conflict_size, set_size=conflict_size,
-                device=device), cfg, n_rounds)
-            step, outcome = dag_model.round_step, _outcome_dag
-            trace_of = lambda s: s.base.trace               # noqa: E731
+        state = dag_model.with_trace(dag_model.init(
+            key, n_nodes,
+            torch.arange(n_txs, dtype=torch.int32,
+                         device=device) // conflict_size,
+            cfg, n_sets=n_txs // conflict_size, set_size=conflict_size,
+            device=device), cfg, n_rounds)
+        return (state, dag_model.round_step, _outcome_dag,
+                lambda s: s.base.trace)
+
+    return init
+
+
+def _trial_fn(model: str, cfg: AvalancheConfig, n_nodes: int, n_txs: int,
+              n_rounds: int, conflict_size: int, yes_fraction: float,
+              contested: bool, window: int, device: torch.device):
+    """``key -> (TrialOutcome, telemetry [R], trace [S, M] | None)``: one
+    trial's init (`trial_init`), `n_rounds` rounds and the outcome
+    reduction, all on `device`."""
+    init = trial_init(model, cfg, n_nodes, n_txs, n_rounds, conflict_size,
+                      yes_fraction, contested, window, device)
+
+    def trial(key):
+        state, step, outcome, trace_of = init(key)
         rows = []
         for _ in range(n_rounds):
             state, tel = step(state, cfg)
@@ -863,14 +877,13 @@ def run_phase_grid(
     rows = []
     for point in points:
         cfg = point_config(base_cfg, point)
-        # The reference guards each point against recompiling its
-        # fleet program more than once; the port compiles nothing per
-        # point, so there is nothing to guard here.
+        before = retrace.compile_count()
         res = run_fleet(model, cfg, fleet, n_nodes, n_txs=n_txs,
                         n_rounds=n_rounds, seed=seed,
                         conflict_size=conflict_size,
                         yes_fraction=yes_fraction, contested=contested,
                         window=window, mesh=mesh, device=device)
+        retrace.guard_fleet_point(before, retrace.compile_count(), point)
         row = {"point": point, **res.summary(), "tag": config_tag(cfg)}
         realized = res.realizations()
         if realized:

@@ -32,10 +32,10 @@ every engine: `obs/sink.emit_round` (under `cfg.metrics_every`) and
 `with_trace` under `cfg.trace_every`); both are plain PyTorch with no
 read back to the host.
 
-The round's phases run under `torch.profiler.record_function` spans with
-the reference's `annotate` names (poll_mask, sample_peers,
-gossip_admission, gather_prefs, fused_round / ingest_votes), so a
-profiler trace reads device time per phase (`round_profile.py`).
+The round's phases run under `utils/tracing.annotate` spans with the
+reference's names (poll_mask, sample_peers, gossip_admission,
+gather_prefs, fused_round / ingest_votes), so a profiler trace reads
+device time per phase (`round_profile.py`).
 """
 
 from __future__ import annotations
@@ -55,8 +55,7 @@ from go_avalanche_tpu_torch.ops import (adversary, exchange, inflight,
 from go_avalanche_tpu_torch.ops import voterecord as vr
 from go_avalanche_tpu_torch.ops.bitops import pack_bool_plane, popcount8
 from go_avalanche_tpu_torch.ops.sampling import draw_peers
-
-span = torch.profiler.record_function
+from go_avalanche_tpu_torch.utils.tracing import annotate
 
 
 def popcnt_plane(x: torch.Tensor) -> torch.Tensor:
@@ -188,6 +187,13 @@ def score_rank_with_orders(scores: torch.Tensor) -> Tuple:
     return rank, order, rank.clone()
 
 
+def score_ranks(scores: torch.Tensor) -> torch.Tensor:
+    """Rank targets by descending score; int32 [T], 0 = best, ties by
+    index — the reference's `score_ranks`, the first of
+    `score_rank_with_orders`."""
+    return score_rank_with_orders(scores)[0]
+
+
 def init(
     key: torch.Tensor,
     n_nodes: int,
@@ -280,14 +286,14 @@ def round_step(
     fin = vr.has_finalized(state.records.confidence, cfg)
 
     # --- GetInvsForNextPoll: live, valid, non-finalized, score-capped.
-    with span("poll_mask"):
+    with annotate("poll_mask"):
         pollable = (state.added & state.alive[:, None] & state.valid[None, :]
                     & ~fin)
         polled = capped_poll_mask(pollable, cfg.max_element_poll,
                                   state.poll_order, state.poll_order_inv)
 
     # --- peer sampling, lies, non-responses.
-    with span("sample_peers"):
+    with annotate("sample_peers"):
         peers, self_draw = draw_peers(k_sample, cfg, state.latency_weight,
                                       state.alive, n)
     peers_l = peers.long()
@@ -312,7 +318,7 @@ def round_step(
     zero = torch.zeros((), dtype=torch.int32, device=peers.device)
     admissions = gossip_writes = zero
     if cfg.gossip:
-        with span("gossip_admission"):
+        with annotate("gossip_admission"):
             heard = exchange.gossip_heard(peers, polled.to(torch.uint8),
                                           cfg) > 0
             new_adds = (heard & ~added & state.alive[:, None]
@@ -324,7 +330,7 @@ def round_step(
     # --- gather peer preferences (at delivery time under async queries).
     megakernel_round = cfg.round_engine == "megakernel"
     async_round = inflight.enabled(cfg)
-    with span("gather_prefs"):
+    with annotate("gather_prefs"):
         prefs = vr.is_accepted(state.records.confidence)
         packed_prefs = pack_bool_plane(prefs)
         minority_t = adversary.minority_plane(prefs)
@@ -335,7 +341,7 @@ def round_step(
 
     # --- ingest: the async ring, the megakernel, or the phased ingest.
     ring = state.inflight
-    with span("fused_round" if megakernel_round else "ingest_votes"):
+    with annotate("fused_round" if megakernel_round else "ingest_votes"):
         if async_round:
             # Stamp this round's polls with latencies, the policy's
             # stamps, then the fault script's spikes and cuts, enqueue

@@ -35,8 +35,7 @@ from go_avalanche_tpu_torch.obs import sink as obs_sink
 from go_avalanche_tpu_torch.obs import trace as obs_trace
 from go_avalanche_tpu_torch.ops import inflight
 from go_avalanche_tpu_torch.ops import voterecord as vr
-
-span = torch.profiler.record_function
+from go_avalanche_tpu_torch.utils.tracing import annotate
 
 NO_TX = -1   # empty-slot sentinel
 # The score of an empty slot: below every real score, so it polls last.
@@ -300,7 +299,7 @@ def step(state: BacklogSimState, cfg: AvalancheConfig = DEFAULT_CONFIG
             (state.slot_tx != NO_TX).sum(dtype=torch.int32),
             state.slot_tx.shape[0])
         state = state._replace(traffic=new_traffic)
-    with span("retire_refill"):
+    with annotate("retire_refill"):
         state, retired = _retire_and_refill(state, cfg)
     new_sim, round_tel = av.round_step(state.sim, inner_round_config(cfg))
     tel = BacklogTelemetry(

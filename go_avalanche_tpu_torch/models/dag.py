@@ -41,8 +41,7 @@ from go_avalanche_tpu_torch.ops import (adversary, exchange, inflight,
 from go_avalanche_tpu_torch.ops import voterecord as vr
 from go_avalanche_tpu_torch.ops.bitops import pack_bool_plane, popcount8
 from go_avalanche_tpu_torch.ops.sampling import draw_peers
-
-span = torch.profiler.record_function
+from go_avalanche_tpu_torch.utils.tracing import annotate
 
 
 class DagSimState(NamedTuple):
@@ -211,7 +210,7 @@ def round_step(
     fin = vr.has_finalized(confidence, cfg)
     fin_acc = fin & vr.is_accepted(confidence)
 
-    with span("poll_mask"):
+    with annotate("poll_mask"):
         # A set is settled for a node once any member finalized accepted.
         if state.set_size is not None:
             rival_settled = set_any_fixed(fin_acc, state.set_size) & ~fin_acc
@@ -225,7 +224,7 @@ def round_step(
         polled = av.capped_poll_mask(pollable, cfg.max_element_poll,
                                      base.poll_order, base.poll_order_inv)
 
-    with span("sample_peers"):
+    with annotate("sample_peers"):
         peers, self_draw = draw_peers(k_sample, cfg, base.latency_weight,
                                       base.alive, n)
     lie = adversary.lie_mask(k_byz, peers, base.byzantine, cfg)
@@ -237,7 +236,7 @@ def round_step(
                                      tuple(peers.shape))
 
     # Responses: yes iff the tx is the peer's preferred member of its set.
-    with span("gather_prefs"):
+    with annotate("gather_prefs"):
         if state.set_size is not None:
             prefs = preferred_in_set_fixed(confidence, state.set_size)
         else:
@@ -259,7 +258,7 @@ def round_step(
                 t, pol)
 
     ring = base.inflight
-    with span("ingest_votes"):
+    with annotate("ingest_votes"):
         if async_round:
             lat = inflight.draw_latency(k_sample, cfg, peers,
                                         base.latency_weight, n)

@@ -37,11 +37,12 @@ from go_avalanche_tpu_torch.config import (AvalancheConfig, DEFAULT_CONFIG,
 from go_avalanche_tpu_torch.models import avalanche as av
 from go_avalanche_tpu_torch.models import dag as dag_model
 from go_avalanche_tpu_torch.models.backlog import (EMPTY_SCORE, NO_TX,
-                                                   set_drop, span, stack_tree)
+                                                   set_drop, stack_tree)
 from go_avalanche_tpu_torch.obs import sink as obs_sink
 from go_avalanche_tpu_torch.obs import trace as obs_trace
 from go_avalanche_tpu_torch.ops import inflight
 from go_avalanche_tpu_torch.ops import voterecord as vr
+from go_avalanche_tpu_torch.utils.tracing import annotate
 
 NO_SET = NO_TX   # empty set-slot sentinel (-1)
 
@@ -377,7 +378,7 @@ def step(state: StreamingDagState, cfg: AvalancheConfig = DEFAULT_CONFIG
             (state.slot_set != NO_SET).sum(dtype=torch.int32),
             state.slot_set.shape[0])
         state = state._replace(traffic=new_traffic)
-    with span("retire_refill"):
+    with annotate("retire_refill"):
         state, retired = _retire_and_refill(state, cfg)
     new_dag, round_tel = dag_model.round_step(state.dag, inner_round_config(cfg))
     tel = StreamingDagTelemetry(

@@ -10,7 +10,10 @@
                  the sim state and written by one `index_copy` per
                  emitted round (per-trial ``[F, S, M]`` in the fleet),
                  decoded to the same JSONL schema;
-  * `tags`     — `config_tag`, the metric tag spelling;
+  * `tags`     — `config_tag`, the metric tag spelling, and the phase-span
+                 registries `PHASE_SPANS` / `PORT_SPANS`;
+  * `resources` — the analytic per-plane footprint of a state and the
+                 card's memory ledger of one round (`check_memory`);
   * `watchdog` — opt-in invariant checks between steps;
   * `recovery` — the recovery-curve checker of a fault script's cut
                  accounting, occupancy recovery and finality monotonicity.

@@ -38,6 +38,7 @@ import numpy as np
 import torch
 
 from go_avalanche_tpu_torch import sync
+from go_avalanche_tpu_torch.utils.tracing import annotate
 
 _ACTIVE: list = []   # stack of MetricsSink; the innermost (last) receives
 
@@ -215,7 +216,7 @@ def emit_round(cfg, round_, telemetry) -> None:
     sink = active_sink()
     if every <= 0 or sink is None:
         return
-    with torch.profiler.record_function("metrics_tap"):
+    with annotate("metrics_tap"):
         flat = _flatten_telemetry(telemetry, {})
         round_ = torch.as_tensor(round_)
         columns, cells = [], []

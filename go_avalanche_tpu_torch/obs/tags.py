@@ -1,5 +1,5 @@
-"""The metric engine tag of a config — the port's copy of
-`go_avalanche_tpu/obs/tags.py`, host-only.
+"""The metric engine tag of a config and the phase-span registry — the
+port's copy of `go_avalanche_tpu/obs/tags.py`, host-only.
 
 `config_tag` is the reference's `tag_from_config` under another name:
 the JAX package's lint (`go_avalanche_tpu/analysis/lint.py`,
@@ -20,6 +20,28 @@ trace plane.
 from __future__ import annotations
 
 from go_avalanche_tpu_torch.config import AvalancheConfig
+
+# The canonical phase-span names, the reference's tuple
+# (`go_avalanche_tpu/obs/tags.py:82-89`) copied exactly:
+# `utils/tracing.annotate` refuses any other spelling, so every
+# per-phase surface (the profiler timeline, `round_profile.py`,
+# `tracing.collect_phase_times`) joins on the same keys.
+PHASE_SPANS = (
+    "poll_mask",          # capped per-(node, tx) pollable mask
+    "sample_peers",       # committee peer draw (uniform/stake/hier)
+    "gossip_admission",   # gossip scatter-max admission (gossip on)
+    "gather_prefs",       # peer-preference gathers (exchange engines)
+    "ingest_votes",       # RegisterVotes window ingest (u8/swar32)
+    "fused_round",        # whole-round megakernel (gather+ingest+conf)
+)
+
+# Spans of the port's own: they wrap code the reference leaves
+# unannotated, so they are registered beside `PHASE_SPANS`, not in it.
+PORT_SPANS = (
+    "retire_refill",      # a streaming scheduler's retire + refill step
+    "metrics_tap",        # the in-loop telemetry tap (obs/sink.py)
+    "trace_write",        # one trace-plane row write (obs/trace.py)
+)
 
 
 def default_timeout_rounds(latency_rounds: int) -> int:

@@ -41,6 +41,7 @@ from go_avalanche_tpu_torch import sync
 from go_avalanche_tpu_torch.config import AvalancheConfig
 from go_avalanche_tpu_torch.obs.sink import (_flatten_telemetry, _scalar,
                                              decode_column, encode_value)
+from go_avalanche_tpu_torch.utils.tracing import annotate
 
 Columns = Tuple[Tuple[str, str], ...]
 
@@ -127,7 +128,7 @@ def write_round(buf: Optional[TraceBuffer], cfg: AvalancheConfig, round_,
             f"{list(names)} — allocate the buffer from the same "
             f"telemetry schema the step emits")
     dev = buf.data.device
-    with torch.profiler.record_function("trace_write"):
+    with annotate("trace_write"):
         cells = []
         for (name, kind), (_, v) in zip(buf.columns, items):
             v = torch.as_tensor(v, device=dev)

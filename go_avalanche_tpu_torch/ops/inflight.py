@@ -403,6 +403,12 @@ def apply_faults(lat: torch.Tensor, cfg: AvalancheConfig,
     return torch.where(cut, torch.full_like(lat, cfg.timeout_rounds()), lat)
 
 
+# The reference's back-compat spelling (`ops/inflight.py:610`), from
+# when the only schedulable fault was the single partition; the same
+# contract as `apply_faults`.
+apply_partition = apply_faults
+
+
 def apply_churn_bursts(alive: torch.Tensor, cfg: AvalancheConfig,
                        round_: torch.Tensor,
                        key: torch.Tensor) -> torch.Tensor:

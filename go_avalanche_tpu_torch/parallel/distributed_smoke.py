@@ -24,10 +24,11 @@ import json
 import sys
 
 
-def run(n_tx_shards: int = 1, device="cpu") -> dict:
+def run(n_tx_shards: int = 1, device="cuda") -> dict:
     """Two sharded rounds on the runtime mesh of the running process
-    group; returns this rank's digest after checking that every rank
-    read the same telemetry."""
+    group, on this rank's card (`runtime.rank_device`; pass
+    ``device="cpu"`` for the CPU); returns this rank's digest after
+    checking that every rank read the same telemetry."""
     import torch.distributed as dist
 
     from go_avalanche_tpu_torch import prng
@@ -40,7 +41,7 @@ def run(n_tx_shards: int = 1, device="cpu") -> dict:
                                                          rank_device)
 
     size, rank = world()
-    dev = rank_device(device)
+    dev = rank_device(av._device(device))
     mesh = make_runtime_mesh(n_tx_shards=n_tx_shards)
     cfg = AvalancheConfig()
     # Every rank builds the same global state from the same key and

@@ -61,8 +61,7 @@ from go_avalanche_tpu_torch.ops.bitops import (pack_bool_plane, popcount8,
 from go_avalanche_tpu_torch.ops.sampling import draw_peers
 from go_avalanche_tpu_torch.parallel import collectives as C
 from go_avalanche_tpu_torch.parallel.mesh import NODES_AXIS, TXS_AXIS
-
-span = torch.profiler.record_function
+from go_avalanche_tpu_torch.utils.tracing import annotate
 
 # A leaf's spec is a tuple with one entry per dimension: the mesh axis
 # that dimension is cut along, or None.  () is a replicated leaf.
@@ -327,7 +326,7 @@ def _local_round(state: AvalancheSimState, cfg: AvalancheConfig,
     alive_local = state.alive[offset:offset + n_local]
 
     # --- GetInvsForNextPoll on the block, the cap held across tx shards.
-    with span("poll_mask"):
+    with annotate("poll_mask"):
         pollable = (state.added & alive_local[:, None]
                     & state.valid[None, :] & ~fin)
         polled = global_capped_poll_mask(pollable, state.score_rank,
@@ -336,7 +335,7 @@ def _local_round(state: AvalancheSimState, cfg: AvalancheConfig,
                                          state.poll_order_inv)
 
     # --- k global peer ids for the local rows.
-    with span("sample_peers"):
+    with annotate("sample_peers"):
         peers, self_draw = draw_peers(k_sample, cfg, state.latency_weight,
                                       state.alive, n_global,
                                       n_local=n_local, id_offset=offset)
@@ -353,7 +352,7 @@ def _local_round(state: AvalancheSimState, cfg: AvalancheConfig,
     zero = torch.zeros((), dtype=torch.int32, device=peers.device)
     admissions = gossip_writes = zero
     if cfg.gossip:
-        with span("gossip_admission"):
+        with annotate("gossip_admission"):
             heard = unpack_bool_plane(
                 _gossip_heard_packed(peers, polled, n_global,
                                      fused=cfg.fused_sharded_gossip),
@@ -365,7 +364,7 @@ def _local_round(state: AvalancheSimState, cfg: AvalancheConfig,
             added = added | new_adds
 
     # --- preference exchange: pack, all-gather over nodes, gather rows.
-    with span("gather_prefs"):
+    with annotate("gather_prefs"):
         prefs_local = vr.is_accepted(state.records.confidence)
         packed_global = C.all_gather(pack_bool_plane(prefs_local),
                                      NODES_AXIS)
@@ -393,7 +392,7 @@ def _local_round(state: AvalancheSimState, cfg: AvalancheConfig,
 
     # --- ingest.
     ring = state.inflight
-    with span("ingest_votes"):
+    with annotate("ingest_votes"):
         if async_round:
             lat = inflight.draw_latency(k_sample, cfg, peers,
                                         state.latency_weight, n_global,

@@ -50,8 +50,7 @@ from go_avalanche_tpu_torch.parallel import collectives as C
 from go_avalanche_tpu_torch.parallel import sharded
 from go_avalanche_tpu_torch.parallel.mesh import NODES_AXIS, TXS_AXIS
 from go_avalanche_tpu_torch.parallel.sharded import REPLICATED
-
-span = torch.profiler.record_function
+from go_avalanche_tpu_torch.utils.tracing import annotate
 
 
 def traffic_specs(with_traffic: bool):
@@ -246,7 +245,7 @@ def _local_step(state: BacklogSimState, cfg: AvalancheConfig,
             state.traffic, cfg, round_val, _occupied(state.slot_tx),
             state.slot_tx.shape[0] * n_tx_shards)
         state = state._replace(traffic=new_traffic)
-    with span("retire_refill"):
+    with annotate("retire_refill"):
         state, retired = _local_retire_and_refill(state, cfg)
     # The scheduler owns the trace plane: the inner round's taps are
     # silenced and the full record is written below from psum'd counters.

@@ -40,8 +40,7 @@ from go_avalanche_tpu_torch.ops.sampling import draw_peers
 from go_avalanche_tpu_torch.parallel import collectives as C
 from go_avalanche_tpu_torch.parallel import sharded
 from go_avalanche_tpu_torch.parallel.mesh import NODES_AXIS, TXS_AXIS
-
-span = torch.profiler.record_function
+from go_avalanche_tpu_torch.utils.tracing import annotate
 
 
 def dag_state_specs(n_sets: int, set_size: Optional[int] = None,
@@ -142,7 +141,7 @@ def _local_round(state: DagSimState, cfg: AvalancheConfig, n_global: int,
     fin_acc = fin & vr.is_accepted(confidence)
     alive_local = base.alive[offset:offset + n_local]
 
-    with span("poll_mask"):
+    with annotate("poll_mask"):
         if state.set_size is not None and t_local % state.set_size:
             raise ValueError(
                 f"set_size={state.set_size} must divide the per-shard tx "
@@ -154,7 +153,7 @@ def _local_round(state: DagSimState, cfg: AvalancheConfig, n_global: int,
             pollable, base.score_rank, cfg.max_element_poll, n_tx_shards,
             base.poll_order, base.poll_order_inv)
 
-    with span("sample_peers"):
+    with annotate("sample_peers"):
         peers, self_draw = draw_peers(k_sample, cfg, base.latency_weight,
                                       base.alive, n_global,
                                       n_local=n_local, id_offset=offset)
@@ -167,7 +166,7 @@ def _local_round(state: DagSimState, cfg: AvalancheConfig, n_global: int,
                                      tuple(peers.shape))
 
     # --- response plane: preferred-in-set, packed and all-gathered.
-    with span("gather_prefs"):
+    with annotate("gather_prefs"):
         if state.set_size is not None:
             prefs_local = dag_model.preferred_in_set_fixed(confidence,
                                                            state.set_size)
@@ -199,7 +198,7 @@ def _local_round(state: DagSimState, cfg: AvalancheConfig, n_global: int,
                 minority_t, t_local, pol)
 
     ring = base.inflight
-    with span("ingest_votes"):
+    with annotate("ingest_votes"):
         if async_round:
             lat = inflight.draw_latency(k_sample, cfg, peers,
                                         base.latency_weight, n_global,

@@ -52,8 +52,9 @@ from go_avalanche_tpu_torch.parallel import sharded, sharded_dag
 from go_avalanche_tpu_torch.parallel.mesh import NODES_AXIS, TXS_AXIS
 from go_avalanche_tpu_torch.parallel.sharded import REPLICATED
 from go_avalanche_tpu_torch.parallel.sharded_backlog import (
-    _alive_local, _exclusive_prefix, _occupied, merge_planes, span,
+    _alive_local, _exclusive_prefix, _occupied, merge_planes,
     traffic_specs)
+from go_avalanche_tpu_torch.utils.tracing import annotate
 
 
 def streaming_dag_state_specs(n_sets: int, set_size=None,
@@ -263,7 +264,7 @@ def _local_step(state: StreamingDagState, cfg: AvalancheConfig, c: int,
             state.traffic, cfg, round_val, _occupied(state.slot_set),
             state.slot_set.shape[0] * n_tx_shards)
         state = state._replace(traffic=new_traffic)
-    with span("retire_refill"):
+    with annotate("retire_refill"):
         state, retired = _local_retire_and_refill(state, cfg, c)
     # The scheduler owns the trace plane: the inner round's taps are
     # silenced and the full record is written below from psum'd counters.

@@ -57,13 +57,13 @@ from go_avalanche_tpu_torch import obs, workload
 from go_avalanche_tpu_torch.models import avalanche as av
 from go_avalanche_tpu_torch.models import dag
 from go_avalanche_tpu_torch.models import streaming_dag
+from go_avalanche_tpu_torch.obs.tags import PHASE_SPANS, PORT_SPANS
 
 ROUNDS = 10
 TAP_ROUNDS = 20
 TAP_REPS = 2
-SPANS = ("retire_refill", "poll_mask", "sample_peers", "gossip_admission",
-         "gather_prefs", "fused_round", "ingest_votes", "metrics_tap",
-         "trace_write")
+# Every span `utils/tracing.annotate` accepts (`obs/tags.py`).
+SPANS = PHASE_SPANS + PORT_SPANS
 # The port's kernels, by a part of their symbol, and the span that
 # launches each.  A kernel launched through ctypes has no aten op above
 # it, so the profiler counts its device time under no span; it is added

@@ -26,10 +26,11 @@ streamed through an `--active-nodes` window.
 with ``--fleet`` lays the trial axis over them; start the ranks with
 ``torchrun --nproc-per-node A*B -m go_avalanche_tpu_torch.run_sim ...``
 (``--backend gloo`` when they share one card).  ``--mesh 1,1`` runs in
-one process.  Only rank 0 prints the result and writes the sinks.  The
-flags of the analysis tooling not ported yet (ROADMAP.md Queue 1 item
-17), `--fleet-shape`, `--audit` and `--report-memory`, raise
-`NotImplementedError`.
+one process.  Only rank 0 prints the result and writes the sinks.
+``--report-memory`` prints the run's memory ledger and analytic
+footprint (`obs/resources.py`) to stderr before the run.  The flags of
+the analysis tooling not ported yet (ROADMAP.md Queue 1 item 17 part
+B), `--fleet-shape` and `--audit`, raise `NotImplementedError`.
 """
 
 from __future__ import annotations
@@ -53,34 +54,19 @@ from go_avalanche_tpu_torch.config import (
     fault_script_from_json,
 )
 from go_avalanche_tpu_torch.models.avalanche import _device
-from go_avalanche_tpu_torch.utils import metrics
+from go_avalanche_tpu_torch.utils import metrics, tracing
 
 # Flags of ROADMAP.md Queue 1 items not ported yet -> the item.
 _UNPORTED_FLAGS = {
-    "fleet_shape": "item 17, resource and analysis tooling (the TPU "
-                   "VMEM knee table that sizes the fleet)",
-    "audit": "item 17, resource and analysis tooling",
-    "report_memory": "item 17, resource and analysis tooling",
+    "fleet_shape": "item 17 part B, resource and analysis tooling (the "
+                   "TPU VMEM knee table that sizes the fleet)",
+    "audit": "item 17 part B, the torch counterpart of the HLO "
+             "contract audit",
 }
 
 
 def _np(x) -> np.ndarray:
     return x.detach().cpu().numpy()
-
-
-@contextlib.contextmanager
-def _profile(log_dir: str, device: torch.device):
-    """A `torch.profiler` trace of the enclosed block into `log_dir` (a
-    Chrome trace per run, as `tensorboard_trace_handler` writes it): the
-    port's counterpart of the reference's `jax.profiler` trace."""
-    activities = [torch.profiler.ProfilerActivity.CPU]
-    if device.type == "cuda":
-        activities.append(torch.profiler.ProfilerActivity.CUDA)
-    with torch.profiler.profile(
-            activities=activities,
-            on_trace_ready=torch.profiler.tensorboard_trace_handler(
-                log_dir)):
-        yield
 
 
 def _parse_rtt_matrix(spec: str):
@@ -224,6 +210,64 @@ def _parse_mesh(mesh_arg: str):
     return make_mesh(n_node_shards=n_shards, n_tx_shards=t_shards)
 
 
+def _report_memory(args, cfg: AvalancheConfig, state, step,
+                   driver: str = None) -> None:
+    """`--report-memory`: the memory ledger of one round of `state`
+    under `step` (`obs/resources.memory_record`, on the card) and the
+    analytic per-plane footprint of the run's state
+    (`obs/resources.footprint`), printed to stderr by rank 0 before the
+    run; stdout keeps the one-result contract.  Under `--mesh` the
+    footprint is per rank, from `specs_of` of the sharded `driver`
+    module (`parallel/<driver>.py`); under `--fleet`
+    it is one trial's, beside the reference's stacked layout of F
+    trials.  On the CPU there is no device ledger: the footprint only.
+    Reporting only — the assertions live in `chip_smoke.py`."""
+    if not (args.report_memory and args.lead):
+        return
+    import importlib
+    import sys
+
+    from go_avalanche_tpu_torch.obs import resources
+    from go_avalanche_tpu_torch.parallel.mesh import NODES_AXIS, TXS_AXIS
+
+    out = sys.stderr
+    specs = mesh = None
+    if args.fleet is not None:
+        scope = f"fleet{args.fleet}, one trial at a time"
+    elif args.mesh:
+        mesh = dict(zip((NODES_AXIS, TXS_AXIS),
+                        (int(x) for x in args.mesh.split(","))))
+        specs = importlib.import_module(
+            f"go_avalanche_tpu_torch.parallel.{driver}").specs_of(state)
+        scope = "per rank (sharded planes divide by their mesh axes)"
+    else:
+        scope = "single device"
+    print(f"memory report [{args.model}, {scope}]:", file=out)
+    fp = resources.footprint(state, specs, mesh)
+    if args.device_resolved.type != "cuda":
+        print("  no device ledger on the CPU: the analytic footprint "
+              "only", file=out)
+    elif mesh is None:
+        rec = resources.memory_record(lambda s: step(s, cfg)[0], state)
+        for key in ("argument_bytes", "output_bytes", "shared_bytes",
+                    "temp_bytes", "live_bytes", "live_peak_bytes"):
+            print(f"  {key:>22}: {rec[key]:>15,}", file=out)
+        failures = resources.check_memory(rec, fp["total_bytes"],
+                                          what=args.model)
+        print("  check_memory: " + ("; ".join(failures) or "clean"),
+              file=out)
+    ref = resources.footprint(state, specs, mesh, dtypes="reference")
+    print(f"  analytic state footprint: {fp['total_bytes']:,} B across "
+          f"{len(fp['planes'])} planes ({ref['total_bytes']:,} B in the "
+          f"reference's dtypes)", file=out)
+    if args.fleet is not None:
+        print(f"  the reference's stacked layout, {args.fleet} x one "
+              f"trial: {args.fleet * ref['total_bytes']:,} B", file=out)
+    top = sorted(fp["planes"].items(), key=lambda kv: -kv[1])[:5]
+    for path, nbytes in top:
+        print(f"    {path:>24}: {nbytes:>15,}", file=out)
+
+
 def run_snowball(args, cfg: AvalancheConfig) -> Dict:
     from go_avalanche_tpu_torch.models import snowball as sb
     from go_avalanche_tpu_torch.ops import voterecord as vr
@@ -232,6 +276,7 @@ def run_snowball(args, cfg: AvalancheConfig) -> Dict:
     state = sb.init(_key(args), args.nodes, cfg,
                     yes_fraction=args.yes_fraction, device=dev)
     state = sb.with_trace(state, cfg, args.max_rounds)
+    _report_memory(args, cfg, state, sb.round_step)
     out = {}
     if args.check_invariants:
         def settled(s, cfg):
@@ -314,6 +359,7 @@ def run_avalanche(args, cfg: AvalancheConfig) -> Dict:
     state = av.init(_key(args), args.nodes, args.txs, cfg,
                     init_pref=init_pref, device=dev)
     state = av.with_trace(state, cfg, args.max_rounds)
+    _report_memory(args, cfg, state, av.round_step, "sharded")
     extra = {}
     if args.mesh:
         from go_avalanche_tpu_torch.parallel import sharded
@@ -350,6 +396,7 @@ def run_dag(args, cfg: AvalancheConfig) -> Dict:
                              args.conflict_size, rounding_mode="floor")
     state = dag.init(_key(args), args.nodes, conflict_set, cfg, device=dev)
     state = dag.with_trace(state, cfg, args.max_rounds)
+    _report_memory(args, cfg, state, dag.round_step, "sharded_dag")
     extra = {}
     if args.mesh:
         from go_avalanche_tpu_torch.parallel import sharded_dag
@@ -387,6 +434,7 @@ def run_slush(args, cfg: AvalancheConfig) -> Dict:
     dev = args.device_resolved
     state = fam.slush_init(_key(args), args.nodes, cfg,
                            yes_fraction=args.yes_fraction, device=dev)
+    _report_memory(args, cfg, state, fam.slush_round)
     final, _ = fam.slush_run(state, cfg, args.max_rounds, device=dev)
     colors = _np(final.color)
     return {
@@ -402,6 +450,7 @@ def run_snowflake(args, cfg: AvalancheConfig) -> Dict:
     dev = args.device_resolved
     state = fam.snowflake_init(_key(args), args.nodes, cfg,
                                yes_fraction=args.yes_fraction, device=dev)
+    _report_memory(args, cfg, state, fam.snowflake_round)
     final = fam.snowflake_run(state, cfg, args.max_rounds, device=dev)
     acc = _np(final.accepted_at)
     colors = _np(final.color)
@@ -435,6 +484,7 @@ def run_streaming_dag(args, cfg: AvalancheConfig) -> Dict:
     state = sdg.init(_key(args), args.nodes, args.slots, backlog, cfg,
                      device=dev)
     state = sdg.with_trace(state, cfg, args.max_rounds)
+    _report_memory(args, cfg, state, sdg.step, "sharded_streaming_dag")
     if args.mesh:
         from go_avalanche_tpu_torch.parallel import sharded_streaming_dag as ssd
 
@@ -482,6 +532,7 @@ def run_backlog(args, cfg: AvalancheConfig) -> Dict:
     b = bl.make_backlog(torch.arange(args.txs, dtype=torch.int32))
     state = bl.init(_key(args), args.nodes, args.slots, b, cfg, device=dev)
     state = bl.with_trace(state, cfg, args.max_rounds)
+    _report_memory(args, cfg, state, bl.step, "sharded_backlog")
     if args.mesh:
         from go_avalanche_tpu_torch.parallel import sharded_backlog
 
@@ -519,6 +570,7 @@ def run_node_stream(args, cfg: AvalancheConfig) -> Dict:
     dev = args.device_resolved
     state = ns.init(_key(args), args.txs, cfg, device=dev)
     state = ns.with_trace(state, cfg, args.max_rounds)
+    _report_memory(args, cfg, state, ns.step, "sharded_node_stream")
     if args.mesh:
         from go_avalanche_tpu_torch.parallel import sharded_node_stream as sns
 
@@ -561,6 +613,15 @@ def run_fleet_mode(args, cfg: AvalancheConfig) -> Dict:
                   contested=args.contested,
                   window=args.slots, mesh=mesh,
                   device=args.device_resolved)
+    if args.report_memory and args.lead:
+        key = prng.split(prng.key(args.seed, args.device_resolved),
+                         args.fleet)[0]
+        state, step, _, _ = fl.trial_init(
+            args.model, cfg, args.nodes, args.txs, args.max_rounds,
+            args.conflict_size, args.yes_fraction, args.contested,
+            args.slots, args.device_resolved)(key)
+        _report_memory(args, cfg, state, step)
+        del state
     if args.phase_grid_parsed is not None:
         rows = fl.run_phase_grid(args.model, cfg,
                                  args.phase_grid_parsed, sink=sink,
@@ -1044,15 +1105,14 @@ def parse_args(argv=None):
                              "manifest")
     parser.add_argument("--report-memory", action="store_true",
                         help="resource report (obs/resources.py): "
-                             "compile the EXACT program these flags "
-                             "select, print its memory_analysis() "
-                             "ledger (argument / output / temp / "
-                             "aliased / donation-adjusted live peak) "
-                             "and the analytic per-plane state "
-                             "footprint to stderr, then run.  Same "
-                             "single-program rule as --audit "
-                             "(rejected with --phase-grid / "
-                             "--check-invariants / --chunk)")
+                             "print the memory ledger of one round of "
+                             "the state these flags build (allocated "
+                             "state, round peak, live bytes after it; "
+                             "on the card only) and the analytic "
+                             "per-plane state footprint to stderr, "
+                             "then run.  Rejected with --phase-grid / "
+                             "--check-invariants / --chunk, as the "
+                             "reference's")
     parser.add_argument("--check-invariants", action="store_true",
                         help="debug mode (obs/watchdog.py): step the sim "
                              "one jitted round at a time and assert the "
@@ -1072,6 +1132,28 @@ def parse_args(argv=None):
             raise NotImplementedError(
                 f"{flag}: the PyTorch port does not implement this yet "
                 f"(ROADMAP.md Queue 1, {item})")
+    # --report-memory validation: everything parser-level.  The report
+    # is of ONE run's state; flag combinations with no single-run
+    # meaning are rejected here, with the reference's messages.
+    if args.report_memory:
+        what, verb = "--report-memory", "analyze"
+        if args.phase_grid is not None:
+            parser.error(
+                f"{what} with --phase-grid would compile twice per "
+                f"point: every grid point re-jits its own fleet "
+                f"program, so {verb}ing the sweep means lowering the "
+                f"whole grid before the sweep compiles it again — "
+                f"{verb} a single --fleet point (one program, lowered "
+                f"once, compiled once) instead")
+        if args.check_invariants:
+            parser.error(f"{what} lowers the one fused program the run "
+                         f"executes; --check-invariants dispatches "
+                         f"per-round jits — there is no single program "
+                         f"to {verb}")
+        if args.chunk:
+            parser.error(f"{what} lowers the one fused program the run "
+                         f"executes; --chunk dispatches host-driven "
+                         f"chunks — {verb} the unchunked spelling")
     args.device_resolved = _device(args.device)
     if args.mesh and "WORLD_SIZE" in os.environ:
         # Started by torchrun: join its process group, each rank on its
@@ -1466,7 +1548,7 @@ def main(argv=None) -> Dict:
                   "streaming_dag": run_streaming_dag,
                   "node_stream": run_node_stream}[args.model]
 
-    ctx = (_profile(args.trace, args.device_resolved) if args.trace
+    ctx = (tracing.trace(args.trace, args.device_resolved) if args.trace
            else contextlib.nullcontext())
     if args.metrics and args.lead:
         from go_avalanche_tpu_torch import obs

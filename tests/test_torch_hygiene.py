@@ -54,7 +54,14 @@ MODULES = ["go_avalanche_tpu_torch", "go_avalanche_tpu_torch.config",
            "go_avalanche_tpu_torch.parallel.sharded_backlog",
            "go_avalanche_tpu_torch.parallel.sharded_streaming_dag",
            "go_avalanche_tpu_torch.parallel.sharded_node_stream",
-           "go_avalanche_tpu_torch.parallel.distributed_smoke"]
+           "go_avalanche_tpu_torch.parallel.distributed_smoke",
+           "go_avalanche_tpu_torch.utils.tracing",
+           "go_avalanche_tpu_torch.obs.resources",
+           "go_avalanche_tpu_torch.analysis",
+           "go_avalanche_tpu_torch.analysis.retrace",
+           "go_avalanche_tpu_torch.analysis.lint",
+           "go_avalanche_tpu_torch.analysis.cli",
+           "go_avalanche_tpu_torch.connector.go_fixtures"]
 
 
 def _forbidden(module: str) -> bool:
@@ -167,6 +174,11 @@ def test_entry_points_default_to_cuda():
         fleet.run_phase_grid("avalanche", policy,
                              {"adversary_policy": ["off", "split_vote"]},
                              fleet=2, n_nodes=8, n_txs=4, n_rounds=1)
+
+    from go_avalanche_tpu_torch.parallel import distributed_smoke
+
+    with pytest.raises(RuntimeError, match="cuda"):
+        distributed_smoke.run()
 
 
 def test_host_surfaces_default_to_cuda(tmp_path):
