@@ -208,6 +208,28 @@ package is missing.  Phases, each printing JSON lines:
                stdout result equal to the same run's without the flag.
                (d), the compile guards of phases 4 and 6, prints here.
                The kernels line's launches add phase 14's.
+ 15. audit   — (a) `--fleet-shape auto` at 16384 x 16384 picks F from
+               the card's knee table (`obs/knee.py`, the card's own
+               memory); F flagship trials stacked in place
+               (`workload.fleet_flagship_state`) and scanned 2 rounds
+               by `parallel/sharded_fleet.fleet_scan_program` on a 1x1
+               NCCL mesh: `vote_u8` launched 2F times, all on its fast
+               path; the measured peak under the row's modelled peak
+               under 90% of the card; `check_memory` clean on the
+               stack (one more round); the first and last trial
+               leaf-equal to the dense flagship round from their own
+               keys; `--fleet 64` refused citing its row.  (b) The
+               contract audit (`analysis/audit.py`) of the 14 programs
+               at their audit shapes on the card, then of the three
+               flagship engines at 16384 x 16384: clean, the kernel of
+               each launched exactly once in its round, no sync outside
+               `sync.py` (CUDA's sync debug mode), the op histogram of
+               each.  (c) `obs/resources.sharded_driver_records` in 4
+               gloo ranks sharing the card: each driver's allocated
+               block equal to its analytic per-rank footprint.  (d)
+               ``python -m go_avalanche_tpu_torch.analysis all`` exits
+               0 on the card.  The kernels line's launches add phase
+               15's (a), (b) and (c).
 
 With ``--config6-full-depth`` it builds the kernels and runs only BASELINE
 config 6 at full width and full depth (500,000 sets, ~8313 rounds,
@@ -3768,6 +3790,288 @@ def run_resources(quick: bool = False, device="cuda") -> dict:
             "launches": launches, "wall_s": time.perf_counter() - t0}
 
 
+# Phase 15: the fleet scan on the card sized by the knee table, the
+# contract audit of the programs, the sharded drivers' ledgers, the
+# analysis CLI.
+AUDIT_SHAPES = {"full": (16_384, 16_384), "quick": (64, 64)}
+AUDIT_QUICK_FLEET = 2        # the CPU rehearsal validates F, never picks
+AUDIT_FLEET_ROUNDS = 2
+AUDIT_REFUSED_FLEET = 64     # refused at 16384² with its row cited
+AUDIT_ENGINES = ("flagship_megakernel", "flagship", "flagship_swar32")
+AUDIT_CLI_TIMEOUT = 300
+
+
+def _allocated(device) -> int:
+    import torch
+
+    if torch.device(device).type != "cuda":
+        return 0
+    return torch.cuda.memory_allocated(device)
+
+
+def _peak(device) -> int:
+    import torch
+
+    if torch.device(device).type != "cuda":
+        return 0
+    return torch.cuda.max_memory_allocated(device)
+
+
+def _reset_peak(device) -> None:
+    import torch
+
+    if torch.device(device).type == "cuda":
+        torch.cuda.reset_peak_memory_stats(device)
+
+
+def audit_fleet(n: int, t: int, work: str, quick: bool,
+                device="cuda") -> dict:
+    """Phase 15 (a): `--fleet-shape auto`'s pick at n x t on the card's
+    knee table (`obs/knee.py`), the stacked trials built in place
+    (`workload.fleet_flagship_state`) and scanned by
+    `sharded_fleet.fleet_scan_program` on a 1x1 NCCL mesh; launches,
+    the measured peak against the row's modelled peak, `check_memory`
+    on the stack, and the first and last trial against the dense
+    flagship round from their own keys."""
+    import os
+
+    import torch
+    import torch.distributed as dist
+
+    from go_avalanche_tpu_torch import prng, workload
+    from go_avalanche_tpu_torch.models import avalanche as av
+    from go_avalanche_tpu_torch.obs import knee, resources
+    from go_avalanche_tpu_torch.parallel import runtime, sharded_fleet
+
+    dev = torch.device(device)
+    cuda = dev.type == "cuda"
+    profile = knee.PLATFORM_PROFILES[dev.type]
+    tables = {profile: knee.knee_table(profile)}
+    total = tables[profile]["hbm_bytes"]
+    sel = knee.select_fleet_shape(dev.type, 1, n, t, tables=tables,
+                                  fleet=AUDIT_QUICK_FLEET if quick
+                                  else None)
+    f, row = sel["fleet"], sel["row"]
+    refused = None
+    try:
+        knee.select_fleet_shape(dev.type, 1, n, t,
+                                fleet=AUDIT_REFUSED_FLEET, tables=tables)
+    except ValueError as e:
+        refused = str(e)
+    cited = f"caps the {AUDIT_REFUSED_FLEET} trials/chip row"
+    if not quick and (refused is None or cited not in refused):
+        raise AssertionError(f"(a) --fleet {AUDIT_REFUSED_FLEET} at "
+                             f"{n}x{t} was not refused citing its row: "
+                             f"{refused!r}")
+    # A world of one of its own: `runtime.initialize_runtime` brings a
+    # group up once a process, and phase 13's is gone.
+    dist.init_process_group(runtime.select_backend(device, 1),
+                            init_method=f"file://{os.path.join(work, 'f1')}",
+                            world_size=1, rank=0)
+    try:
+        mesh = sharded_fleet.make_fleet_mesh(1, 1)
+        _synchronize(device)
+        base = _allocated(device)
+        _reset_peak(device)
+        t0 = time.perf_counter()
+        stack, cfg = workload.fleet_flagship_state(f, n, t, device=dev)
+        _synchronize(device)
+        build_s = time.perf_counter() - t0
+        build_peak = _peak(device) - base
+        block = sharded_fleet.shard_fleet_state(stack, mesh)
+        del stack
+        state_bytes = resources.footprint(block)["total_bytes"]
+        _reset_peak(device)
+        reset_launches()
+        _synchronize(device)
+        t0 = time.perf_counter()
+        sharded_fleet.fleet_scan_program(mesh, cfg, AUDIT_FLEET_ROUNDS)(block)
+        _synchronize(device)
+        scan_s = time.perf_counter() - t0
+        measured = _peak(device) - base
+        launches, paths = read_launches(), read_path_launches()
+        want = {"megakernel": 0, "vote_swar": 0,
+                "vote_u8": AUDIT_FLEET_ROUNDS * f if cuda else 0}
+        if launches != want:
+            raise AssertionError(f"(a) fleet scan launches {launches} != "
+                                 f"{want}")
+        if paths["vote_u8"] != {"fast": want["vote_u8"], "any": 0}:
+            raise AssertionError(f"(a) fleet scan launches by path "
+                                 f"{paths['vote_u8']} are not all on "
+                                 f"the fast path")
+        modeled = row["modeled_live_peak_bytes"]
+        slack = resources.allocator_slack(block)
+        if cuda and not (measured <= modeled + slack
+                         and modeled <= knee.HEADROOM * total):
+            raise AssertionError(
+                f"(a) fleet {f} at {n}x{t}: measured peak {measured} B, "
+                f"modelled {modeled} B (+ {slack} B of allocator "
+                f"rounding), budget {knee.HEADROOM * total:.0f} B — not "
+                f"measured <= modelled <= budget")
+        rounds = AUDIT_FLEET_ROUNDS
+        record = None
+        if cuda:
+            record = resources.memory_record(
+                sharded_fleet.fleet_scan_program(mesh, cfg, 1), block)
+            fails = resources.check_memory(record, state_bytes,
+                                           what="(a) fleet scan")
+            if fails:
+                raise AssertionError("; ".join(fails))
+            rounds += 1
+        scan_launches = read_launches()
+        keys = prng.split(prng.key(0, dev), f)
+        for i in sorted({0, f - 1}):
+            dense = av.init(keys[i], n, t, cfg, device=dev)
+            for _ in range(rounds):
+                dense = av.round_step(dense, cfg)[0]
+            assert_states_equal(sharded_fleet.trial(block, i), dense,
+                                f"(a) trial {i} against its dense run")
+            del dense
+    finally:
+        dist.destroy_process_group()
+    del block
+    _empty_cache(device)
+    return {"fleet": f, "profile": profile, "row": row,
+            "total_memory_bytes": total, "state_bytes": state_bytes,
+            "modeled_peak_bytes": modeled, "measured_peak_bytes": measured,
+            "allocator_slack_bytes": slack,
+            "build_peak_bytes": build_peak, "build_s": build_s,
+            "scan_ms_per_trial_round": scan_s * 1e3
+            / (AUDIT_FLEET_ROUNDS * f),
+            "refused": refused, "record": record,
+            "launches": scan_launches}
+
+
+def audit_programs(n: int, t: int, device="cuda") -> dict:
+    """Phase 15 (b): `analysis.audit.audit_all_pinned` at the audit
+    shapes, then the three flagship engines at n x t, each clean, each
+    engine's kernel launched exactly once in its round, no host sync
+    outside `sync.py`; each engine's op histogram."""
+    import torch
+
+    from go_avalanche_tpu_torch.analysis import audit, drift
+
+    dev = torch.device(device)
+    reset_launches()
+    t0 = time.perf_counter()
+    failures = audit.audit_all_pinned(dev)
+    if failures:
+        raise AssertionError("(b) audit_all_pinned:\n  "
+                             + "\n  ".join(failures))
+    small_s = time.perf_counter() - t0
+    rows = []
+    for name in AUDIT_ENGINES:
+        program = audit.pinned_program(
+            name, dict(audit.PROGRAMS[name], nodes=n, txs=t), dev)
+        failures, rec = audit.audit(program)
+        if failures:
+            raise AssertionError(f"(b) {name} at {n}x{t}:\n  "
+                                 + "\n  ".join(failures))
+        if dev.type == "cuda" and rec.kernels != program.kernels:
+            raise AssertionError(f"(b) {name}: launches {rec.kernels} "
+                                 f"!= {program.kernels} in one round")
+        rows.append({"program": name, "nodes": n, "txs": t,
+                     "kernels": rec.kernels, "host_reads": rec.reads,
+                     "syncs_outside_sync_py": len(rec.debug_syncs) + len(
+                         [o for o, sc in rec.syncs if "sync" not in sc]),
+                     "histogram": drift.histogram(rec.ops, rec.kernels)})
+        del program, rec
+        _empty_cache(device)
+    return {"pinned_programs": len(audit.PROGRAMS), "small_s": small_s,
+            "engines": rows, "launches": read_launches(),
+            "wall_s": time.perf_counter() - t0}
+
+
+def audit_records_rank(device="cuda") -> dict:
+    """Phase 15 (c), in a rank of 4 sharing the card: one round of each
+    sharded driver's audit case on the 2x2 mesh, its ledger beside the
+    analytic per-rank footprint (`obs/resources.sharded_driver_records`)."""
+    from go_avalanche_tpu_torch.obs import resources
+
+    dev = _rank_setup(device)
+    reset_launches()
+    out = {}
+    for name, r in resources.sharded_driver_records(device=dev).items():
+        fp = r["footprint"]["total_bytes"]
+        rec = r["record"]
+        tol = max(int(0.02 * fp), 4096)
+        # the live check's tolerance: every leaf's 512-byte rounding
+        slack = max(4096, 512 * len(r["footprint"]["planes"]))
+        out[name] = {"argument_bytes": rec["argument_bytes"],
+                     "footprint_bytes": fp, "tolerance": tol,
+                     "temp_bytes": rec["temp_bytes"],
+                     "live_bytes": rec["live_bytes"],
+                     "check_memory": resources.check_memory(
+                         rec, fp, abs_tol=slack),
+                     "ops": sum(r["histogram"].values())}
+    return {"drivers": out, "launches": read_launches(),
+            "launches_by_ingest_path": read_path_launches()}
+
+
+def run_audit(quick: bool = False, device="cuda") -> dict:
+    """Phase 15: (a) the fleet, (b) the audited programs, (c) the
+    sharded ledgers, (d) `python -m go_avalanche_tpu_torch.analysis all`
+    on the device, started first so that it overlaps the rest."""
+    import os
+    import subprocess
+    import tempfile
+
+    import torch
+
+    from go_avalanche_tpu_torch.parallel.ranks import RankPool
+
+    n, t = AUDIT_SHAPES["quick" if quick else "full"]
+    work = tempfile.mkdtemp(prefix="chip_smoke_audit_")
+    t_phase = time.perf_counter()
+    cli = subprocess.Popen(
+        [sys.executable, "-m", "go_avalanche_tpu_torch.analysis", "all",
+         "--device", torch.device(device).type], stdout=subprocess.PIPE,
+        stderr=subprocess.PIPE, text=True,
+        cwd=os.path.dirname(os.path.abspath(__file__)))
+    try:
+        t0 = time.perf_counter()
+        fleet = audit_fleet(n, t, work, quick, device)
+        fleet["wall_s"] = time.perf_counter() - t0
+        programs = audit_programs(n, t, device)
+        total = {k: fleet["launches"][k] + programs["launches"][k]
+                 for k in fleet["launches"]}
+        records = []
+        if torch.device(device).type == "cuda":
+            t0 = time.perf_counter()
+            pool = RankPool(MESH_RANKS, work, threads=2)
+            try:
+                ranks = pool.run(MESH_RANKS, audit_records_rank, device,
+                                 timeout=MESH_TIMEOUT)
+            finally:
+                pool.close()
+            for r, got in enumerate(ranks):
+                for name, row in got["drivers"].items():
+                    if abs(row["argument_bytes"] - row["footprint_bytes"]) \
+                            > row["tolerance"]:
+                        raise AssertionError(
+                            f"(c) rank {r} {name}: argument bytes "
+                            f"{row['argument_bytes']} != per-rank "
+                            f"footprint {row['footprint_bytes']} (tol "
+                            f"{row['tolerance']})")
+                    records.append({"rank": r, "driver": name, **row})
+                for k, v in got["launches"].items():
+                    total[k] += v
+            records_s = time.perf_counter() - t0
+        else:
+            records_s = 0.0   # the ledger is the card's
+        out, err = cli.communicate(timeout=AUDIT_CLI_TIMEOUT)
+    finally:
+        if cli.poll() is None:
+            cli.kill()
+            cli.communicate()
+    if cli.returncode != 0 or "ok: contract audit + lint clean" not in out:
+        raise AssertionError(f"(d) analysis all exited {cli.returncode}:"
+                             f"\n{out}\n{err[-4000:]}")
+    return {"fleet": fleet, "programs": programs, "records": records,
+            "records_s": records_s, "cli": out.strip(),
+            "launches": total, "wall_s": time.perf_counter() - t_phase}
+
+
 def _empty_cache(device) -> None:
     import torch
 
@@ -3946,6 +4250,24 @@ def main() -> int:
                                         for k, v in timing.items()}},
           "wall_s": resources["wall_s"], **label})
 
+    # 15. the fleet scan sized by the knee table, the contract audit,
+    # the sharded ledgers, the analysis CLI
+    audited = run_audit()
+    fleet = {k: v for k, v in audited["fleet"].items() if k != "launches"}
+    emit({"phase": "audit", "part": "fleet", **fleet, **label})
+    for row in audited["programs"]["engines"]:
+        emit({"phase": "audit", "part": "programs", **row, **label})
+    emit({"phase": "audit", "part": "programs",
+          "pinned_programs": audited["programs"]["pinned_programs"],
+          "small_s": audited["programs"]["small_s"], **label})
+    for row in audited["records"]:
+        emit({"phase": "audit", "part": "records", **row, **label})
+    emit({"phase": "audit", "part": "cli", "stdout": audited["cli"],
+          **label})
+    emit({"phase": "audit", "launches": audited["launches"],
+          "records_s": audited["records_s"],
+          "wall_s": audited["wall_s"], **label})
+
     emit({"kernels": [{
         "name": name,
         "route": "cuda",
@@ -3955,7 +4277,8 @@ def main() -> int:
                      + adversary["launches"][name]
                      + host["launches"][name]
                      + mesh["launches"][name]
-                     + resources["launches"][name]),
+                     + resources["launches"][name]
+                     + audited["launches"][name]),
         "max_abs_err": max(worst[name], timing[name]["max_abs_err"]),
         "ms": timing[name]["ms"],
         "plain_ms": timing[name]["plain_ms"],

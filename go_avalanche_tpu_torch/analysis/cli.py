@@ -1,21 +1,36 @@
 """`python -m go_avalanche_tpu_torch.analysis` — the port's static-analysis
 CLI (`go_avalanche_tpu/analysis/cli.py`).
 
-Subcommands:
+Subcommands (default ``all``):
 
+  audit   the contract audit (`analysis/audit.py`): one round of each of
+          the 14 programs at its audit shape, then the five sharded
+          drivers and the sharded fleet on 2x2 meshes in a pool of 4
+          spawned ranks (gloo; on CUDA they share the card);
   lint    the port-convention AST linter (imports neither torch nor
           jax — runs anywhere);
-  audit   the reference's contract audit of lowered and compiled XLA
-          programs: not ported (ROADMAP.md Queue 1, item 17 part B);
   all     both.
 
-Exit status 1 on any failure, 0 clean; one line per failure on stderr.
+``--device`` is ``cuda`` (the default, as for every entry point of the
+port) or ``cpu``.  The reference's ``--no-compile-donation`` is refused:
+the port compiles nothing, and its donation check (one round's
+storages; on CUDA the memory ledger) always runs.  Exit status 1 on any
+failure, 0 clean; one line per failure on stderr.
 """
 
 from __future__ import annotations
 
 import argparse
 import sys
+
+
+def run_audit(device: str = "cuda") -> list:
+    """Every contract of the audit, as one failure list."""
+    from go_avalanche_tpu_torch.analysis import audit
+    from go_avalanche_tpu_torch.models.avalanche import _device
+
+    dev = _device(device)
+    return audit.audit_all_pinned(dev) + audit.run_sharded_audits(dev.type)
 
 
 def run_lint() -> list:
@@ -34,22 +49,33 @@ def main(argv=None) -> int:
         prog="python -m go_avalanche_tpu_torch.analysis",
         description=__doc__,
         formatter_class=argparse.RawDescriptionHelpFormatter)
-    parser.add_argument("command", nargs="?", default="lint",
+    parser.add_argument("command", nargs="?", default="all",
                         choices=("audit", "lint", "all"),
-                        help="which surface to run (default: lint)")
+                        help="which surface to run (default: all)")
+    parser.add_argument("--device", choices=("cuda", "cpu"),
+                        default="cuda",
+                        help="the device the audit's rounds run on")
+    parser.add_argument("--no-compile-donation", action="store_true",
+                        help="the reference's; refused here (see above)")
     args = parser.parse_args(argv)
-    if args.command in ("audit", "all"):
-        raise NotImplementedError(
-            f"{args.command}: the PyTorch port does not implement the "
-            f"contract audit yet (ROADMAP.md Queue 1, item 17 part B: "
-            f"the torch counterpart of analysis/hlo_audit.py)")
+    if args.no_compile_donation:
+        parser.error("--no-compile-donation: the port compiles nothing — "
+                     "its donation check (one round's storages, and the "
+                     "memory ledger on CUDA) always runs")
 
-    failures = run_lint()
+    failures = []
+    if args.command in ("lint", "all"):
+        failures += run_lint()
+    if args.command in ("audit", "all"):
+        failures += run_audit(args.device)
+
     if failures:
         print("STATIC ANALYSIS FAILURES:\n  " + "\n  ".join(failures),
               file=sys.stderr)
         return 1
-    print("ok: lint clean")
+    what = {"audit": "contract audit", "lint": "lint",
+            "all": "contract audit + lint"}[args.command]
+    print(f"ok: {what} clean")
     return 0
 
 

@@ -48,6 +48,7 @@ the dense fleet's, bit for bit; a one-rank mesh is the dense loop.
 from __future__ import annotations
 
 import dataclasses
+import functools
 import itertools
 import math
 from typing import Dict, List, NamedTuple, Optional, Tuple
@@ -191,9 +192,9 @@ def _per(x: torch.Tensor, width: int) -> torch.Tensor:
     """``x / width`` for a static `width` as the reference's compiled
     program computes it: XLA rewrites a division by a constant into a
     product with the constant's float32 reciprocal."""
-    return x * torch.reciprocal(torch.tensor(float(width),
-                                             dtype=torch.float32,
-                                             device=x.device))
+    return x * torch.reciprocal(torch.full((), float(width),
+                                           dtype=torch.float32,
+                                           device=x.device))
 
 
 def _finality_round(settled, stamped) -> torch.Tensor:
@@ -512,6 +513,38 @@ def _dense_fleet(trial, keys: torch.Tensor):
             None if traces[0] is None else obs_trace.stack_fleet(traces))
 
 
+@functools.lru_cache(maxsize=16)
+def _fleet_program(model: str, cfg: AvalancheConfig, n_nodes: int,
+                   n_txs: int, n_rounds: int, conflict_size: int,
+                   yes_fraction: float, contested: bool, window: int, mesh,
+                   device: torch.device):
+    trial = _trial_fn(model, cfg, n_nodes, n_txs, n_rounds, conflict_size,
+                      yes_fraction, contested, window, device)
+    if sharded_fleet.mesh_devices(mesh) > 1:
+        return sharded_fleet.fleet_driver_program(mesh, trial)
+    return functools.partial(_dense_fleet, trial)
+
+
+def compiled_fleet_program(model: str, cfg: AvalancheConfig, n_nodes: int,
+                           n_txs: int, n_rounds: int, conflict_size: int,
+                           yes_fraction: float, contested: bool,
+                           window: int, mesh=None, device="cuda"):
+    """The fleet program a (config point, mesh | None) selection runs,
+    memoised: ``keys [F, 2] -> (TrialOutcome [F], telemetry [F, R],
+    trace [F, S, M] | None)`` (the dense loop over the trials), or on a
+    mesh of more than one rank the trial-sharded driver
+    (`sharded_fleet.fleet_driver_program`), which also returns the
+    psum'd `FleetCounts` second.  `run_fleet`, `run_sim --audit` and
+    `--report-memory` go through this one function, so what is audited
+    is what runs — `go_avalanche_tpu/fleet.py:490`.  The port compiles
+    nothing here (a round's kernels are built once, at their first
+    launch); "compiled" is the reference's name, kept."""
+    return _fleet_program(model, cfg, int(n_nodes), int(n_txs),
+                          int(n_rounds), int(conflict_size),
+                          float(yes_fraction), bool(contested), int(window),
+                          mesh, av._device(device))
+
+
 def run_fleet(
     model: str,
     cfg: AvalancheConfig,
@@ -587,15 +620,14 @@ def run_fleet(
         sharded_fleet.check_fleet_divisible(fleet, mesh)
     dev = av._device(device)
     keys = prng.split(prng.key(seed, dev), fleet)
-    trial = _trial_fn(model, cfg, int(n_nodes), int(n_txs), int(n_rounds),
-                      int(conflict_size), float(yes_fraction),
-                      bool(contested), int(window), dev)
+    program = compiled_fleet_program(model, cfg, n_nodes, n_txs, n_rounds,
+                                     conflict_size, yes_fraction, contested,
+                                     window, mesh=mesh, device=dev)
     counts = None
     if sharded:
-        outcome, counts, tels, traces = sharded_fleet.fleet_driver_program(
-            mesh, trial)(keys)
+        outcome, counts, tels, traces = program(keys)
     else:
-        outcome, tels, traces = _dense_fleet(trial, keys)
+        outcome, tels, traces = program(keys)
     violations = _host(outcome, "violation")
     settled = _host(outcome, "settled")
     stalled = _host(outcome, "stalled")

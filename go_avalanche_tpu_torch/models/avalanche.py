@@ -374,7 +374,7 @@ def round_step(
             yes_cnt = popcount8(yes_pack & consider_pack)
             no_cnt = popcount8(~yes_pack & consider_pack)
             err = torch.where(yes_cnt >= thresh, 0,
-                              torch.where(no_cnt >= thresh, 1, -1))
+                              (no_cnt >= thresh).to(torch.int32) * 2 - 1)
             records, changed = vr.register_vote(state.records, err, cfg,
                                                 update_mask=polled)
             votes_applied = ((err >= 0) & polled).sum()

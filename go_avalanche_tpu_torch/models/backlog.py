@@ -123,8 +123,10 @@ def set_drop(plane: torch.Tensor, idx: torch.Tensor,
     is cut off), the others must be distinct.  A new tensor."""
     n = plane.shape[0]
     out = torch.cat([plane, plane[:1]])
-    out[idx.long()] = torch.as_tensor(values, dtype=plane.dtype,
-                                      device=plane.device)
+    if not isinstance(values, torch.Tensor):   # filled on the device
+        values = torch.full((), values, dtype=plane.dtype,
+                            device=plane.device)
+    out[idx.long()] = values.to(device=plane.device, dtype=plane.dtype)
     return out[:n]
 
 

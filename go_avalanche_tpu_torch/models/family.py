@@ -95,8 +95,8 @@ def _poll_majorities(state, cfg: AvalancheConfig) -> Tuple:
         responded &= ~prng.bernoulli(k_drop, cfg.drop_probability,
                                      tuple(peers.shape))
     thresh = math.ceil(cfg.alpha * cfg.k)
-    yes_cnt = (votes & responded).sum(dim=1)
-    no_cnt = (~votes & responded).sum(dim=1)
+    yes_cnt = (votes & responded).sum(dim=1, dtype=torch.int32)
+    no_cnt = (~votes & responded).sum(dim=1, dtype=torch.int32)
     alive = state.alive
     if cfg.churn_probability > 0.0:
         alive = alive ^ prng.bernoulli(k_churn, cfg.churn_probability, (n,))
@@ -185,8 +185,7 @@ def snowflake_round(state: SnowflakeState,
     maj_for_other = torch.where(state.color, no_maj, yes_maj)
     new_color = torch.where(maj_for_other, ~state.color, state.color)
     new_count = torch.where(maj_for_mine, state.count + 1,
-                            torch.where(maj_for_other, 1, 0)
-                            .to(torch.int32))
+                            maj_for_other.to(torch.int32))
 
     frozen = accepted | ~state.alive
     new_color = torch.where(frozen, state.color, new_color)

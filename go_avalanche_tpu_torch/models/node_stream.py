@@ -153,8 +153,11 @@ def churn_swaps(state: NodeStreamState, cfg: AvalancheConfig):
     # Residency flip: departing ids out, arriving ids in; index r is a
     # spare entry that takes the writes of rows that do not swap.
     resident = torch.cat([state.resident, state.resident[:1]])
-    resident[torch.where(swap, state.slot_node, r).long()] = False
-    resident[torch.where(swap, new_slot, r).long()] = True
+    dev = resident.device      # the flags filled there, not copied over
+    resident[torch.where(swap, state.slot_node, r).long()] = torch.zeros(
+        (), dtype=torch.bool, device=dev)
+    resident[torch.where(swap, new_slot, r).long()] = torch.ones(
+        (), dtype=torch.bool, device=dev)
     return (swap, new_slot, resident[:r], swap.sum(dtype=torch.int32),
             k_next)
 

@@ -182,10 +182,11 @@ def round_step(state: SnowballState, cfg: AvalancheConfig = DEFAULT_CONFIG
                 cfg, update_mask)
         else:
             thresh = math.ceil(cfg.alpha * cfg.k)
-            yes_cnt = (peer_votes & responded).sum(dim=1)
-            no_cnt = (~peer_votes & responded).sum(dim=1)
+            yes_cnt = (peer_votes & responded).sum(dim=1, dtype=torch.int32)
+            no_cnt = (~peer_votes & responded).sum(dim=1,
+                                                 dtype=torch.int32)
             err = torch.where(yes_cnt >= thresh, 0,
-                              torch.where(no_cnt >= thresh, 1, -1))
+                              (no_cnt >= thresh).to(torch.int32) * 2 - 1)
             records, changed = vr.register_vote(state.records, err, cfg,
                                                 update_mask)
 

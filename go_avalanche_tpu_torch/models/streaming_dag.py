@@ -307,8 +307,10 @@ def _retire_and_refill(state: StreamingDagState, cfg: AvalancheConfig,
     out = state.outputs
 
     def scatter(plane, rows):
-        return set_drop(plane, row_idx,
-                        torch.as_tensor(rows).to(plane).expand(s_w, c))
+        if not isinstance(rows, torch.Tensor):   # filled on the device
+            rows = torch.full((), rows, dtype=plane.dtype,
+                              device=plane.device)
+        return set_drop(plane, row_idx, rows.to(plane).expand(s_w, c))
 
     out = SetOutputs(
         settled=scatter(out.settled, True),

@@ -8,7 +8,8 @@ The manifest captures, at run time:
   * the torch and CUDA versions and the device topology the run saw:
     the CUDA device when there is one (platform ``"gpu"``), else the CPU;
   * `hlo_pins`: None — the port compiles no XLA program, so there is no
-    program hash to join a trace against (ROADMAP.md Queue 1 item 17);
+    program hash to join a trace against (its programs are described
+    by `analysis/drift.op_histogram` instead);
   * the git commit (best-effort: absent outside a checkout);
   * any caller extras (workload shape, argv, metric tag).
 

@@ -20,12 +20,13 @@ the port's `go_avalanche_tpu/obs/resources.py`.
 
 `run_sim --report-memory` prints both for the run a flag selection
 makes; `chip_smoke.py` checks them on the flagship.
-`sharded_driver_records` (the reference's per-driver compiled records on
-its 2x2 audit mesh) waits for ROADMAP item 17 part B.
+`sharded_driver_records` is a rank's ledger of one round of each sharded
+driver on the 2x2 audit mesh beside its analytic per-rank footprint.
 """
 
 from __future__ import annotations
 
+import gc
 from typing import Callable, Dict, Iterator, List, Optional, Tuple
 
 import torch
@@ -158,6 +159,13 @@ def _storages(tree) -> Dict[int, int]:
     return out
 
 
+def allocator_slack(state) -> int:
+    """What the card's caching allocator may add to a state's analytic
+    bytes: every block is rounded up to a multiple of 512 bytes, one
+    block a leaf."""
+    return 512 * sum(1 for _ in _leaves(state))
+
+
 def memory_record(step: Callable, state) -> Dict[str, int]:
     """One round's memory ledger on the card: ``step(state)`` (returning
     the new state) runs once and its output is dropped.
@@ -175,12 +183,19 @@ def memory_record(step: Callable, state) -> Dict[str, int]:
     if dev.type != "cuda":
         raise ValueError(f"memory_record reads the card's allocator; the "
                          f"state is on {dev}")
+    # Garbage collected inside the round would free memory the ledger
+    # counted before it: collect first, and not during the round.
+    gc.collect()
     torch.cuda.synchronize(dev)
     old = _storages(state)
     before = torch.cuda.memory_allocated(dev)
     torch.cuda.reset_peak_memory_stats(dev)
-    out = step(state)
-    torch.cuda.synchronize(dev)
+    gc.disable()
+    try:
+        out = step(state)
+        torch.cuda.synchronize(dev)
+    finally:
+        gc.enable()
     peak = torch.cuda.max_memory_allocated(dev)
     after = torch.cuda.memory_allocated(dev)
     new = _storages(out)
@@ -260,3 +275,37 @@ def banded_compare(archived: Dict[str, int], current: Dict[str, int],
                 f"{100 * band:.0f}% band) — the compiler's scratch "
                 f"plan changed (re-pin with --update if intended)")
     return failures
+
+
+def sharded_driver_records(drivers: Optional[List[str]] = None,
+                           device="cuda") -> Dict:
+    """This rank's `memory_record` of one round of each sharded driver's
+    base audit case on the 2x2 audit mesh (`parallel.footprint_cases`:
+    the states and steps the contract audit runs), beside the analytic
+    per-rank footprint and the round's op histogram
+    (`analysis.drift.op_histogram`, in place of the reference's hash of
+    the lowered program).  Returns ``{driver: {"record": ...,
+    "footprint": ..., "histogram": ...}}``.  Every rank of the 4 calls
+    it.  The ledger is the card's, so it raises on the CPU, as
+    `memory_record` does; it raises `analysis.audit.AuditUnavailable`
+    unless 4 ranks run."""
+    from go_avalanche_tpu_torch import parallel
+    from go_avalanche_tpu_torch.analysis import audit, drift
+    from go_avalanche_tpu_torch.models.avalanche import _device
+
+    dev = _device(device)
+    if dev.type != "cuda":
+        raise ValueError(f"sharded_driver_records reads the card's "
+                         f"allocator; asked for {dev}")
+    out: Dict[str, Dict] = {}
+    for name, case in parallel.footprint_cases(drivers, dev).items():
+        step = case.program_builder(case.mesh)
+        # a copy, so that no leaf of the block is a view of the global
+        # state (the ledger counts whole storages)
+        block = audit.copy_state(case.shard(case.state, case.mesh))
+        out[name] = {
+            "record": memory_record(lambda b: step(b)[0], block),
+            "footprint": footprint(case.state, case.specs, case.mesh),
+            "histogram": drift.op_histogram(lambda b: step(b)[0], block),
+        }
+    return out

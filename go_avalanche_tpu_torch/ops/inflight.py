@@ -50,6 +50,7 @@ coalesced drain has no single static age.
 
 from __future__ import annotations
 
+import functools
 import math
 from typing import NamedTuple, Optional, Tuple
 
@@ -247,6 +248,15 @@ def _row_ids(rows: int, row_offset, device) -> torch.Tensor:
     return torch.arange(rows, dtype=torch.int32, device=device) + row_offset
 
 
+@functools.lru_cache(maxsize=8)
+def _rtt_table(matrix, device) -> torch.Tensor:
+    """The ``[C, C]`` RTT matrix as int32 on `device`, filled there (no
+    host-to-device copy, which would wait for the card) and kept."""
+    return torch.stack([torch.stack([
+        torch.full((), int(v), dtype=torch.int32, device=device)
+        for v in row]) for row in matrix])
+
+
 def draw_latency(key: torch.Tensor, cfg: AvalancheConfig,
                  peers: torch.Tensor, latency_weight: torch.Tensor,
                  n_global: int, row_offset=0) -> torch.Tensor:
@@ -272,8 +282,7 @@ def draw_latency(key: torch.Tensor, cfg: AvalancheConfig,
         return torch.full(tuple(peers.shape), min(base, timeout),
                           dtype=torch.int32, device=peers.device)
     if cfg.latency_mode == "rtt":
-        matrix = torch.tensor(cfg.rtt_matrix, dtype=torch.int32,
-                              device=peers.device)
+        matrix = _rtt_table(cfg.rtt_matrix, peers.device)
         qc = cluster_ids(_row_ids(peers.shape[0], row_offset, peers.device),
                          cfg.n_clusters, n_global)
         pc = cluster_ids(peers, cfg.n_clusters, n_global)
@@ -284,15 +293,15 @@ def draw_latency(key: torch.Tensor, cfg: AvalancheConfig,
                                device=peers.device)
         p = 1.0 / (1.0 + cfg.latency_rounds)
         u = prng.uniform(key, tuple(peers.shape))
-        denom = torch.tensor(math.log1p(-p), dtype=torch.float32,
-                             device=peers.device)
+        denom = torch.full((), math.log1p(-p), dtype=torch.float32,
+                           device=peers.device)
         lat = torch.floor(prng.log1p_f32(-u) / denom).to(torch.int32)
         return lat.clamp(0, timeout)
     # weighted
     w = latency_weight[peers.long()]
     wmax = latency_weight.max()
     wmin = latency_weight.min()
-    floor_ = torch.tensor(1e-9, dtype=torch.float32, device=peers.device)
+    floor_ = torch.full((), 1e-9, dtype=torch.float32, device=peers.device)
     scale = (wmax - w) / torch.maximum(wmax - wmin, floor_)
     lat = torch.round(cfg.latency_rounds * scale).to(torch.int32)
     return lat.clamp(0, timeout)

@@ -114,8 +114,9 @@ def sample_peers_distinct(key: torch.Tensor, n_nodes: int, k: int,
 def _inverse_cdf(cdf: torch.Tensor, u: torch.Tensor) -> torch.Tensor:
     """Index of the first CDF entry above each `u`, clipped to the
     vector; int32."""
-    idx = torch.searchsorted(cdf.contiguous(), u.contiguous(), right=True)
-    return idx.clamp(0, cdf.shape[-1] - 1).to(torch.int32)
+    idx = torch.searchsorted(cdf.contiguous(), u.contiguous(), right=True,
+                             out_int32=True)
+    return idx.clamp(0, cdf.shape[-1] - 1)
 
 
 def sample_peers_weighted(key: torch.Tensor, weights: torch.Tensor,
@@ -173,9 +174,9 @@ def sample_peers_clustered(key: torch.Tensor, weights: torch.Tensor,
     onehot = all_clusters[None, :] == c_ids[:, None]
     spread = (1.0 - locality) / max(n_clusters - 1, 1)
     w_cn = torch.where(onehot,
-                       torch.tensor(locality, dtype=torch.float32,
-                                    device=dev),
-                       torch.tensor(spread, dtype=torch.float32, device=dev)
+                       torch.full((), locality, dtype=torch.float32,
+                                  device=dev),
+                       torch.full((), spread, dtype=torch.float32, device=dev)
                        ) * weights.to(torch.float32)[None, :]
     cdf = cumsum_f32(w_cn)
     rows_cluster = cluster_ids(_self_ids(n_rows, id_offset, dev),

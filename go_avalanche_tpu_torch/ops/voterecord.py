@@ -81,8 +81,8 @@ def status(confidence: torch.Tensor,
     REJECTED 1, INVALID 0."""
     acc = is_accepted(confidence)
     fin = has_finalized(confidence, cfg)
-    return torch.where(fin, torch.where(acc, 3, 0),
-                       torch.where(acc, 2, 1)).to(torch.int8)
+    a = acc.to(torch.int8)
+    return torch.where(fin, a * 3, a + 1)
 
 
 def _apply_vote_bits(votes, consider, confidence, yes_bit, non_neutral_bit,

@@ -20,7 +20,9 @@ Over axes of size 1 each returns its input, as `shard_map` does.
 Every call adds its ``(kind, axes)`` to `recorded` ("all_gather",
 "all_to_all" or "all_reduce", the names of the reference's collective
 manifests), so a test can hold a driver's round to its
-`DECLARED_COLLECTIVES`.  gloo takes no bool or int16 tensors, so they
+`DECLARED_COLLECTIVES`; while `calls` is a list (the contract audit,
+`analysis/audit.py`, sets one for the round it records), each call also
+appends ``(kind, axes, elements of the result)`` to it.  gloo takes no bool or int16 tensors, so they
 travel as uint8 and int32.  Ranks sharing one card run gloo (NCCL
 refuses two ranks on one device), which takes CUDA tensors and stages
 them through host memory itself; `host_staged` counts each CUDA tensor
@@ -37,6 +39,8 @@ import torch.distributed as dist
 
 # (kind, axes) of every call since it was last cleared.
 recorded: set = set()
+# (kind, axes, result elements) of every call while this is a list.
+calls = None
 # CUDA tensors staged through the host on gloo groups, since last reset.
 host_staged = 0
 
@@ -69,9 +73,16 @@ def axis_index(axis: str) -> int:
     return _bound().coords[axis]
 
 
-def _record(kind: str, axes) -> Optional[tuple]:
+def _record(kind: str, axes, x: torch.Tensor) -> Optional[tuple]:
     mesh = _bound()
-    recorded.add((kind, mesh._axes(axes)))
+    names = mesh._axes(axes)
+    recorded.add((kind, names))
+    if calls is not None:
+        span = 1
+        if kind == "all_gather":
+            for a in names:
+                span *= mesh.shape[a]
+        calls.append((kind, names, x.numel() * span))
     return mesh.group(axes)
 
 
@@ -95,7 +106,7 @@ def _back(t: torch.Tensor, like: torch.Tensor) -> torch.Tensor:
 def all_gather(x: torch.Tensor, axes, dim: int = 0) -> torch.Tensor:
     """Every rank's block along `axes`, concatenated along `dim` in mesh
     order (``lax.all_gather(..., tiled=True)``)."""
-    grp = _record("all_gather", axes)
+    grp = _record("all_gather", axes, x)
     if grp is None:
         return x
     group, ordered = grp
@@ -110,7 +121,7 @@ def all_to_all(x: torch.Tensor, axis: str) -> torch.Tensor:
     """Dim 0 of `x` cut into one block per rank along `axis`; block s
     goes to the rank at index s, and the blocks received come back
     concatenated in mesh order (``lax.all_to_all(..., tiled=True)``)."""
-    grp = _record("all_to_all", axis)
+    grp = _record("all_to_all", axis, x)
     if grp is None:
         return x
     group, ordered = grp
@@ -132,7 +143,7 @@ def all_to_all(x: torch.Tensor, axis: str) -> torch.Tensor:
 def psum(x: torch.Tensor, axes) -> torch.Tensor:
     """The elementwise sum of `x` over every rank along `axes`
     (``lax.psum``); integer and float tensors."""
-    grp = _record("all_reduce", axes)
+    grp = _record("all_reduce", axes, x)
     if grp is None:
         return x
     group, _ = grp

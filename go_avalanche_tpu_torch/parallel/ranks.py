@@ -48,6 +48,10 @@ def _serve(rank: int, tasks, results, threads: int) -> None:
                 world_size=world,
                 timeout=datetime.timedelta(seconds=timeout))
             try:
+                # Every rank's mesh is up before any rank may finish a
+                # short case and tear its group down under a peer still
+                # connecting.
+                dist.barrier()
                 mod, name = fn_name.split(":")
                 out = getattr(importlib.import_module(mod), name)(*args)
             finally:

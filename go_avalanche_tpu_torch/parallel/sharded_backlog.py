@@ -287,8 +287,10 @@ def make_sharded_backlog_step(mesh, cfg: AvalancheConfig = DEFAULT_CONFIG,
     """A one-step scheduler and round over the mesh: ``step(block) ->
     (block, telemetry)`` on this rank's block (`shard_backlog_state`),
     the telemetry the same on every rank.  `donate` is accepted and
-    changes nothing (`sharded.make_sharded_round_step`)."""
-    sharded._reject_round_engine(cfg)
+    changes nothing (`sharded.make_sharded_round_step`).  The local
+    round is the phased `sharded._local_round` whatever
+    `cfg.round_engine` says, as the reference's (its driver never reads
+    the knob)."""
     n_tx = mesh.shape[TXS_AXIS]
 
     def step(state: BacklogSimState):

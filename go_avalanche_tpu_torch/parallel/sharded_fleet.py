@@ -15,13 +15,22 @@ communication between trials.  Then
 
 Each trial runs the dense per-trial program unchanged, so the sharded
 fleet is bit-identical to the dense fleet on the same seeds; nothing
-here folds a rank index into a key.  The reference's donated bench scan
-(`fleet_scan_program`) belongs to the bench lane, which the port has
-not taken on yet.
+here folds a rank index into a key.
+
+The second program on the mesh is the reference's donated bench scan,
+`fleet_scan_program`: a fleet-stacked flagship state
+(`workload.fleet_flagship_state`, every leaf with a leading ``[F]``
+trial axis), cut on that axis over both mesh axes (`FLEET_SPEC`,
+`shard_fleet_state`), each rank scanning its ``F / D`` trials through
+`models/avalanche.round_step` with no collective.  The reference vmaps
+the trials and donates the stack; here the trials run one after another
+and each round's new state is written back into the stacked leaves, so
+after a round the live bytes are the stack's and no more.
 """
 
 from __future__ import annotations
 
+import dataclasses
 from typing import NamedTuple
 
 import numpy as np
@@ -35,6 +44,9 @@ from go_avalanche_tpu_torch.parallel.mesh import NODES_AXIS, Mesh, world
 TRIALS_AXIS = "trials"
 # The trial axis is laid over both mesh axes, trials-major.
 FLEET_AXES = (TRIALS_AXIS, NODES_AXIS)
+# The reference's ``P((trials, nodes))`` in the port's spec spelling
+# (`obs/resources`): dimension 0 cut over both mesh axes, the rest whole.
+FLEET_SPEC = (FLEET_AXES,)
 
 # The reference's manifest: the per-trial vectors' gather and the
 # counts' psum over the trial axes, nothing else (a collective touching
@@ -137,7 +149,7 @@ def fleet_driver_program(mesh, trial):
         dev = keys.device
         with C.bind(mesh):
             sums = C.psum(torch.stack([
-                torch.tensor(per, dtype=torch.int32, device=dev),
+                torch.full((), per, dtype=torch.int32, device=dev),
                 outcome.violation.sum(dtype=torch.int32),
                 outcome.settled.sum(dtype=torch.int32),
                 outcome.stalled.sum(dtype=torch.int32)]), FLEET_AXES)
@@ -145,5 +157,109 @@ def fleet_driver_program(mesh, trial):
             tel = _gather(stack_tree(tels))
             trace = _gather(trace)
         return outcome, FleetCounts(*sums), tel, trace
+
+    return run
+
+
+def _map(fn, tree):
+    """`fn` over every tensor leaf of a state (nested NamedTuples and
+    trace buffers); None and plain ints pass."""
+    if isinstance(tree, torch.Tensor):
+        return fn(tree)
+    if isinstance(tree, obs_trace.TraceBuffer):
+        return dataclasses.replace(tree, data=fn(tree.data),
+                                   cursor=fn(tree.cursor))
+    if isinstance(tree, tuple) and hasattr(tree, "_fields"):
+        return type(tree)(*(_map(fn, x) for x in tree))
+    return tree
+
+
+def _pairs(dst, src):
+    """``(dst leaf, src leaf)`` of two states of one layout."""
+    if isinstance(dst, torch.Tensor):
+        yield dst, src
+    elif isinstance(dst, obs_trace.TraceBuffer):
+        yield dst.data, src.data
+        yield dst.cursor, src.cursor
+    elif isinstance(dst, tuple) and hasattr(dst, "_fields"):
+        for d, s in zip(dst, src):
+            yield from _pairs(d, s)
+
+
+def trial(state, i: int):
+    """Trial `i` of a fleet-stacked state: views into the stacked
+    leaves."""
+    return _map(lambda x: x[i], state)
+
+
+def write_trial(state, i: int, new) -> None:
+    """Write one trial's state `new` into slot `i` of the stacked
+    leaves, in place."""
+    for dst, src in _pairs(state, new):
+        dst[i].copy_(src)
+
+
+def fleet_state_specs(state):
+    """`FLEET_SPEC` over every leaf of a fleet-stacked state (each leaf
+    carries the leading ``[F]`` trial axis), None slots kept: the spec
+    tree `obs/resources.footprint` takes for the per-rank bytes."""
+    if isinstance(state, (torch.Tensor, obs_trace.TraceBuffer)):
+        return FLEET_SPEC
+    if isinstance(state, tuple) and hasattr(state, "_fields"):
+        return type(state)(*(fleet_state_specs(x) for x in state))
+    return state
+
+
+def _position(mesh) -> int:
+    """This rank's place along the trial axis, trials-major."""
+    return (mesh.coords[TRIALS_AXIS] * mesh.shape[NODES_AXIS]
+            + mesh.coords[NODES_AXIS])
+
+
+def shard_fleet_state(state, mesh):
+    """This rank's block of a fleet-stacked state: its contiguous
+    ``F / D`` trials, trials-major.  On a one-rank mesh the state
+    itself; otherwise the block owns its storage, so the global stack
+    can be dropped."""
+    n_trials = _first(state).shape[0]
+    check_fleet_divisible(n_trials, mesh)
+    if mesh.size == 1:
+        return state
+    per = n_trials // mesh.size
+    pos = _position(mesh)
+    return _map(lambda x: x[pos * per:(pos + 1) * per].clone(), state)
+
+
+def _first(state) -> torch.Tensor:
+    for leaf, _ in _pairs(state, state):
+        return leaf
+    raise ValueError("a fleet state needs at least one tensor leaf")
+
+
+def fleet_scan_program(mesh, cfg, n_rounds: int):
+    """The reference's donated `bench.py --fleet F --mesh A,B` program:
+    ``run(block) -> block``, this rank scanning the ``F / D`` trials of
+    its block (`shard_fleet_state`) through `models/avalanche.
+    round_step` for `n_rounds` rounds, with no collective (trials never
+    communicate).  Each round's new trial state is written back into
+    the block's stacked leaves, so the block is updated in place (the
+    counterpart of the reference's ``donate_argnums=0``) and the live
+    bytes after a round are the block's.  On the card each trial's
+    phased round launches the ingest kernel of `cfg.ingest_engine` once.
+    A one-rank mesh (or None) is the dense loop, as the reference's
+    `bench.fleet_program` collapses there.  The megakernel is refused
+    with the reference's message (its `:225-226`)."""
+    from go_avalanche_tpu_torch.models import avalanche as av
+    from go_avalanche_tpu_torch.parallel.sharded import _reject_round_engine
+
+    _reject_round_engine(cfg)
+
+    def run(block):
+        for i in range(_first(block).shape[0]):
+            for _ in range(n_rounds):
+                new, _ = av.round_step(trial(block, i), cfg)
+                write_trial(block, i, new)
+                del new
+        return block
 
     return run

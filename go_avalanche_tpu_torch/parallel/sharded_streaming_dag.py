@@ -307,8 +307,8 @@ def make_sharded_streaming_dag_step(mesh,
     """A one-step set scheduler and conflict round over the mesh:
     ``step(block) -> (block, telemetry)`` on this rank's block
     (`shard_streaming_dag_state`); `donate` as in
-    `sharded.make_sharded_round_step`."""
-    sharded._reject_round_engine(cfg)
+    `sharded.make_sharded_round_step`.  The local round is phased
+    whatever `cfg.round_engine` says, as the reference's."""
     n_tx = mesh.shape[TXS_AXIS]
 
     def step(state: StreamingDagState):

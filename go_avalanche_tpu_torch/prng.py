@@ -42,7 +42,7 @@ def key(seed: int, device="cuda") -> torch.Tensor:
     port takes seeds in [0, 2**32) only."""
     if not 0 <= seed <= _M32:
         raise ValueError(f"seed must be in [0, 2**32), got {seed}")
-    return torch.tensor([0, seed], dtype=torch.int64, device=device)
+    return torch.arange(2, dtype=torch.int64, device=device) * seed
 
 
 def _rotl(x: torch.Tensor, r: int) -> torch.Tensor:
@@ -82,8 +82,8 @@ def split(k: torch.Tensor, num: int = 2) -> torch.Tensor:
 
 def fold_in(k: torch.Tensor, data: int) -> torch.Tensor:
     """`jax.random.fold_in`: hash the counter pair ``(0, data)``."""
-    counter = torch.tensor([0, int(data) & _M32], dtype=torch.int64,
-                           device=k.device)
+    counter = (torch.arange(2, dtype=torch.int64, device=k.device)
+               * (int(data) & _M32))
     b0, b1 = threefry2x32(k, counter[:1], counter[1:])
     return torch.cat([b0, b1])
 
@@ -128,8 +128,8 @@ def bits_to_uniform(bits: torch.Tensor, minval: float = 0.0,
     a float32 in [minval, maxval); only the top 23 bits are read."""
     floats = ((bits >> 9) | 0x3F800000).to(torch.int32).view(torch.float32)
     floats = floats - 1.0
-    lo = torch.tensor(minval, dtype=torch.float32, device=bits.device)
-    hi = torch.tensor(maxval, dtype=torch.float32, device=bits.device)
+    lo = torch.full((), minval, dtype=torch.float32, device=bits.device)
+    hi = torch.full((), maxval, dtype=torch.float32, device=bits.device)
     scaled = floats.double() * (hi - lo).double() + lo.double()
     return torch.maximum(lo, scaled.float())
 
@@ -179,15 +179,15 @@ def normal(k: torch.Tensor, shape: Sequence[int]) -> torch.Tensor:
 def bits_to_normal(bits: torch.Tensor) -> torch.Tensor:
     """`normal`'s map from 32 random bits to a float32."""
     u = bits_to_uniform(bits, NORMAL_LOW, 1.0)
-    return torch.tensor(math.sqrt(2), dtype=torch.float32,
-                        device=bits.device) * erf_inv(u)
+    return torch.full((), math.sqrt(2), dtype=torch.float32,
+                      device=bits.device) * erf_inv(u)
 
 
 def bernoulli(k: torch.Tensor, p: float,
               shape: Sequence[int]) -> torch.Tensor:
     """`jax.random.bernoulli` (mode 'low'): ``uniform < float32(p)``."""
-    return uniform(k, shape) < torch.tensor(p, dtype=torch.float32,
-                                            device=k.device)
+    return uniform(k, shape) < torch.full((), p, dtype=torch.float32,
+                                          device=k.device)
 
 
 # XLA:CPU's float32 `log` (a Cephes polynomial in three chains), read off

@@ -28,9 +28,11 @@ with ``--fleet`` lays the trial axis over them; start the ranks with
 (``--backend gloo`` when they share one card).  ``--mesh 1,1`` runs in
 one process.  Only rank 0 prints the result and writes the sinks.
 ``--report-memory`` prints the run's memory ledger and analytic
-footprint (`obs/resources.py`) to stderr before the run.  The flags of
-the analysis tooling not ported yet (ROADMAP.md Queue 1 item 17 part
-B), `--fleet-shape` and `--audit`, raise `NotImplementedError`.
+footprint (`obs/resources.py`) to stderr before the run.  ``--audit``
+runs one round of the run's program under the contract audit
+(`analysis/audit.py`) first and exits 1 on a failure; ``--fleet-shape
+auto`` picks or validates ``--fleet`` against the device's knee table
+(`obs/knee.py`).
 """
 
 from __future__ import annotations
@@ -55,15 +57,6 @@ from go_avalanche_tpu_torch.config import (
 )
 from go_avalanche_tpu_torch.models.avalanche import _device
 from go_avalanche_tpu_torch.utils import metrics, tracing
-
-# Flags of ROADMAP.md Queue 1 items not ported yet -> the item.
-_UNPORTED_FLAGS = {
-    "fleet_shape": "item 17 part B, resource and analysis tooling (the "
-                   "TPU VMEM knee table that sizes the fleet)",
-    "audit": "item 17 part B, the torch counterpart of the HLO "
-             "contract audit",
-}
-
 
 def _np(x) -> np.ndarray:
     return x.detach().cpu().numpy()
@@ -268,6 +261,42 @@ def _report_memory(args, cfg: AvalancheConfig, state, step,
         print(f"    {path:>24}: {nbytes:>15,}", file=out)
 
 
+def _audit_failed(args, failures) -> None:
+    """Print the audit's verdict to stderr (rank 0; stdout keeps the
+    one-result contract) and exit 1 on a failure."""
+    import sys
+
+    if failures:
+        if args.lead:
+            print("AUDIT FAILURES:\n  " + "\n  ".join(failures),
+                  file=sys.stderr)
+        raise SystemExit(1)
+    if args.lead:
+        print(f"audit ok: {args.model} program passes its contracts "
+              f"(callbacks/dtype/collectives/donation)", file=sys.stderr)
+
+
+def _before_run(args, cfg: AvalancheConfig, state, step,
+                driver: str = None) -> None:
+    """`--audit`, then `--report-memory`, of the state the runner built
+    under its `step`.  The audit runs one round on a copy of the state
+    (`analysis/audit.audit_run_sim`); under `--mesh` the sharded
+    `driver`'s step on this rank's block, every rank taking part."""
+    if args.audit:
+        from go_avalanche_tpu_torch.analysis import audit
+
+        if args.mesh and driver is not None:
+            mesh = _parse_mesh(args.mesh)
+            place, make_step = audit.placement(driver)
+            failures = audit.audit_run_sim(args, cfg, place(state, mesh),
+                                           make_step(mesh, cfg), driver,
+                                           mesh)
+        else:
+            failures = audit.audit_run_sim(args, cfg, state, step)
+        _audit_failed(args, failures)
+    _report_memory(args, cfg, state, step, driver)
+
+
 def run_snowball(args, cfg: AvalancheConfig) -> Dict:
     from go_avalanche_tpu_torch.models import snowball as sb
     from go_avalanche_tpu_torch.ops import voterecord as vr
@@ -276,7 +305,7 @@ def run_snowball(args, cfg: AvalancheConfig) -> Dict:
     state = sb.init(_key(args), args.nodes, cfg,
                     yes_fraction=args.yes_fraction, device=dev)
     state = sb.with_trace(state, cfg, args.max_rounds)
-    _report_memory(args, cfg, state, sb.round_step)
+    _before_run(args, cfg, state, sb.round_step)
     out = {}
     if args.check_invariants:
         def settled(s, cfg):
@@ -359,7 +388,7 @@ def run_avalanche(args, cfg: AvalancheConfig) -> Dict:
     state = av.init(_key(args), args.nodes, args.txs, cfg,
                     init_pref=init_pref, device=dev)
     state = av.with_trace(state, cfg, args.max_rounds)
-    _report_memory(args, cfg, state, av.round_step, "sharded")
+    _before_run(args, cfg, state, av.round_step, "sharded")
     extra = {}
     if args.mesh:
         from go_avalanche_tpu_torch.parallel import sharded
@@ -396,7 +425,7 @@ def run_dag(args, cfg: AvalancheConfig) -> Dict:
                              args.conflict_size, rounding_mode="floor")
     state = dag.init(_key(args), args.nodes, conflict_set, cfg, device=dev)
     state = dag.with_trace(state, cfg, args.max_rounds)
-    _report_memory(args, cfg, state, dag.round_step, "sharded_dag")
+    _before_run(args, cfg, state, dag.round_step, "sharded_dag")
     extra = {}
     if args.mesh:
         from go_avalanche_tpu_torch.parallel import sharded_dag
@@ -434,7 +463,7 @@ def run_slush(args, cfg: AvalancheConfig) -> Dict:
     dev = args.device_resolved
     state = fam.slush_init(_key(args), args.nodes, cfg,
                            yes_fraction=args.yes_fraction, device=dev)
-    _report_memory(args, cfg, state, fam.slush_round)
+    _before_run(args, cfg, state, fam.slush_round)
     final, _ = fam.slush_run(state, cfg, args.max_rounds, device=dev)
     colors = _np(final.color)
     return {
@@ -450,7 +479,7 @@ def run_snowflake(args, cfg: AvalancheConfig) -> Dict:
     dev = args.device_resolved
     state = fam.snowflake_init(_key(args), args.nodes, cfg,
                                yes_fraction=args.yes_fraction, device=dev)
-    _report_memory(args, cfg, state, fam.snowflake_round)
+    _before_run(args, cfg, state, fam.snowflake_round)
     final = fam.snowflake_run(state, cfg, args.max_rounds, device=dev)
     acc = _np(final.accepted_at)
     colors = _np(final.color)
@@ -484,7 +513,7 @@ def run_streaming_dag(args, cfg: AvalancheConfig) -> Dict:
     state = sdg.init(_key(args), args.nodes, args.slots, backlog, cfg,
                      device=dev)
     state = sdg.with_trace(state, cfg, args.max_rounds)
-    _report_memory(args, cfg, state, sdg.step, "sharded_streaming_dag")
+    _before_run(args, cfg, state, sdg.step, "sharded_streaming_dag")
     if args.mesh:
         from go_avalanche_tpu_torch.parallel import sharded_streaming_dag as ssd
 
@@ -532,7 +561,7 @@ def run_backlog(args, cfg: AvalancheConfig) -> Dict:
     b = bl.make_backlog(torch.arange(args.txs, dtype=torch.int32))
     state = bl.init(_key(args), args.nodes, args.slots, b, cfg, device=dev)
     state = bl.with_trace(state, cfg, args.max_rounds)
-    _report_memory(args, cfg, state, bl.step, "sharded_backlog")
+    _before_run(args, cfg, state, bl.step, "sharded_backlog")
     if args.mesh:
         from go_avalanche_tpu_torch.parallel import sharded_backlog
 
@@ -570,7 +599,7 @@ def run_node_stream(args, cfg: AvalancheConfig) -> Dict:
     dev = args.device_resolved
     state = ns.init(_key(args), args.txs, cfg, device=dev)
     state = ns.with_trace(state, cfg, args.max_rounds)
-    _report_memory(args, cfg, state, ns.step, "sharded_node_stream")
+    _before_run(args, cfg, state, ns.step, "sharded_node_stream")
     if args.mesh:
         from go_avalanche_tpu_torch.parallel import sharded_node_stream as sns
 
@@ -613,6 +642,10 @@ def run_fleet_mode(args, cfg: AvalancheConfig) -> Dict:
                   contested=args.contested,
                   window=args.slots, mesh=mesh,
                   device=args.device_resolved)
+    if args.audit:
+        from go_avalanche_tpu_torch.analysis import audit
+
+        _audit_failed(args, audit.audit_run_sim(args, cfg))
     if args.report_memory and args.lead:
         key = prng.split(prng.key(args.seed, args.device_resolved),
                          args.fleet)[0]
@@ -965,9 +998,10 @@ def parse_args(argv=None):
                              "so F must divide by A*B")
     parser.add_argument("--fleet-shape", choices=("auto",), default=None,
                         help="knee-table-driven fleet sizing "
-                             "(benchmarks/vmem_knee.py, the archived "
-                             "[F, N, T] VMEM/HBM-knee table for the "
-                             "active device profile): without --fleet, "
+                             "(obs/knee.py, the [F, N, T] memory-knee "
+                             "table of the device profile of --device: "
+                             "the card's own memory on CUDA): without "
+                             "--fleet, "
                              "PICKS F — the deepest trials-per-device "
                              "row whose largest safe N=T square still "
                              "fits --nodes/--txs, times the --mesh "
@@ -1037,19 +1071,18 @@ def parse_args(argv=None):
                              "PERF_NOTES r05 A/B).  Default: dense rewrite")
     # output / tooling
     parser.add_argument("--audit", action="store_true",
-                        help="run the HLO contract auditor "
-                             "(go_avalanche_tpu/analysis/hlo_audit.py) "
+                        help="run the contract audit "
+                             "(go_avalanche_tpu_torch/analysis/audit.py) "
                              "on the EXACT program these flags select "
-                             "before executing it: host-callback "
-                             "budget, dtype budget, collective "
-                             "allowlist (--mesh: the driver's "
-                             "DECLARED_COLLECTIVES manifest), donation "
-                             "coverage.  Lowering never compiles, so "
-                             "the audited program still compiles "
-                             "exactly once at execution (--fleet "
-                             "audits lower through the same lru-cached "
-                             "jit the fleet executes).  Exits 1 with "
-                             "the contract failures instead of running")
+                             "before executing it: one round on a copy "
+                             "of the state under recorders — host "
+                             "reads and taps, kernel launches, dtype "
+                             "budget, collectives (--mesh: the "
+                             "driver's DECLARED_COLLECTIVES manifest), "
+                             "donation.  --fleet audits the program "
+                             "fleet.compiled_fleet_program gives the "
+                             "run.  Exits 1 with the contract failures "
+                             "instead of running")
     parser.add_argument("--json", action="store_true",
                         help="emit one JSON line instead of key=value text")
     parser.add_argument("--trace", type=str, default=None,
@@ -1126,17 +1159,12 @@ def parse_args(argv=None):
                              "streaming schedulers legitimately reset "
                              "refilled columns)")
     args = parser.parse_args(argv)
-    for name, item in _UNPORTED_FLAGS.items():
-        if getattr(args, name) not in (None, False):
-            flag = "--" + name.replace("_", "-")
-            raise NotImplementedError(
-                f"{flag}: the PyTorch port does not implement this yet "
-                f"(ROADMAP.md Queue 1, {item})")
-    # --report-memory validation: everything parser-level.  The report
-    # is of ONE run's state; flag combinations with no single-run
+    # --audit / --report-memory validation: everything parser-level.
+    # Both take ONE program; flag combinations with no single-program
     # meaning are rejected here, with the reference's messages.
-    if args.report_memory:
-        what, verb = "--report-memory", "analyze"
+    if args.audit or args.report_memory:
+        what, verb = (("--audit", "audit") if args.audit
+                      else ("--report-memory", "analyze"))
         if args.phase_grid is not None:
             parser.error(
                 f"{what} with --phase-grid would compile twice per "
@@ -1244,7 +1272,7 @@ def parse_args(argv=None):
                 "--round-engine megakernel is the single-device dense "
                 "lane; the --mesh drivers keep the phased path "
                 "(parallel/sharded.py rejects the knob)")
-        if args.fleet is not None:
+        if args.fleet is not None or args.fleet_shape is not None:
             parser.error(
                 "--round-engine megakernel is the single-sim dense "
                 "lane; the fleet drivers keep the phased path")
@@ -1257,6 +1285,30 @@ def parse_args(argv=None):
     # Fleet-mode validation: everything parser-level (the PR 5 rule).
     args.phase_grid_parsed = None
     args.fleet_mesh = None
+    if args.fleet_shape is not None:
+        # Knee-table fleet sizing (obs/knee.py): the profile of the run's
+        # device, then PICK F (no --fleet: the deepest trials-per-device
+        # row whose knee fits --nodes/--txs, times the mesh's device
+        # count) or VALIDATE --fleet (a shape above the knee is refused
+        # here with the table row cited).
+        from go_avalanche_tpu_torch.obs.knee import select_fleet_shape
+
+        mesh_devices = 1
+        if args.mesh:
+            try:
+                a_s, b_s = args.mesh.split(",")
+                mesh_devices = int(a_s) * int(b_s)
+            except ValueError:
+                parser.error(f"--mesh must be A,B shards, got "
+                             f"{args.mesh!r}")
+        try:
+            sel = select_fleet_shape(args.device_resolved.type,
+                                     mesh_devices, args.nodes, args.txs,
+                                     fleet=args.fleet)
+        except ValueError as e:
+            parser.error(str(e))
+        if args.fleet is None:
+            args.fleet = sel["fleet"]
     if args.fleet is not None:
         if args.fleet < 1:
             parser.error(f"--fleet must be >= 1 trials, got {args.fleet}")

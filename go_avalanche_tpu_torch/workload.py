@@ -10,7 +10,12 @@
              fixed latency, one-second rounds and the timeout at
              ``default_timeout_rounds(latency)``, on the chosen delivery
              engine, optionally under a fault script (the reference's
-             `flagship_faults` program, `FLAGSHIP_FAULTS`);
+             `flagship_faults` program, `FLAGSHIP_FAULTS`); the
+             reference's other program knobs (taps, stake, adaptive
+             adversary); `fleet_flagship_state`, F flagship trials
+             stacked on a leading trial axis (`bench.py --fleet`);
+             `traffic_backlog_state`, the `--arrival` lane (lines
+             159-202);
   faults   — `examples/fault_scenarios.py`'s studies at their example
              shape, 512 nodes x 64 txs, contested priors, seed 0:
              `measure()` (lines 76-116, the partition that heals) and
@@ -99,6 +104,8 @@ from go_avalanche_tpu_torch.models import streaming_dag
 from go_avalanche_tpu_torch.obs.tags import default_timeout_rounds
 
 FLAGSHIP_NODES = FLAGSHIP_TXS = 16384
+# key(1) draws the scores, key(0) seeds the sim (the reference's seeds).
+_SCORE_SEED, _SIM_SEED, _SCORE_MAX = 1, 0, 1 << 20
 DAG_NODES = DAG_TXS = 10_000
 
 
@@ -113,12 +120,22 @@ def flagship_config(txs: int, k: int = 8, latency: int = 0,
                     timeout_rounds: Optional[int] = None,
                     inflight_engine: str = "walk",
                     round_engine: str = "phased",
-                    faults: Optional[list] = None) -> AvalancheConfig:
+                    faults: Optional[list] = None,
+                    metrics_every: int = 0,
+                    trace_every: int = 0,
+                    stake: str = "off",
+                    clusters: int = 1,
+                    adversary: str = "off",
+                    byzantine: float = 0.0) -> AvalancheConfig:
     """The flagship config for a `txs`-wide network.  ``latency > 0``
     selects the async lane: `latency_mode` at `latency` rounds,
     ``time_step_s=1`` and the timeout at `timeout_rounds` (default
     `default_timeout_rounds`), on `inflight_engine`; `faults` is a
-    JSON-spelled fault script (`fault_script_from_json`)."""
+    JSON-spelled fault script (`fault_script_from_json`).  The rest
+    are the reference's program knobs (`benchmarks/workload.py:29-105`):
+    `metrics_every` / `trace_every` the taps, `stake` with `clusters`
+    the stake-weighted draw, `adversary` with `byzantine` an adaptive
+    adversary policy."""
     async_kw = {}
     if latency > 0:
         tr = (default_timeout_rounds(latency) if timeout_rounds is None
@@ -133,18 +150,94 @@ def flagship_config(txs: int, k: int = 8, latency: int = 0,
                         inflight_engine=inflight_engine)
     if faults is not None:
         async_kw["fault_script"] = fault_script_from_json(faults)
+    if adversary != "off" or byzantine > 0.0:
+        async_kw.update(byzantine_fraction=byzantine,
+                        adversary_policy=adversary)
     return AvalancheConfig(finalization_score=0x7FFE, k=k, gossip=False,
                            max_element_poll=max(4096, txs),
+                           metrics_every=metrics_every,
+                           trace_every=trace_every, stake_mode=stake,
+                           n_clusters=clusters,
                            round_engine=round_engine, **async_kw)
 
 
 def flagship_state(nodes: int, txs: int, k: int = 8, latency: int = 0,
-                   device="cuda", **kwargs
+                   device="cuda", trace_rounds: int = 0, **kwargs
                    ) -> Tuple[av.AvalancheSimState, AvalancheConfig]:
     """``(state, cfg)`` of the flagship workload on `device`; `kwargs`
-    pass to `flagship_config`."""
+    pass to `flagship_config`.  With ``trace_every > 0`` the trace plane
+    is attached for a `trace_rounds` horizon."""
     cfg = flagship_config(txs, k, latency, **kwargs)
-    return av.init(prng.key(0, device), nodes, txs, cfg, device=device), cfg
+    state = av.init(prng.key(_SIM_SEED, device), nodes, txs, cfg,
+                    device=device)
+    if cfg.trace_every > 0:
+        state = av.with_trace(state, cfg, trace_rounds)
+    return state, cfg
+
+
+def fleet_flagship_state(fleet: int, nodes: int, txs: int, k: int = 8,
+                         latency: int = 0, device="cuda", **kwargs
+                         ) -> Tuple[av.AvalancheSimState, AvalancheConfig]:
+    """``(state, cfg)``: `fleet` flagship states stacked on a leading
+    ``[F]`` trial axis, trial i from ``prng.split(prng.key(0), fleet)[i]``
+    — `benchmarks/workload.py:133-156`.  ``fleet == 1`` returns the
+    flagship state unstacked, as the reference's does.  Each trial is
+    built alone and written into preallocated stacked leaves, so the
+    peak is the stack plus one trial (at 8 x 16384² a list of finished
+    trials would hold the 19.3 GB stack twice)."""
+    from go_avalanche_tpu_torch.parallel import sharded_fleet
+
+    if fleet == 1:
+        return flagship_state(nodes, txs, k, latency, device=device,
+                              **kwargs)
+    dev = av._device(device)
+    cfg = flagship_config(txs, k, latency, **kwargs)
+    keys = prng.split(prng.key(_SIM_SEED, dev), fleet)
+    stack = None
+    for i in range(fleet):
+        one = av.init(keys[i], nodes, txs, cfg, device=dev)
+        if stack is None:
+            stack = sharded_fleet._map(
+                lambda x: torch.empty((fleet,) + tuple(x.shape),
+                                      dtype=x.dtype, device=x.device), one)
+        sharded_fleet.write_trial(stack, i, one)
+        del one
+    return stack, cfg
+
+
+def traffic_config(window: int, k: int = 8, rate: float = 24.0,
+                   metrics_every: int = 0, trace_every: int = 0
+                   ) -> AvalancheConfig:
+    """The reference's `bench.py --arrival` config
+    (`benchmarks/workload.py:159-177`): Poisson arrivals at `rate` with
+    backpressure over the streaming backlog, gossip off, the poll cap
+    over the window, the reference finalization score."""
+    return AvalancheConfig(k=k, gossip=False,
+                           max_element_poll=max(4096, window),
+                           arrival_mode="poisson", arrival_rate=float(rate),
+                           arrival_backpressure=(0.7, 0.95),
+                           metrics_every=metrics_every,
+                           trace_every=trace_every)
+
+
+def traffic_backlog_state(nodes: int, txs: int, window: int, k: int = 8,
+                          rate: float = 24.0, metrics_every: int = 0,
+                          trace_every: int = 0, trace_rounds: int = 0,
+                          device="cuda"
+                          ) -> Tuple[backlog.BacklogSimState,
+                                     AvalancheConfig]:
+    """``(state, cfg)`` of the `--arrival` workload
+    (`benchmarks/workload.py:180-202`): `txs` backlog entries scored from
+    ``key(1)`` through a `window`-slot working set seeded with
+    ``key(0)``."""
+    cfg = traffic_config(window, k, rate, metrics_every, trace_every)
+    scores = prng.randint(prng.key(_SCORE_SEED, device), (txs,), 0,
+                          _SCORE_MAX)
+    state = backlog.init(prng.key(_SIM_SEED, device), nodes, window,
+                         backlog.make_backlog(scores), cfg, device=device)
+    if cfg.trace_every > 0:
+        state = backlog.with_trace(state, cfg, trace_rounds)
+    return state, cfg
 
 
 FAULT_STUDY_SHAPE = (512, 64)        # nodes, txs
@@ -338,8 +431,6 @@ REFERENCE_QUICK = {
 NORTH_STAR = dict(nodes=100_000, backlog_sets=500_000, set_cap=2,
                   window_sets=1024)
 QUICK = dict(nodes=64, backlog_sets=1024, set_cap=2, window_sets=32)
-# key(1) draws the scores, key(0) seeds the sim.
-_SCORE_SEED, _SIM_SEED, _SCORE_MAX = 1, 0, 1 << 20
 
 
 def config0_state(device="cuda") -> Tuple[av.AvalancheSimState,

@@ -256,9 +256,33 @@ def test_cli_lint_runs_without_jax_and_audit_waits():
                           capture_output=True, text=True, timeout=120)
     assert proc.returncode == 0, proc.stderr
     assert "ok: lint clean" in proc.stdout and "BAD []" in proc.stdout
-    for command in ("audit", "all"):
-        with pytest.raises(NotImplementedError, match="item 17 part B"):
-            cli.main([command])
+    # `audit` no longer waits: it runs the contract audit (below), and
+    # the reference's compile-only flag is refused.
+    with pytest.raises(SystemExit) as got:
+        cli.main(["audit", "--no-compile-donation", "--device", "cpu"])
+    assert got.value.code == 2
+
+
+def test_cli_all_is_clean_on_the_cpu(capsys):
+    """`all` (the default command) lints the checkout and audits the 14
+    programs and, in a pool of 4 spawned ranks, the sharded drivers and
+    the sharded fleet."""
+    assert cli.main(["--device", "cpu"]) == 0
+    assert capsys.readouterr().out == "ok: contract audit + lint clean\n"
+
+
+def test_cli_audit_exits_1_on_a_planted_failure(monkeypatch, capsys):
+    from go_avalanche_tpu_torch.analysis import audit
+
+    monkeypatch.setattr(audit, "run_sharded_audits", lambda device: [])
+    assert cli.main(["audit", "--device", "cpu"]) == 0
+    assert capsys.readouterr().out == "ok: contract audit clean\n"
+    monkeypatch.setitem(audit.HOST_READ_BUDGET, "flagship", 1)
+    assert cli.main(["audit", "--device", "cpu"]) == 1
+    err = capsys.readouterr().err
+    assert err == ("STATIC ANALYSIS FAILURES:\n  flagship: 0 counted host "
+                   "read(s) a round (sync.reads), contract says exactly "
+                   "1\n")
 
 
 # ------------------------------------------------ the reference's public names

@@ -791,3 +791,52 @@ def test_sharded_dag_on_the_card_matches_the_cpu(cuda):
     for a, b in zip(finals[0].base.records, finals[1].base.records):
         np.testing.assert_array_equal(a, b)
     assert int(finals[0].base.round) == int(finals[1].base.round)
+
+
+@pytest.mark.cuda
+def test_h100_knee_pick_against_the_real_allocation(cuda):
+    """The card's knee table reads the card's memory and picks F = 8 at
+    16384²; on the allocator, at 1024², 8 stacked trials hold exactly
+    their analytic bytes and the in-place scan peaks at the loop model's
+    stack plus one round's scratch (measured here), within the
+    allocator's rounding."""
+    from go_avalanche_tpu_torch import workload
+    from go_avalanche_tpu_torch.obs import knee, resources
+    from go_avalanche_tpu_torch.parallel import sharded_fleet
+
+    tab = knee.knee_table("h100", squares=(8192, 16384, 32768))
+    assert tab["hbm_bytes"] == torch.cuda.get_device_properties(
+        cuda).total_memory
+    assert knee.select_fleet_shape("cuda", 1, 16384, 16384,
+                                   tables={"h100": tab})["fleet"] == 8
+    one, cfg = workload.flagship_state(1024, 1024, device=cuda)
+    scratch = resources.memory_record(
+        lambda s: av.round_step(s, cfg)[0], one)["temp_bytes"]
+    state = resources.footprint(one)["total_bytes"]
+    del one
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    stack, cfg = workload.fleet_flagship_state(8, 1024, 1024, device=cuda)
+    assert sum(resources._storages(stack).values()) == 8 * state
+    torch.cuda.reset_peak_memory_stats()
+    sharded_fleet.fleet_scan_program(None, cfg, 1)(stack)
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated() - base
+    assert peak <= knee.live_peak(8, state, scratch / state, "loop") \
+        + resources.allocator_slack(stack)
+
+
+@pytest.mark.cuda
+def test_flagship_audit_on_the_card_is_clean(cuda):
+    """The contract audit of the three flagship engines at 256 x 256 on
+    the card: clean, one launch of each engine's kernel, no sync outside
+    `sync.py` under CUDA's sync debug mode."""
+    from go_avalanche_tpu_torch.analysis import audit
+
+    for name in ("flagship", "flagship_swar32", "flagship_megakernel"):
+        program = audit.pinned_program(
+            name, dict(audit.PROGRAMS[name], nodes=256, txs=256), cuda)
+        failures, rec = audit.audit(program)
+        assert failures == []
+        assert rec.kernels == program.kernels
+        assert rec.debug_syncs == []

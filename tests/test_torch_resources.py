@@ -323,3 +323,35 @@ def test_run_sim_report_memory_refusals_match_jax(capsys):
                 main(argv + dev)
             errs.append(capsys.readouterr().err.splitlines()[-1])
         assert errs[0] == errs[1], extra
+
+
+# ------------------------------------------------ the sharded footprints
+
+
+def test_footprint_cases_per_rank_bytes_equal_jax(tmp_path):
+    """`parallel.footprint_cases` on the 2x2 audit mesh (4 gloo ranks):
+    every driver's per-rank plane bytes, in the reference's dtypes,
+    equal the JAX package's `parallel.footprint_cases` footprints."""
+    from go_avalanche_tpu_torch.parallel.ranks import RankPool
+    import torch_ranks
+
+    want = {name: jres.footprint(case.state_abs, case.specs,
+                                 case.mesh)["planes"]
+            for name, case in jparallel.footprint_cases().items()}
+    pool = RankPool(4, str(tmp_path))
+    try:
+        results = pool.run(4, torch_ranks.footprint_case)
+    finally:
+        pool.close()
+    for got in results:
+        assert got == want
+
+
+def test_sharded_driver_records_refuse_the_cpu_and_a_single_rank():
+    from go_avalanche_tpu_torch import parallel
+    from go_avalanche_tpu_torch.analysis.audit import AuditUnavailable
+
+    with pytest.raises(ValueError, match="reads the card's allocator"):
+        resources.sharded_driver_records(device="cpu")
+    with pytest.raises(AuditUnavailable, match="needs 4 ranks"):
+        parallel.footprint_cases(device="cpu")

@@ -3,9 +3,10 @@
 The same argv (plus ``--device cpu``) goes through both `main`s: the
 result dicts must be equal apart from `backend` and `elapsed_s`, the
 JSONL files of ``--metrics`` and ``--trace-out`` byte-equal, the parser's
-refusals the same messages, and the flags of items not ported yet must
-raise `NotImplementedError` naming the item.  Shapes are tiny so the
-JAX side compiles little.
+refusals the same messages (`--audit`'s and `--fleet-shape`'s too).
+`--audit` and `--fleet-shape auto` are held to their own contract (the
+JAX package's `--audit` reads compiled XLA programs).  Shapes are tiny
+so the JAX side compiles little.
 """
 
 from __future__ import annotations
@@ -218,23 +219,104 @@ def test_build_config_exits_match(argv):
 
 
 @pytest.mark.parametrize("flag,item", [
-    (["--fleet-shape", "auto"], "item 17 part B"),
-    (["--audit"], "item 17 part B"),
-    (["--report-memory"], None),
+    (["--fleet-shape", "auto", "--fleet", "2"], None),
+    (["--audit"], "audit ok: snowball program passes its contracts"),
+    (["--report-memory"], "memory report [snowball"),
 ], ids=["flag2-item 15", "flag3-item 17", "flag4-item 17"])
 def test_unported_flags_name_their_item(flag, item, capsys):
-    """The flags of the XLA resource tooling still to port (item 17 part
-    B) name their item; `--report-memory` is ported and reports to
-    stderr (`tests/test_torch_resources.py`), as `--mesh` (every model)
-    and `--donate` are (the cases below)."""
+    """Item 17's flags are all ported: `--fleet-shape auto` validates
+    `--fleet` against the CPU's knee table and runs it, `--audit` and
+    `--report-memory` report to stderr before the run
+    (`tests/test_torch_audit.py`, `tests/test_torch_resources.py`)."""
     argv = flag + ["--model", "snowball", "--nodes", "16", "--max-rounds",
                    "3", "--device", "cpu"]
+    result = trun.main(argv)
+    err = capsys.readouterr().err
     if item is None:
-        trun.main(argv)
-        assert capsys.readouterr().err.startswith("memory report [snowball")
-        return
-    with pytest.raises(NotImplementedError, match=item):
-        trun.main(argv)
+        assert result["fleet"] == 2 and err == ""
+    else:
+        assert err.startswith(item)
+
+
+AUDIT_REFUSALS = [
+    ["--audit", "--fleet", "2", "--phase-grid", '{"k": [4, 8]}'],
+    ["--audit", "--check-invariants"],
+    ["--audit", "--model", "streaming_dag", "--chunk", "4"],
+    ["--round-engine", "megakernel", "--fleet-shape", "auto"],
+    ["--fleet-shape", "auto", "--mesh", "x"],
+]
+
+
+@pytest.mark.parametrize("argv", AUDIT_REFUSALS,
+                         ids=lambda a: " ".join(a)[:40])
+def test_audit_and_fleet_shape_refusals_match(argv, capsys):
+    test_refusals_match(argv, capsys)
+
+
+AUDITED = [
+    ["--model", "snowball", "--nodes", "16"],
+    ["--model", "avalanche", "--fleet", "3", "--contested"],
+    ["--model", "avalanche", "--mesh", "1,1"],
+    ["--model", "dag", "--metrics-every", "1", "--metrics", "{tmp}"],
+]
+
+
+@pytest.mark.parametrize("argv", AUDITED, ids=lambda a: " ".join(a[1:4]))
+def test_audit_reports_ok_and_keeps_the_result(argv, tmp_path, capsys):
+    """`--audit` audits one round of the run's program (dense, a fleet
+    through `compiled_fleet_program`, a 1x1 mesh, a tapped run) and
+    leaves the run's result as it was without the flag."""
+    argv = [a.replace("{tmp}", str(tmp_path / "m.jsonl")) for a in argv]
+    base = SMALL + argv + ["--device", "cpu"]
+    want = trun.main(base)
+    capsys.readouterr()
+    got = trun.main(base + ["--audit"])
+    err = capsys.readouterr().err
+    assert err == (f"audit ok: {argv[1]} program passes its contracts "
+                   f"(callbacks/dtype/collectives/donation)\n")
+    for d in (want, got):
+        d.pop("elapsed_s")
+    assert got == want
+
+
+def test_audit_failure_exits_1_before_the_run(monkeypatch, capsys):
+    """A planted violation (a launch the program's budget does not
+    name) prints the failures to stderr and exits 1, no result."""
+    from go_avalanche_tpu_torch.analysis import audit
+
+    monkeypatch.setattr(audit, "_model_kernels", lambda *a, **k: {})
+    monkeypatch.setattr(audit.drift, "kernel_delta",
+                        lambda before: {"vote_u8": 1})
+    with pytest.raises(SystemExit) as got:
+        trun.main(SMALL + ["--model", "avalanche", "--device", "cpu",
+                           "--audit"])
+    assert got.value.code == 1
+    out = capsys.readouterr()
+    assert out.out == ""
+    assert out.err.startswith("AUDIT FAILURES:\n  run_sim:avalanche: "
+                              "undeclared kernel vote_u8")
+
+
+def test_fleet_shape_auto_picks_and_validates_on_the_cpu():
+    from benchmarks import vmem_knee
+    from go_avalanche_tpu_torch.obs import knee
+
+    args, _ = trun.parse_args(["--model", "snowball", "--nodes", "64",
+                               "--txs", "64", "--fleet-shape", "auto",
+                               "--device", "cpu"])
+    want = vmem_knee.select_fleet_shape("cpu", 1, 64, 64)["fleet"]
+    assert args.fleet == want == 4096
+    args, _ = trun.parse_args(["--model", "snowball", "--nodes", "64",
+                               "--fleet-shape", "auto", "--device", "cpu",
+                               "--fleet", "8"])
+    assert args.fleet == 8
+    row = {r["fleet"]: r for r in knee.knee_table("cpu-ci")["rows"]}[64]
+    assert row["largest_nt"] == 2048
+    with pytest.raises(SystemExit) as got:
+        trun.parse_args(["--model", "avalanche", "--nodes", "8192", "--txs",
+                         "8192", "--fleet-shape", "auto", "--fleet", "64",
+                         "--device", "cpu"])
+    assert got.value.code == 2
 
 
 def test_text_output_trace_and_cli(tmp_path, capsys):

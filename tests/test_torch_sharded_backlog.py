@@ -348,18 +348,52 @@ def test_settle_driver_reads_once_a_round(pool):
 
 
 def test_megakernel_is_refused_with_the_reference_message():
+    """Where the reference refuses the megakernel knob it is refused
+    with the reference's message: the donated fleet scan
+    (`sharded_fleet.fleet_scan_program`, the reference's
+    `parallel/sharded_fleet.py:225-226`).  The streaming drivers do not
+    refuse it (`test_streaming_drivers_ignore_the_round_engine`)."""
     from go_avalanche_tpu.config import AvalancheConfig as JaxConfig
     from go_avalanche_tpu.parallel import sharded as jsh
     from go_avalanche_tpu_torch.config import AvalancheConfig
-    from go_avalanche_tpu_torch.parallel import (sharded_backlog,
-                                                 sharded_node_stream,
-                                                 sharded_streaming_dag)
+    from go_avalanche_tpu_torch.parallel import sharded_fleet
 
     with pytest.raises(ValueError) as want:
         jsh._reject_round_engine(JaxConfig(round_engine="megakernel"))
-    for build in (sharded_backlog.make_sharded_backlog_step,
-                  sharded_streaming_dag.make_sharded_streaming_dag_step,
-                  sharded_node_stream.make_sharded_node_stream_step):
-        with pytest.raises(ValueError) as got:
-            build(None, AvalancheConfig(round_engine="megakernel"))
-        assert str(got.value) == str(want.value)
+    with pytest.raises(ValueError) as got:
+        sharded_fleet.fleet_scan_program(
+            None, AvalancheConfig(round_engine="megakernel"), 2)
+    assert str(got.value) == str(want.value)
+
+
+@pytest.mark.parametrize("kind", ["backlog", "streaming_dag",
+                                  "node_stream"])
+def test_streaming_drivers_ignore_the_round_engine(pool, kind):
+    """The reference's streaming drivers never read `round_engine`: a
+    megakernel config runs their phased local round.  The port's ranks
+    give the JAX `shard_map` driver's leaves on 2x2, and the same leaves
+    as the phased config."""
+    from test_torch_sharded_streaming_dag import sdag_state
+
+    extra = dict(NODE_STREAM) if kind == "node_stream" else {}
+    mega = dict(extra, round_engine="megakernel", byzantine_fraction=0.2)
+    phased = dict(extra, byzantine_fraction=0.2)
+    build = {"backlog": backlog_state, "streaming_dag": sdag_state,
+             "node_stream": node_stream_state}[kind]
+    results, _ = check_stream(pool, kind, build(mega), mega, (2, 2),
+                              rounds=4)
+    twin = pool.run(4, torch_ranks.stream_case, kind,
+                    port_numpy(kind, build(phased)), phased, (2, 2),
+                    "step", 4)
+    for (got, tel, _, _), (want, want_tel, _, _) in zip(results, twin):
+        assert_tree(want, got, kind)
+        assert _flat_tel(tel) == _flat_tel(want_tel)
+
+
+def _flat_tel(tel, prefix=""):
+    if isinstance(tel, dict):
+        out = {}
+        for name, value in tel.items():
+            out.update(_flat_tel(value, f"{prefix}.{name}"))
+        return out
+    return {prefix: None if tel is None else np.asarray(tel).tobytes()}

@@ -139,3 +139,108 @@ def test_one_rank_mesh_collapses_to_the_dense_loop():
     assert one.summary() == dense.summary()
     for name in torch_ranks.FLEET_VECTORS:
         assert_tree_equal(getattr(dense, name), getattr(one, name), name)
+
+
+# ---------------------------------------- the donated fleet scan program
+
+# The reference's flagship config (`benchmarks/workload.flagship_config`)
+# at 32 txs, as plain knobs for the ranks.
+FLAGSHIP_KNOBS = dict(finalization_score=0x7FFE, k=8, gossip=False,
+                      max_element_poll=4096)
+
+
+def _port_fleet_numpy(jstate):
+    from go_avalanche_tpu_torch import convert
+    from test_torch_avalanche import _jax_numpy
+
+    return convert.state_to_numpy(convert.state_from_numpy(
+        _jax_numpy(jstate), device="cpu"))
+
+
+def test_fleet_flagship_state_matches_jax():
+    from benchmarks import workload as jwl
+    from go_avalanche_tpu_torch import convert, workload
+    from test_torch_sharded import assert_tree
+
+    for fleet in (1, 4):
+        jstate, jcfg = jwl.fleet_flagship_state(fleet, 32, 32)
+        state, cfg = workload.fleet_flagship_state(fleet, 32, 32,
+                                                   device="cpu")
+        assert_tree(_port_fleet_numpy(jstate),
+                    convert.state_to_numpy(state), f"fleet {fleet}")
+        assert (cfg.finalization_score, cfg.k, cfg.gossip,
+                cfg.max_element_poll) == (jcfg.finalization_score, jcfg.k,
+                                          jcfg.gossip, jcfg.max_element_poll)
+
+
+def test_fleet_scan_program_matches_jax(pool):
+    """F = 8 at 32 x 32 on a 2x2 fleet mesh, 2 rounds: every rank's
+    gathered stack equals the JAX `fleet_scan_program` on its 2x2
+    virtual-device mesh; the scan calls no collective and updates its
+    block in place."""
+    from benchmarks import workload as jwl
+    from test_torch_avalanche import _jax_numpy
+    from test_torch_sharded import assert_tree
+
+    jstate, jcfg = jwl.fleet_flagship_state(8, 32, 32)
+    start = _port_fleet_numpy(jstate)
+    mesh = jax_fleet_mesh((2, 2))
+    jout = jsf.fleet_scan_program(mesh, jcfg, 2)(
+        jsf.shard_fleet_state(jstate, mesh))
+    want = _jax_numpy(jout)
+    for got, recorded, in_place in pool.run(
+            4, torch_ranks.fleet_scan_case, start, FLAGSHIP_KNOBS, (2, 2),
+            2):
+        assert_tree(want, got, "fleet scan")
+        assert recorded == set()
+        assert in_place
+
+
+def test_fleet_state_specs_footprints_match_jax():
+    import jax
+
+    from benchmarks import workload as jwl
+    from go_avalanche_tpu.obs import resources as jres
+    from go_avalanche_tpu_torch import workload
+    from go_avalanche_tpu_torch.obs import resources
+
+    mesh = jsf.make_fleet_mesh(2, 2, devices=jax.devices()[:4])
+    jstate = jax.eval_shape(lambda: jwl.fleet_flagship_state(8, 32, 32)[0])
+    want = jres.footprint(jstate, jsf.fleet_state_specs(jstate), mesh)
+    state, _ = workload.fleet_flagship_state(8, 32, 32, device="cpu")
+    got = resources.footprint(state, sharded_fleet.fleet_state_specs(state),
+                              {"trials": 2, "nodes": 2}, dtypes="reference")
+    assert got == want
+    assert sharded_fleet.FLEET_SPEC == (tuple(jsf.FLEET_SPEC[0]),)
+
+
+def test_compiled_fleet_program_is_what_run_fleet_runs(monkeypatch):
+    """`run_fleet` runs the memoised program `compiled_fleet_program`
+    gives, and that program's vectors are the JAX program's on the same
+    keys."""
+    from go_avalanche_tpu_torch import prng
+
+    jcfg, cfg = _configs(dict(finalization_score=8, byzantine_fraction=0.2))
+    args = ("avalanche", cfg, 12, 8, 6, 2, 0.5, True, 64)
+    taken = []
+    real = tfleet.compiled_fleet_program
+
+    def spy(*a, **kw):
+        taken.append(real(*a, **kw))
+        return taken[-1]
+
+    monkeypatch.setattr(tfleet, "compiled_fleet_program", spy)
+    res = tfleet.run_fleet("avalanche", cfg, fleet=3, n_nodes=12, n_txs=8,
+                           n_rounds=6, device="cpu")
+    program = real(*args, device="cpu")
+    assert taken == [program] and real(*args, device="cpu") is program
+    outcome, _, _ = program(prng.split(prng.key(0, "cpu"), 3))
+    np.testing.assert_array_equal(outcome.violation.numpy(), res.violations)
+    want, _, _ = jfleet.compiled_fleet_program(
+        "avalanche", jcfg, 12, 8, 6, 2, 0.5, True, 64)(
+        jax.random.split(jax.random.key(0), 3))
+    for name in ("violation", "settled", "finality_round",
+                 "finalized_fraction", "stalled"):
+        np.testing.assert_array_equal(np.asarray(getattr(want, name)),
+                                      getattr(outcome, name).numpy(),
+                                      err_msg=name)

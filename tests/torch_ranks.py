@@ -336,3 +336,66 @@ def collectives_case(mesh_shape, seed: int):
                     t, (NODES_AXIS, TXS_AXIS)).numpy()
                 out[name]["psum_txs"] = C.psum(t, TXS_AXIS).numpy()
     return inputs, out, mesh.ranks
+
+
+# ------------------------------------------------------ the contract audit
+
+
+def audit_driver_case(driver: str, stale=None):
+    """`analysis.audit.audit_sharded` of one driver on the 2x2 mesh of
+    the ranks, on the CPU; with `stale`, a ``(kind, axes)`` entry no
+    variant reaches planted in the driver's manifest.  The failures."""
+    from go_avalanche_tpu_torch.analysis import audit
+
+    mod = audit.driver_module(driver)
+    declared = mod.DECLARED_COLLECTIVES
+    if stale is not None:
+        mod.DECLARED_COLLECTIVES = declared | {tuple(stale)}
+    try:
+        return audit.audit_sharded(driver, "cpu")
+    finally:
+        mod.DECLARED_COLLECTIVES = declared
+
+
+def audit_fleet_case():
+    """`analysis.audit.audit_sharded_fleet` on the 2x2 fleet mesh of the
+    ranks, on the CPU."""
+    from go_avalanche_tpu_torch.analysis import audit
+
+    return audit.audit_sharded_fleet("cpu")
+
+
+def footprint_case(dtypes: str = "reference"):
+    """`parallel.footprint_cases` on the 2x2 audit mesh of the ranks, on
+    the CPU: each driver's per-rank plane bytes."""
+    from go_avalanche_tpu_torch import parallel
+    from go_avalanche_tpu_torch.obs import resources
+
+    return {name: resources.plane_bytes(case.state, case.specs, case.mesh,
+                                        dtypes=dtypes)
+            for name, case in parallel.footprint_cases(device="cpu").items()}
+
+
+def fleet_scan_case(state_np, knobs: dict, mesh_shape, rounds: int):
+    """`sharded_fleet.fleet_scan_program` over a fleet mesh of the
+    ranks: this rank's block of the stacked state (`convert`'s numpy
+    layout with a leading trial axis) scanned `rounds` rounds in place,
+    then every block gathered in mesh order; the collectives the scan
+    itself called."""
+    import torch
+
+    from go_avalanche_tpu_torch import convert
+    from go_avalanche_tpu_torch.parallel import collectives as C
+    from go_avalanche_tpu_torch.parallel import sharded_fleet as sf
+
+    mesh = sf.make_fleet_mesh(*mesh_shape)
+    block = sf.shard_fleet_state(
+        convert.state_from_numpy(state_np, device="cpu"), mesh)
+    ptrs = {x.data_ptr() for x in block.records}
+    C.recorded.clear()
+    out = sf.fleet_scan_program(mesh, config(knobs), rounds)(block)
+    recorded = set(C.recorded)
+    in_place = out is block and {x.data_ptr() for x in out.records} == ptrs
+    with C.bind(mesh):
+        whole = sf._map(lambda x: C.all_gather(x, sf.FLEET_AXES), out)
+    return convert.state_to_numpy(whole), recorded, in_place
