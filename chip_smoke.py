@@ -43,7 +43,7 @@ package is missing.  Phases, each printing JSON lines:
   8. streaming — BASELINE config 5 whole (`backlog.run`, 1024 nodes x
                4096 slots, 1,000,000 txs) and config 6 at full width
                and cut depth (`streaming_dag.run_chunked`, 100000 nodes
-               x a 1024-set window of 2-tx sets, 12,800 sets), both on
+               x a 1024-set window of 2-tx sets, 6,400 sets), both on
                phased-u8 and phased-swar32 against the reference's
                recorded rounds and outcomes; the sparse retire cap at
                the window size against the dense run; live traffic
@@ -76,9 +76,13 @@ package is missing.  Phases, each printing JSON lines:
                (config 5's width, latency 1, the coalesced engine, the
                backlog cut to 8192 txs) and the node stream (1,000,000
                registry nodes, 16384 active, 3 rounds) under latency,
-               each against a CPU replay of the port (the DAG's replay
-               cut to its first 2 rounds, the first with a delivery).  Each engine prints ms per
-               round (CUDA events), peak memory and host reads;
+               each against a CPU replay of the port from the same start
+               (the DAG's replay cut to its first 2 rounds, the first
+               with a delivery).  The replays run in a spawned process,
+               started with the phase, beside the card's parts; each is
+               held leaf by leaf (dtype, shape and the sha256 of the
+               bytes).  Each engine prints ms per round (CUDA events),
+               peak memory and host reads;
  10. adversary — the adaptive adversary (`adversary_policy`) and the
                Monte-Carlo fleet (`fleet.py`).  The flagship at
                16384 x 16384 with 20% byzantine under split_vote,
@@ -230,6 +234,30 @@ package is missing.  Phases, each printing JSON lines:
                ``python -m go_avalanche_tpu_torch.analysis all`` exits
                0 on the card.  The kernels line's launches add phase
                15's (a), (b) and (c).
+ 16. examples — the protocol studies of `examples/` on their twins
+               (`go_avalanche_tpu_torch/examples/`).  (a) The recorded
+               cells the JAX package's own replays hold, at their
+               recorded shapes, each equal to the value read from
+               `examples/out/*.json` (`examples/recorded.py`; the
+               quorum-dial safety cell on its first seed), with its
+               seconds, rounds and `vote_u8` launches by path (the
+               churn cell's skip semantics launches none, by design),
+               each cell in a spawned process of its own.  (b) Every
+               twin's `main` at a small shape on the card and
+               with ``--device cpu``: the result dicts equal without
+               their times, rates, `backend` and `card`; `vote_u8`
+               launched in every study but `fault_scenarios` (the
+               async ring, plain PyTorch by the reference's design),
+               which launches no kernel; nothing launched on the CPU.
+               The kernels line's launches add phase 16's card runs.
+
+Phases 7-14 are bound by the host, so they run in three lanes at once
+(`LANES`): the first lane in this process, each other one in a spawned
+process, each lane its phases one after another (phase 8 in two parts:
+config 5, then the rest).  Their lines print in phase order once every
+lane has ended; a lane's failure fails the script and stops the other
+lanes.  Phases 15 and 16 then run alone.  Every phase's seconds (its
+own lane's) print on a line of their own before the kernels line.
 
 With ``--config6-full-depth`` it builds the kernels and runs only BASELINE
 config 6 at full width and full depth (500,000 sets, ~8313 rounds,
@@ -1012,14 +1040,14 @@ def time_ingest(name: str, n: int, t: int, device="cuda") -> dict:
 
 
 # Phase 8's shapes.  Config 6 runs at full width (100000 nodes, a 1024-set
-# window of 2-tx sets) with its backlog cut from 500,000 sets to 12,800
-# (13 waves of the window, the last one half full; the whole backlog would
-# take ~8313 rounds, about ten minutes per engine; phases 9 and 13 took the
-# time the other waves had); every wave settles in ceil(134 / k) = 17
-# rounds, so the cut run's gate is 13 * 17 = 221 rounds.  The retire-cap
-# check runs 3 waves.
+# window of 2-tx sets) with its backlog cut from 500,000 sets to 6,400
+# (7 waves of the window, the last one a quarter full; the whole backlog
+# would take ~8313 rounds, about ten minutes per engine; phases 9, 13 and
+# 16 took the time the other waves had); every wave settles in
+# ceil(134 / k) = 17 rounds, so the cut run's gate is 7 * 17 = 119 rounds.
+# The retire-cap check runs 3 waves.
 STREAM_SHAPES = {
-    "full": dict(config6_sets=12_800, cap_sets=3072, traffic_txs=65_536,
+    "full": dict(config6_sets=6_400, cap_sets=3072, traffic_txs=65_536,
                  traffic_rate=200.0, node_txs=4096, registry=1_000_000,
                  active=16_384, node_rounds=40),
     "quick": dict(config6_sets=320, cap_sets=96, traffic_txs=4096,
@@ -1100,10 +1128,15 @@ class StreamPart:
                 "peak_mem_gib": torch.cuda.max_memory_allocated() / 2**30}
 
 
-def run_streaming(quick: bool = False, device="cuda") -> dict:
+STREAM_PARTS = ("config5", "config6", "traffic", "node_stream")
+
+
+def run_streaming(quick: bool = False, device="cuda",
+                  parts: tuple = STREAM_PARTS) -> dict:
     """Phase 8: the streaming schedulers, the traffic plane and the node
     registry through their entry points on the card (module docstring);
-    each part raises on any gate it misses."""
+    each part raises on any gate it misses.  `parts` names the parts to
+    run, of `STREAM_PARTS` (config 6 with its retire-cap check)."""
     import torch
 
     from go_avalanche_tpu_torch import prng, sync
@@ -1120,214 +1153,224 @@ def run_streaming(quick: bool = False, device="cuda") -> dict:
               "by_path": {k: {"fast": 0, "any": 0}
                           for k in ("vote_u8", "vote_swar")}}
     engines = {"u8": "vote_u8", "swar32": "vote_swar"}
-    parts = []
+    todo, parts = parts, []
+    n5, b5, w5 = workload.config5_shape(quick)
 
     def phased(cfg):
         return {engine: dataclasses.replace(cfg, ingest_engine=engine)
                 for engine in engines}
 
     # 1. config 5, whole
-    start, cfg = workload.config5_state(quick, device=device)
-    n5, b5, w5 = workload.config5_shape(quick)
-    part = StreamPart("config5", w5)
-    finals = {}
-    for engine, ecfg in phased(cfg).items():
-        finals[engine] = part.run(
-            engine, lambda s, c: (lambda f: (f, sync.read(f.sim.round)))(
-                backlog.run(s, c, max_rounds=STREAM_MAX_ROUNDS,
-                            device=device)), start, ecfg)
-    assert_trees_equal(finals["u8"], finals["swar32"], "config5 u8 vs swar32")
-    final = finals["u8"]
-    result = {"nodes": n5, "backlog_txs": b5, "window": w5,
-              "rounds": int(final.sim.round),
-              "txs_settled_fraction": float(
-                  final.outputs.settled.double().mean())}
-    check_result("config5", result, reference["config5"])
-    parts.append({**result, "reference": reference["config5"],
-                  **part.close({engines[e]: r
-                                for e, r in part.rounds.items()}, totals)})
-    del start, finals, final
-    torch.cuda.empty_cache()
+    if "config5" in todo:
+        start, cfg = workload.config5_state(quick, device=device)
+        part = StreamPart("config5", w5)
+        finals = {}
+        for engine, ecfg in phased(cfg).items():
+            finals[engine] = part.run(
+                engine, lambda s, c: (lambda f: (f, sync.read(f.sim.round)))(
+                    backlog.run(s, c, max_rounds=STREAM_MAX_ROUNDS,
+                                device=device)), start, ecfg)
+        assert_trees_equal(finals["u8"], finals["swar32"],
+                           "config5 u8 vs swar32")
+        final = finals["u8"]
+        result = {"nodes": n5, "backlog_txs": b5, "window": w5,
+                  "rounds": int(final.sim.round),
+                  "txs_settled_fraction": float(
+                      final.outputs.settled.double().mean())}
+        check_result("config5", result, reference["config5"])
+        parts.append({**result, "reference": reference["config5"],
+                      **part.close({engines[e]: r
+                                    for e, r in part.rounds.items()}, totals)})
+        del start, finals, final
+        torch.cuda.empty_cache()
 
     # 2. config 6 at full width, cut in depth, by run_chunked
-    sets = shape["config6_sets"]
-    star = dict(workload.QUICK if quick else workload.NORTH_STAR)
-    star["backlog_sets"] = sets
-    start, cfg = workload.northstar_state(**star, device=device)
-    w6 = star["window_sets"] * star["set_cap"]
-    part = StreamPart("config6", w6)
-    finals = {}
-    for engine, ecfg in phased(cfg).items():
-        finals[engine] = part.run(
-            engine, lambda s, c: (lambda f: (f, sync.read(
-                f.dag.base.round)))(sdg.run_chunked(
-                    s, c, max_rounds=STREAM_MAX_ROUNDS, chunk=256,
-                    device=device)), start, ecfg)
-    assert_trees_equal(finals["u8"], finals["swar32"], "config6 u8 vs swar32")
-    summary = sdg.resolution_summary(finals["u8"])
-    waves = -(-sets // star["window_sets"])
-    want = {**reference["config6"], "rounds": waves * WAVE_ROUNDS}
-    result = {"nodes": star["nodes"], "window_sets": star["window_sets"],
-              "set_cap": star["set_cap"], "backlog_sets": sets,
-              "full_backlog_sets": (workload.QUICK if quick
-                                    else workload.NORTH_STAR)["backlog_sets"],
-              "depth_cut": f"backlog cut to {sets} sets ({waves} waves) to "
-                           f"fit the script's time limit; width unchanged",
-              "rounds": int(finals["u8"].dag.base.round), **summary}
-    check_result("config6", result, want)
-    parts.append({**result, "reference": want,
-                  **part.close({engines[e]: r
-                                for e, r in part.rounds.items()}, totals)})
-    del start, finals
-    torch.cuda.empty_cache()
+    if "config6" in todo:
+        sets = shape["config6_sets"]
+        star = dict(workload.QUICK if quick else workload.NORTH_STAR)
+        star["backlog_sets"] = sets
+        start, cfg = workload.northstar_state(**star, device=device)
+        w6 = star["window_sets"] * star["set_cap"]
+        part = StreamPart("config6", w6)
+        finals = {}
+        for engine, ecfg in phased(cfg).items():
+            finals[engine] = part.run(
+                engine, lambda s, c: (lambda f: (f, sync.read(
+                    f.dag.base.round)))(sdg.run_chunked(
+                        s, c, max_rounds=STREAM_MAX_ROUNDS, chunk=256,
+                        device=device)), start, ecfg)
+        assert_trees_equal(finals["u8"], finals["swar32"],
+                           "config6 u8 vs swar32")
+        summary = sdg.resolution_summary(finals["u8"])
+        waves = -(-sets // star["window_sets"])
+        want = {**reference["config6"], "rounds": waves * WAVE_ROUNDS}
+        full = workload.QUICK if quick else workload.NORTH_STAR
+        result = {"nodes": star["nodes"], "window_sets": star["window_sets"],
+                  "set_cap": star["set_cap"], "backlog_sets": sets,
+                  "full_backlog_sets": full["backlog_sets"],
+                  "depth_cut": f"backlog cut to {sets} sets ({waves} waves) "
+                               f"to fit the script's time limit; width "
+                               f"unchanged",
+                  "rounds": int(finals["u8"].dag.base.round), **summary}
+        check_result("config6", result, want)
+        parts.append({**result, "reference": want,
+                      **part.close({engines[e]: r
+                                    for e, r in part.rounds.items()}, totals)})
+        del start, finals
+        torch.cuda.empty_cache()
 
-    # 2b. the sparse retire cap at the window size against the dense run
-    star["backlog_sets"] = shape["cap_sets"]
-    start, cfg = workload.northstar_state(**star, device=device)
-    part = StreamPart("config6_retire_cap", w6)
-    runs = {"dense": cfg,
-            "retire_cap": dataclasses.replace(
-                cfg, stream_retire_cap=star["window_sets"])}
-    finals = {}
-    for name, rcfg in runs.items():
-        finals[name] = part.run(
-            name, lambda s, c: (lambda f: (f, sync.read(
-                f.dag.base.round)))(sdg.run(
-                    s, c, max_rounds=STREAM_MAX_ROUNDS, device=device)),
-            start, rcfg)
-    assert_trees_equal(finals["dense"], finals["retire_cap"],
-                       "retire cap vs dense")
-    cap_rounds = -(-shape["cap_sets"] // star["window_sets"]) * WAVE_ROUNDS
-    if part.rounds["dense"] != cap_rounds:
-        raise AssertionError(f"retire-cap check: {part.rounds} rounds, "
-                             f"expected {cap_rounds}")
-    parts.append({"backlog_sets": shape["cap_sets"],
-                  "stream_retire_cap": star["window_sets"],
-                  **part.close({"vote_u8": sum(part.rounds.values())},
-                               totals)})
-    del start, finals
-    torch.cuda.empty_cache()
+        # 2b. the sparse retire cap at the window size against the dense run
+        star["backlog_sets"] = shape["cap_sets"]
+        start, cfg = workload.northstar_state(**star, device=device)
+        part = StreamPart("config6_retire_cap", w6)
+        runs = {"dense": cfg,
+                "retire_cap": dataclasses.replace(
+                    cfg, stream_retire_cap=star["window_sets"])}
+        finals = {}
+        for name, rcfg in runs.items():
+            finals[name] = part.run(
+                name, lambda s, c: (lambda f: (f, sync.read(
+                    f.dag.base.round)))(sdg.run(
+                        s, c, max_rounds=STREAM_MAX_ROUNDS, device=device)),
+                start, rcfg)
+        assert_trees_equal(finals["dense"], finals["retire_cap"],
+                           "retire cap vs dense")
+        cap_rounds = -(-shape["cap_sets"] // star["window_sets"]) * WAVE_ROUNDS
+        if part.rounds["dense"] != cap_rounds:
+            raise AssertionError(f"retire-cap check: {part.rounds} rounds, "
+                                 f"expected {cap_rounds}")
+        parts.append({"backlog_sets": shape["cap_sets"],
+                      "stream_retire_cap": star["window_sets"],
+                      **part.close({"vote_u8": sum(part.rounds.values())},
+                                   totals)})
+        del start, finals
+        torch.cuda.empty_cache()
 
     # 3. live traffic at config 5's width
-    tcfg = AvalancheConfig(gossip=False, max_element_poll=w5,
-                           arrival_mode="poisson",
-                           arrival_rate=shape["traffic_rate"],
-                           arrival_backpressure=(0.7, 0.95))
-    queue = backlog.make_backlog(prng.randint(
-        prng.key(1, device), (shape["traffic_txs"],), 0, 1 << 20))
-    start = backlog.init(prng.key(0, device), n5, w5, queue, tcfg,
-                         device=device)
-    part = StreamPart("traffic", w5)
+    if "traffic" in todo:
+        tcfg = AvalancheConfig(gossip=False, max_element_poll=w5,
+                               arrival_mode="poisson",
+                               arrival_rate=shape["traffic_rate"],
+                               arrival_backpressure=(0.7, 0.95))
+        queue = backlog.make_backlog(prng.randint(
+            prng.key(1, device), (shape["traffic_txs"],), 0, 1 << 20))
+        start = backlog.init(prng.key(0, device), n5, w5, queue, tcfg,
+                             device=device)
+        part = StreamPart("traffic", w5)
 
-    def traffic_run(state, cfg):
-        rows = []
-        rounds = sync.read(state.sim.round)
-        while (rounds < STREAM_MAX_ROUNDS
-               and not sync.read(backlog.drained(state, cfg))):
-            state, tel = backlog.step(state, cfg)
-            rows.append(tel)
-            rounds += 1
-        final = backlog._retire_and_refill(state, cfg, refill=False)[0]
-        return (final, backlog.stack_tree(rows)), rounds
+        def traffic_run(state, cfg):
+            rows = []
+            rounds = sync.read(state.sim.round)
+            while (rounds < STREAM_MAX_ROUNDS
+                   and not sync.read(backlog.drained(state, cfg))):
+                state, tel = backlog.step(state, cfg)
+                rows.append(tel)
+                rounds += 1
+            final = backlog._retire_and_refill(state, cfg, refill=False)[0]
+            return (final, backlog.stack_tree(rows)), rounds
 
-    runs = {}
-    for engine, ecfg in phased(tcfg).items():
-        runs[engine] = part.run(engine, traffic_run, start, ecfg)
-    assert_trees_equal(runs["u8"], runs["swar32"], "traffic u8 vs swar32")
-    final, tel = runs["u8"]
-    out = final.outputs
-    if not bool(out.settled.all()):
-        raise AssertionError("traffic: not every tx settled")
-    ingraph = tf.latency_percentiles(final.traffic)
-    host = tf.latency_percentiles_host(
-        final.traffic.arrival_round.cpu().numpy(),
-        out.settle_round.cpu().numpy(),
-        out.settled.cpu().numpy().astype("int64"),
-        tcfg.arrival_latency_buckets)
-    if {k: ingraph[k] for k in host} != host:
-        raise AssertionError(f"traffic: in-graph percentiles {ingraph} != "
-                             f"the host's {host}")
-    # The arrivals again on the CPU, fed the card's occupancy series (a
-    # step's arrival draw reads the occupancy the previous step left).
-    arrivals = tel.traffic.arrivals.cpu().tolist()
-    occupied = [0] + tel.occupied.cpu().tolist()[:-1]
-    replay = tf.init_traffic(tcfg, prng.key(0, "cpu"), shape["traffic_txs"])
-    for r, (want_n, occ) in enumerate(zip(arrivals, occupied)):
-        replay, got_n = tf.arrive(
-            replay, tcfg, torch.tensor(r, dtype=torch.int32),
-            torch.tensor(occ, dtype=torch.int32), w5)
-        if int(got_n) != want_n:
-            raise AssertionError(f"traffic: round {r} drew {want_n} "
-                                 f"arrivals on the card, {int(got_n)} in "
-                                 f"the CPU replay")
-    if not torch.equal(replay.arrival_round,
-                       final.traffic.arrival_round.cpu()):
-        raise AssertionError("traffic: arrival rounds differ from the "
-                             "CPU replay")
-    parts.append({"nodes": n5, "window": w5,
-                  "backlog_txs": shape["traffic_txs"],
-                  "arrival_rate": shape["traffic_rate"],
-                  "arrival_backpressure": [0.7, 0.95],
-                  "rounds": part.rounds["u8"], **ingraph,
-                  "arrivals_replayed_on_cpu": len(arrivals),
-                  **part.close({engines[e]: r
-                                for e, r in part.rounds.items()}, totals)})
-    del start, runs, final, tel
-    torch.cuda.empty_cache()
+        runs = {}
+        for engine, ecfg in phased(tcfg).items():
+            runs[engine] = part.run(engine, traffic_run, start, ecfg)
+        assert_trees_equal(runs["u8"], runs["swar32"], "traffic u8 vs swar32")
+        final, tel = runs["u8"]
+        out = final.outputs
+        if not bool(out.settled.all()):
+            raise AssertionError("traffic: not every tx settled")
+        ingraph = tf.latency_percentiles(final.traffic)
+        host = tf.latency_percentiles_host(
+            final.traffic.arrival_round.cpu().numpy(),
+            out.settle_round.cpu().numpy(),
+            out.settled.cpu().numpy().astype("int64"),
+            tcfg.arrival_latency_buckets)
+        if {k: ingraph[k] for k in host} != host:
+            raise AssertionError(f"traffic: in-graph percentiles {ingraph} != "
+                                 f"the host's {host}")
+        # The arrivals again on the CPU, fed the card's occupancy series (a
+        # step's arrival draw reads the occupancy the previous step left).
+        arrivals = tel.traffic.arrivals.cpu().tolist()
+        occupied = [0] + tel.occupied.cpu().tolist()[:-1]
+        replay = tf.init_traffic(tcfg, prng.key(0, "cpu"),
+                                 shape["traffic_txs"])
+        for r, (want_n, occ) in enumerate(zip(arrivals, occupied)):
+            replay, got_n = tf.arrive(
+                replay, tcfg, torch.tensor(r, dtype=torch.int32),
+                torch.tensor(occ, dtype=torch.int32), w5)
+            if int(got_n) != want_n:
+                raise AssertionError(f"traffic: round {r} drew {want_n} "
+                                     f"arrivals on the card, {int(got_n)} in "
+                                     f"the CPU replay")
+        if not torch.equal(replay.arrival_round,
+                           final.traffic.arrival_round.cpu()):
+            raise AssertionError("traffic: arrival rounds differ from the "
+                                 "CPU replay")
+        parts.append({"nodes": n5, "window": w5,
+                      "backlog_txs": shape["traffic_txs"],
+                      "arrival_rate": shape["traffic_rate"],
+                      "arrival_backpressure": [0.7, 0.95],
+                      "rounds": part.rounds["u8"], **ingraph,
+                      "arrivals_replayed_on_cpu": len(arrivals),
+                      **part.close({engines[e]: r
+                                    for e, r in part.rounds.items()}, totals)})
+        del start, runs, final, tel
+        torch.cuda.empty_cache()
 
     # 4. the node-stream registry on all three engines
-    ncfg = AvalancheConfig(stake_mode="zipf", stake_zipf_s=1.0,
-                           registry_nodes=shape["registry"],
-                           active_nodes=shape["active"],
-                           node_churn_rate=1e-3,
-                           max_element_poll=max(4096, shape["node_txs"]))
-    start = node_stream.init(prng.key(0, device), shape["node_txs"], ncfg,
-                             device=device)
-    part = StreamPart("node_stream", shape["node_txs"])
-    n_rounds = shape["node_rounds"]
-    runs = {}
-    for engine, ecfg in {**phased(ncfg), "megakernel": dataclasses.replace(
-            ncfg, round_engine="megakernel")}.items():
-        runs[engine] = part.run(
-            engine, lambda s, c: (node_stream.run_scan(
-                s, c, n_rounds=n_rounds, device=device), n_rounds),
-            start, ecfg)
-    for engine in ("swar32", "megakernel"):
-        assert_trees_equal(runs["u8"], runs[engine], f"node stream u8 vs "
-                                                     f"{engine}")
-    final, tel = runs["u8"]
-    departed = int(tel.departed.sum())
-    slot = final.slot_node
-    if (int(torch.unique(slot).numel()) != shape["active"]
-            or int(final.resident.sum()) != shape["active"]
-            or not bool(final.resident[slot.long()].all())):
-        raise AssertionError("node stream: the window is not full")
-    if not int(final.churned_in) == int(final.churned_out) == departed:
-        raise AssertionError("node stream: churn counters disagree")
-    # The churn draws again on the CPU from the card's initial registry
-    # planes: they read no consensus state.
-    replay = av.move_leaves(start._replace(sim=None),
-                                   torch.device("cpu"))
-    for r in range(n_rounds):
-        swap, new_slot, resident, n_swapped, key = (
-            node_stream.churn_swaps(replay, ncfg))
-        if int(n_swapped) != int(tel.departed[r]):
-            raise AssertionError(f"node stream: round {r} swapped "
-                                 f"{int(tel.departed[r])} rows on the card,"
-                                 f" {int(n_swapped)} in the CPU replay")
-        replay = replay._replace(slot_node=new_slot, resident=resident,
-                                 churn_key=key)
-    for field in ("slot_node", "resident", "churn_key"):
-        if not torch.equal(getattr(replay, field),
-                           getattr(final, field).cpu()):
-            raise AssertionError(f"node stream: {field} differs from the "
-                                 f"CPU replay")
-    parts.append({"registry_nodes": shape["registry"],
-                  "active_nodes": shape["active"], "txs": shape["node_txs"],
-                  "rounds": n_rounds, "departed": departed,
-                  **node_stream.window_summary(final, ncfg),
-                  **part.close({"vote_u8": n_rounds, "vote_swar": n_rounds,
-                                "megakernel": n_rounds}, totals)})
+    if "node_stream" in todo:
+        ncfg = AvalancheConfig(stake_mode="zipf", stake_zipf_s=1.0,
+                               registry_nodes=shape["registry"],
+                               active_nodes=shape["active"],
+                               node_churn_rate=1e-3,
+                               max_element_poll=max(4096, shape["node_txs"]))
+        start = node_stream.init(prng.key(0, device), shape["node_txs"], ncfg,
+                                 device=device)
+        part = StreamPart("node_stream", shape["node_txs"])
+        n_rounds = shape["node_rounds"]
+        runs = {}
+        for engine, ecfg in {**phased(ncfg), "megakernel": dataclasses.replace(
+                ncfg, round_engine="megakernel")}.items():
+            runs[engine] = part.run(
+                engine, lambda s, c: (node_stream.run_scan(
+                    s, c, n_rounds=n_rounds, device=device), n_rounds),
+                start, ecfg)
+        for engine in ("swar32", "megakernel"):
+            assert_trees_equal(runs["u8"], runs[engine], f"node stream u8 vs "
+                                                         f"{engine}")
+        final, tel = runs["u8"]
+        departed = int(tel.departed.sum())
+        slot = final.slot_node
+        if (int(torch.unique(slot).numel()) != shape["active"]
+                or int(final.resident.sum()) != shape["active"]
+                or not bool(final.resident[slot.long()].all())):
+            raise AssertionError("node stream: the window is not full")
+        if not int(final.churned_in) == int(final.churned_out) == departed:
+            raise AssertionError("node stream: churn counters disagree")
+        # The churn draws again on the CPU from the card's initial registry
+        # planes: they read no consensus state.
+        replay = av.move_leaves(start._replace(sim=None),
+                                torch.device("cpu"))
+        for r in range(n_rounds):
+            swap, new_slot, resident, n_swapped, key = (
+                node_stream.churn_swaps(replay, ncfg))
+            if int(n_swapped) != int(tel.departed[r]):
+                raise AssertionError(f"node stream: round {r} swapped "
+                                     f"{int(tel.departed[r])} rows on the "
+                                     f"card, {int(n_swapped)} in the CPU "
+                                     f"replay")
+            replay = replay._replace(slot_node=new_slot, resident=resident,
+                                     churn_key=key)
+        for field in ("slot_node", "resident", "churn_key"):
+            if not torch.equal(getattr(replay, field),
+                               getattr(final, field).cpu()):
+                raise AssertionError(f"node stream: {field} differs from the "
+                                     f"CPU replay")
+        parts.append({"registry_nodes": shape["registry"],
+                      "active_nodes": shape["active"],
+                      "txs": shape["node_txs"],
+                      "rounds": n_rounds, "departed": departed,
+                      **node_stream.window_summary(final, ncfg),
+                      **part.close({"vote_u8": n_rounds, "vote_swar": n_rounds,
+                                    "megakernel": n_rounds}, totals)})
     return {"parts": parts, "launches": totals["launches"],
             "launches_by_ingest_path": totals["by_path"]}
 
@@ -1389,6 +1432,7 @@ FAULT_ROUNDS = 18            # flagship_faults
 LATENCY0_ROUNDS = 3
 RING_COUNTERS = ("deliveries", "expiries", "ring_occupancy",
                  "partition_blocked")
+ASYNC_REPLAY_TIMEOUT = 600   # seconds phase 9 waits for a CPU replay
 # Latency 1 with the bench lane's timeout (2 * 1 + 2 = 4 rounds).
 LATENCY1 = dict(latency_mode="fixed", latency_rounds=1, time_step_s=1.0,
                 request_timeout_s=3.0)
@@ -1629,29 +1673,179 @@ def run_fault_studies(device="cuda") -> list:
     return rows
 
 
-def run_async_models(shape: dict, device="cuda") -> list:
-    """The DAG, Snowball, backlog and node-stream models under latency,
-    each held against a CPU replay of the port on the same seed."""
+def tree_digests(tree, where: str = "") -> dict:
+    """Every leaf of a (nested) tuple or NamedTuple by path: a tensor's
+    dtype, shape and the sha256 of its bytes, any other leaf's repr."""
+    import hashlib
+
     import torch
 
-    from go_avalanche_tpu_torch import prng, sync, workload
+    if isinstance(tree, torch.Tensor):
+        t = tree.detach().cpu().contiguous().reshape(-1)
+        return {where: (str(t.dtype), tuple(tree.shape), hashlib.sha256(
+            t.view(torch.uint8).numpy().tobytes()).hexdigest())}
+    if isinstance(tree, tuple):
+        out = {}
+        for field, x in zip(getattr(tree, "_fields", range(len(tree))), tree):
+            out.update(tree_digests(x, f"{where}.{field}"))
+        return out
+    return {where: repr(tree)}
+
+
+def assert_digests_equal(got: dict, want: dict, where: str) -> None:
+    if list(got) != list(want):
+        raise AssertionError(f"{where}: the leaves differ: {list(got)} != "
+                             f"{list(want)}")
+    bad = [p for p in got if got[p] != want[p]]
+    if bad:
+        raise AssertionError(f"{where} differs at {bad}")
+
+
+def node_stream_async_config(shape: dict):
+    """The node stream's config in phase 9: zipf stake, latency 1, rows
+    cleared from the ring."""
     from go_avalanche_tpu_torch.config import AvalancheConfig
+
+    return AvalancheConfig(stake_mode="zipf", registry_nodes=shape["registry"],
+                           active_nodes=shape["active"],
+                           node_churn_rate=shape["node_churn"],
+                           inflight_engine="coalesced",
+                           max_element_poll=max(4096, shape["node_txs"]),
+                           **LATENCY1)
+
+
+def async_model_starts(shape: dict, device) -> dict:
+    """Phase 9's part `models`: the start and config of each model's
+    coalesced run, built on `device` and moved to the CPU, where its
+    replay runs; the card's coalesced runs start from the same bytes."""
+    import torch
+
+    from go_avalanche_tpu_torch import prng, workload
+    from go_avalanche_tpu_torch.models import avalanche as av
+    from go_avalanche_tpu_torch.models import node_stream
+
+    cpu = torch.device("cpu")
+    quick = shape["snowball_quick"]
+    n, t = shape["dag"]
+    ncfg = node_stream_async_config(shape)
+    builds = {
+        "dag": lambda: workload.dag_baseline_state(
+            n, t, device=device, inflight_engine="coalesced", **LATENCY1),
+        "snowball": lambda: workload.config1_state(
+            quick, device=device, inflight_engine="coalesced",
+            **dict(LATENCY1, latency_mode="geometric")),
+        "backlog": lambda: workload.config5_state(
+            quick, device=device, n_txs=shape["backlog_txs"],
+            inflight_engine="coalesced", **LATENCY1),
+        "node_stream": lambda: (node_stream.init(
+            prng.key(0, device), shape["node_txs"], ncfg, device=device),
+            ncfg),
+    }
+    starts = {}
+    for model, build in builds.items():
+        start, cfg = build()
+        starts[model] = (av.move_leaves(start, cpu), cfg)
+        del start
+    _empty_cache(device)
+    return starts
+
+
+def replay_async_model(model: str, path: str, n_rounds: int) -> dict:
+    """Phase 9, in a spawned process: one model's CPU replay from the
+    start saved at `path`; the digests of what it ends with, the rounds
+    it ran and its seconds."""
+    import os
+
+    import torch
+
+    from go_avalanche_tpu_torch.models import backlog, dag, node_stream
+    from go_avalanche_tpu_torch.models import snowball
+
+    # Leave half the host's cores to the process that drives the card.
+    torch.set_num_threads(max(1, (os.cpu_count() or 2) // 2))
+    start, cfg = torch.load(path, weights_only=False)
+    t0 = time.perf_counter()
+    if model == "dag":
+        replay = start
+        for _ in range(n_rounds):
+            replay = dag.round_step(replay, cfg)[0]
+        rounds = n_rounds
+    elif model == "snowball":
+        replay = snowball.run(start, cfg, device="cpu")
+        rounds = int(replay.round)
+    elif model == "backlog":
+        replay = backlog.run(start, cfg, device="cpu")
+        rounds = int(replay.sim.round)
+    else:
+        replay = node_stream.run_scan(start, cfg, n_rounds=n_rounds,
+                                      device="cpu")
+        rounds = n_rounds
+    return {"model": model, "digests": tree_digests(replay),
+            "rounds": rounds, "seconds": time.perf_counter() - t0}
+
+
+class AsyncReplays:
+    """Phase 9's CPU replays in one spawned process, started before the
+    card's parts: `start` saves each model's start and submits its
+    replay; `take(model)` waits for it (the wait is reported)."""
+
+    def __init__(self, shape: dict, device):
+        import concurrent.futures
+        import multiprocessing
+        import os
+        import tempfile
+
+        import torch
+
+        self.starts = async_model_starts(shape, device)
+        self.work = tempfile.mkdtemp(prefix="chip_smoke_async_")
+        self.pool = concurrent.futures.ProcessPoolExecutor(
+            1, mp_context=multiprocessing.get_context("spawn"))
+        rounds = {"dag": shape["dag_replay_rounds"],
+                  "node_stream": shape["node_rounds"]}
+        self.futures = {}
+        for model, (start, cfg) in self.starts.items():
+            path = os.path.join(self.work, f"{model}.pt")
+            torch.save((start, cfg), path)
+            self.futures[model] = self.pool.submit(
+                replay_async_model, model, path, rounds.get(model, 0))
+
+    def take(self, model: str) -> dict:
+        t0 = time.perf_counter()
+        row = self.futures[model].result(timeout=ASYNC_REPLAY_TIMEOUT)
+        return {**row, "waited_s": time.perf_counter() - t0}
+
+    def close(self) -> None:
+        import shutil
+
+        self.pool.shutdown(cancel_futures=True)
+        shutil.rmtree(self.work, ignore_errors=True)
+
+
+def run_async_models(shape: dict, replays: AsyncReplays,
+                     device="cuda") -> list:
+    """The DAG, Snowball, backlog and node-stream models under latency,
+    each held against the CPU replay of the port from the same start."""
+    from go_avalanche_tpu_torch import sync, workload
     from go_avalanche_tpu_torch.models import avalanche as av
     from go_avalanche_tpu_torch.models import backlog, dag, node_stream
     from go_avalanche_tpu_torch.models import snowball
     from go_avalanche_tpu_torch.ops import voterecord as vr
 
     rows = []
-    cpu = torch.device("cpu")
 
     # 1. the DAG baseline under fixed latency 1, to settlement
     t0 = time.perf_counter()
     n, t = shape["dag"]
     finals, times = {}, {}
     reset_launches()
+    cpu_start, dag_cfg = replays.starts["dag"]
     for engine in ASYNC_ENGINES:
-        start, cfg = workload.dag_baseline_state(
-            n, t, device=device, inflight_engine=engine, **LATENCY1)
+        if engine == "coalesced":
+            start, cfg = dag.to_device(cpu_start, device), dag_cfg
+        else:
+            start, cfg = workload.dag_baseline_state(
+                n, t, device=device, inflight_engine=engine, **LATENCY1)
         run = AsyncRun()
         state = start
         while (int(state.base.round) < DAG_MAX_ROUNDS
@@ -1659,8 +1853,6 @@ def run_async_models(shape: dict, device="cuda") -> list:
             state = run.step(lambda s: dag.round_step(s, cfg)[0], state)
         times[engine] = run.close()
         finals[engine] = state
-        if engine == "coalesced":
-            cpu_start = av.move_leaves(start, cpu)
         del start
     for engine in ASYNC_ENGINES[1:]:
         assert_async_trees_equal(finals["walk"], finals[engine],
@@ -1676,40 +1868,47 @@ def run_async_models(shape: dict, device="cuda") -> list:
     # The CPU replay is cut to the first rounds: a 10000² round takes
     # seconds on the CPU.
     k_replay = shape["dag_replay_rounds"]
-    replay, again = cpu_start, dag.to_device(cpu_start, device)
+    again = dag.to_device(cpu_start, device)
     for _ in range(k_replay):
-        replay = dag.round_step(replay, cfg)[0]
         again = dag.round_step(again, cfg)[0]
-    assert_trees_equal(av.move_leaves(again, cpu), replay,
-                       f"dag async vs its CPU replay at round {k_replay}")
+    replay = replays.take("dag")
+    assert_digests_equal(tree_digests(again), replay["digests"],
+                         f"dag async vs its CPU replay at round {k_replay}")
     rows.append({"model": "dag", "nodes": n, "txs": t, "latency": 1,
                  "timeout_rounds": cfg.timeout_rounds(),
                  "rounds": int(final.base.round),
                  "sets_resolved_fraction": resolved,
                  "finality_median": finality_median(final.base.finalized_at),
-                 "cpu_replay_rounds": k_replay, "engines": times,
+                 "cpu_replay_rounds": replay["rounds"],
+                 "cpu_replay_s": replay["seconds"],
+                 "cpu_replay_waited_s": replay["waited_s"], "engines": times,
                  "launches": check_no_launches("dag async"),
                  "wall_s": time.perf_counter() - t0})
-    del finals, final, again, replay, cpu_start
-    torch.cuda.empty_cache()
+    del finals, final, again, cpu_start
+    _empty_cache(device)
 
     # 2. Snowball at config 1's width under geometric latency
     t0 = time.perf_counter()
     knobs = dict(LATENCY1, latency_mode="geometric")
     finals, times = {}, {}
     for engine in ASYNC_ENGINES:
-        start, cfg = workload.config1_state(shape["snowball_quick"],
-                                            device=device,
-                                            inflight_engine=engine, **knobs)
+        if engine == "coalesced":
+            cpu_start, cfg = replays.starts["snowball"]
+            start = snowball.to_device(cpu_start, device)
+        else:
+            start, cfg = workload.config1_state(
+                shape["snowball_quick"], device=device,
+                inflight_engine=engine, **knobs)
         (final, ms) = timed_run(snowball.run, start, cfg, device=device)
         finals[engine] = final
         times[engine] = ms / max(int(final.round), 1)
     for engine in ASYNC_ENGINES[1:]:
         assert_trees_equal(finals["walk"], finals[engine],
                            f"snowball async {engine} vs walk")
-    replay = snowball.run(snowball.to_device(start, cpu), cfg, device="cpu")
-    assert_trees_equal(av.move_leaves(finals["coalesced"], cpu), replay,
-                       "snowball async vs its CPU replay")
+    replay = replays.take("snowball")
+    assert_digests_equal(tree_digests(finals["coalesced"]),
+                         replay["digests"],
+                         "snowball async vs its CPU replay")
     final = finals["coalesced"]
     fin = vr.has_finalized(final.records.confidence, cfg)
     pref = vr.is_accepted(final.records.confidence)
@@ -1718,7 +1917,9 @@ def run_async_models(shape: dict, device="cuda") -> list:
                  "rounds": int(final.round),
                  "finalized_fraction": float(fin.float().mean()),
                  "agreed_one_value": bool((pref == pref[0]).all()),
-                 "cpu_replay_rounds": int(replay.round),
+                 "cpu_replay_rounds": replay["rounds"],
+                 "cpu_replay_s": replay["seconds"],
+                 "cpu_replay_waited_s": replay["waited_s"],
                  "ms_per_round": times,
                  "launches": check_no_launches("snowball async"),
                  "wall_s": time.perf_counter() - t0})
@@ -1726,16 +1927,15 @@ def run_async_models(shape: dict, device="cuda") -> list:
     # 3. backlog.run at config 5's width, coalesced, backlog cut
     t0 = time.perf_counter()
     n5, _, w5 = workload.config5_shape(shape["snowball_quick"])
-    start, cfg = workload.config5_state(
-        shape["snowball_quick"], device=device, n_txs=shape["backlog_txs"],
-        inflight_engine="coalesced", **LATENCY1)
+    cpu_start, cfg = replays.starts["backlog"]
+    start = av.move_leaves(cpu_start, device)
     sync.reads = 0
     final, ms = timed_run(backlog.run, start, cfg, max_rounds=STREAM_MAX_ROUNDS,
                           device=device)
     reads = sync.reads
-    replay = backlog.run(av.move_leaves(start, cpu), cfg, device="cpu")
-    assert_trees_equal(av.move_leaves(final, cpu), replay,
-                       "backlog async vs its CPU replay")
+    replay = replays.take("backlog")
+    assert_digests_equal(tree_digests(final), replay["digests"],
+                         "backlog async vs its CPU replay")
     if not bool(final.outputs.settled.all()):
         raise AssertionError("backlog async: not every tx settled")
     rounds = int(final.sim.round)
@@ -1743,62 +1943,68 @@ def run_async_models(shape: dict, device="cuda") -> list:
                  "backlog_txs": shape["backlog_txs"], "latency": 1,
                  "engine": "coalesced", "rounds": rounds,
                  "ms_per_round": ms / rounds, "host_reads": reads,
-                 "cpu_replay_rounds": int(replay.sim.round),
+                 "cpu_replay_rounds": replay["rounds"],
+                 "cpu_replay_s": replay["seconds"],
+                 "cpu_replay_waited_s": replay["waited_s"],
                  "launches": check_no_launches("backlog async"),
                  "wall_s": time.perf_counter() - t0})
-    del start, final, replay
-    torch.cuda.empty_cache()
+    del start, final
+    _empty_cache(device)
 
     # 4. the node stream under latency 1 (rows cleared from the ring)
     t0 = time.perf_counter()
-    ncfg = AvalancheConfig(stake_mode="zipf", registry_nodes=shape["registry"],
-                           active_nodes=shape["active"],
-                           node_churn_rate=shape["node_churn"],
-                           inflight_engine="coalesced",
-                           max_element_poll=max(4096, shape["node_txs"]),
-                           **LATENCY1)
-    start = node_stream.init(prng.key(0, device), shape["node_txs"], ncfg,
-                             device=device)
+    cpu_start, ncfg = replays.starts["node_stream"]
+    start = av.move_leaves(cpu_start, device)
     n_rounds = shape["node_rounds"]
     (final, tel), ms = timed_run(node_stream.run_scan, start, ncfg,
                                  n_rounds=n_rounds, device=device)
-    replay, rtel = node_stream.run_scan(av.move_leaves(start, cpu),
-                                        ncfg, n_rounds=n_rounds, device="cpu")
-    assert_trees_equal(av.move_leaves((final, tel), cpu), (replay, rtel),
-                       "node stream async vs its CPU replay")
+    replay = replays.take("node_stream")
+    assert_digests_equal(tree_digests((final, tel)), replay["digests"],
+                         "node stream async vs its CPU replay")
     if int(tel.departed.sum()) == 0 or int(tel.round.deliveries.sum()) == 0:
         raise AssertionError("node stream async: no churn or no delivery")
     rows.append({"model": "node_stream", "registry_nodes": shape["registry"],
                  "active_nodes": shape["active"], "txs": shape["node_txs"],
                  "latency": 1, "engine": "coalesced", "rounds": n_rounds,
                  "departed": int(tel.departed.sum()),
-                 "ms_per_round": ms / n_rounds, "cpu_replay_rounds": n_rounds,
+                 "ms_per_round": ms / n_rounds,
+                 "cpu_replay_rounds": replay["rounds"],
+                 "cpu_replay_s": replay["seconds"],
+                 "cpu_replay_waited_s": replay["waited_s"],
                  "launches": check_no_launches("node stream async"),
                  "wall_s": time.perf_counter() - t0})
-    del start, final, replay
-    torch.cuda.empty_cache()
+    del start, final
+    _empty_cache(device)
     return rows
 
 
 def run_async(quick: bool = False, device="cuda") -> dict:
     """Phase 9: the async query ring (module docstring); each part's
-    rows carry its wall seconds (host clock, CPU replays included)."""
+    rows carry its wall seconds (host clock, the wait for a CPU replay
+    included).  The part `models`' CPU replays start first, in a spawned
+    process, and run beside the card's parts."""
     shape = ASYNC_SHAPES["quick" if quick else "full"]
     n, t = shape["flagship"]
+    t0 = time.perf_counter()
+    replays = AsyncReplays(shape, device)
+    out = {"replay_starts": {"wall_s": time.perf_counter() - t0}}
     parts = {"latency0": lambda: run_async_latency0(n, t, device),
              "flagship_async": lambda: run_async_flagship(n, t, False,
                                                           device),
              "flagship_faults": lambda: run_async_flagship(n, t, True,
                                                            device),
              "fault_studies": lambda: run_fault_studies(device),
-             "models": lambda: run_async_models(shape, device)}
-    out = {}
-    for name, part in parts.items():
-        t0 = time.perf_counter()
-        rows = part()
-        wall = time.perf_counter() - t0
-        out[name] = ([{**r, "part_wall_s": wall} for r in rows]
-                     if isinstance(rows, list) else {**rows, "wall_s": wall})
+             "models": lambda: run_async_models(shape, replays, device)}
+    try:
+        for name, part in parts.items():
+            t0 = time.perf_counter()
+            rows = part()
+            wall = time.perf_counter() - t0
+            out[name] = ([{**r, "part_wall_s": wall} for r in rows]
+                         if isinstance(rows, list)
+                         else {**rows, "wall_s": wall})
+    finally:
+        replays.close()
     return out
 
 
@@ -4072,11 +4278,360 @@ def run_audit(quick: bool = False, device="cuda") -> dict:
             "launches": total, "wall_s": time.perf_counter() - t_phase}
 
 
+# ---------------------------------------------------------------- phase 16
+
+# (a): the recorded cells (`examples/recorded.CELLS`), the quorum-dial
+# safety cell on its first seed; the quick rehearsal runs one.
+# The recorded cell that launches no kernel: `skip_absent_votes` ingests
+# through the plain engines on every device, by the reference's design.
+EXAMPLE_NO_KERNEL_CELLS = ("churn_skip",)
+EXAMPLE_QUICK_CELLS = ("oppose",)
+# (b): each twin's `main` at a small shape, the same argv on both devices;
+# "{out}" is a scratch directory of the run's device.  The studies whose
+# grids are module constants (as in their JAX scripts) run with the
+# constants of EXAMPLE_GRIDS set for the call.
+EXAMPLE_CLIS = {
+    "equivocation_threshold": [
+        "--nodes", "16", "--txs", "8", "--rounds", "20",
+        "--json-out", "{out}/eq.json"],
+    "quorum_dial": [
+        "--nodes", "16", "--txs", "8", "--rounds", "20", "--n-seeds", "1",
+        "--json-out", "{out}/qd.json"],
+    "oppose_scaling": [
+        "--rounds", "30", "--seeds", "1", "--json-out", "{out}/op.json"],
+    "churn_tolerance": [
+        "--nodes", "32", "--txs", "8", "--rounds", "20", "--n-seeds", "1",
+        "--json-out", "{out}/churn.json"],
+    "retire_cap_tradeoff": ["--json-out", "{out}/rc.json"],
+    "adversary_atlas": [
+        "--quick", "--nodes", "16", "--fleet", "2", "--rounds", "20",
+        "--finalization-score", "8", "--json-out", "{out}/atlas.json"],
+    "finality_curves": [
+        "--sizes", "16,24,32", "--txs", "8", "--byzantine", "0.0",
+        "--max-rounds", "60", "--json", "--json-out", "{out}/fit.json"],
+    "basic_preconsensus": ["--nodes", "16", "--txs", "8", "--logging"],
+    "family_curves": [
+        "--nodes", "16", "--byzantine", "0.1", "--seeds", "1",
+        "--max-rounds", "60", "--beta", "10", "--json"],
+    "window_scaling": [
+        "--nodes", "16", "--windows", "8", "--fill", "2",
+        "--json-out", "{out}/ws.json"],
+    "capacity_planning": [
+        "--rates", "4", "--nodes", "16", "--slots", "8", "--txs", "32",
+        "--out", "{out}/cp.json"],
+    "fault_scenarios": [
+        "eclipse", "--nodes", "16", "--txs", "8", "--json"],
+    "committee_scaling": [
+        "--sizes", "16", "--fleet", "2", "--rounds", "30", "--txs", "4",
+        "--clusters", "2", "--json"],
+}
+EXAMPLE_GRIDS = {
+    "equivocation_threshold": dict(EPS_GRID=(0.1,), P_GRID=(0.5, 1.0)),
+    "quorum_dial": dict(QUORUM_GRID=(7,), EPS_GRID=(0.1,),
+                        WINDOW_PAIRS=((4, 3),)),
+    "oppose_scaling": dict(N_GRID=(32,)),
+    "churn_tolerance": dict(CHURN_GRID=(0.1,), DROP_GRID=(0.1,)),
+    "retire_cap_tradeoff": dict(NODES=8, BACKLOG_SETS=24, WINDOW_SETS=6,
+                                CAPS=(None, 2)),
+}
+# The one study whose rounds launch no kernel: its scenarios run the
+# async ring, plain PyTorch by the reference's design.
+EXAMPLE_NO_KERNEL = ("fault_scenarios",)
+EXAMPLE_TIMEOUT = 300      # seconds a spawned part of phase 16 may take
+EXAMPLE_UNCOMPARED = ("backend", "card", "elapsed_s", "seconds", "wall_s",
+                      "txs_per_sec", "votes_per_sec")
+
+
+def _uncompared_out(obj):
+    """A twin's result without its times, rates, device and card."""
+    if isinstance(obj, dict):
+        return {k: _uncompared_out(v) for k, v in obj.items()
+                if k not in EXAMPLE_UNCOMPARED}
+    if isinstance(obj, list):
+        return [_uncompared_out(v) for v in obj]
+    return obj
+
+
+def run_example_main(study: str, device, work: str) -> dict:
+    """One twin's `main` on `device` with phase 16 (b)'s argv and grids,
+    its printing kept off the script's output: the result, the launches
+    per kernel and `vote_u8`'s by path, and the seconds."""
+    import contextlib
+    import importlib
+    import io
+    import os
+
+    import torch
+
+    module = importlib.import_module(f"go_avalanche_tpu_torch.examples."
+                                     f"{study}")
+    out = os.path.join(work, torch.device(device).type)
+    os.makedirs(out, exist_ok=True)
+    argv = [a.replace("{out}", out) for a in EXAMPLE_CLIS[study]]
+    grids = EXAMPLE_GRIDS.get(study, {})
+    saved = {name: getattr(module, name) for name in grids}
+    for name, value in grids.items():
+        setattr(module, name, value)
+    reset_launches()
+    t0 = time.perf_counter()
+    try:
+        with contextlib.redirect_stdout(io.StringIO()):
+            result = module.main(argv
+                                 + ["--device", torch.device(device).type])
+        _synchronize(device)
+    finally:
+        for name, value in saved.items():
+            setattr(module, name, value)
+    return {"study": study, "result": result,
+            "seconds": time.perf_counter() - t0,
+            "launches": read_launches(),
+            "vote_u8_by_path": read_path_launches()["vote_u8"]}
+
+
+def example_cell(name: str, device) -> dict:
+    """Phase 16 (a), in a process of its own: one recorded cell with the
+    launches it made."""
+    from go_avalanche_tpu_torch.examples import recorded
+
+    reset_launches()
+    row = recorded.replay(name, device, n_seeds=1)
+    return {**row, "launches": read_launches(),
+            "vote_u8_by_path": read_path_launches()["vote_u8"]}
+
+
+def example_mains(device, work: str) -> list:
+    """Phase 16 (b) on one device: every twin's `main`, one after
+    another."""
+    return [run_example_main(study, device, work) for study in EXAMPLE_CLIS]
+
+
+def run_examples(quick: bool = False, device="cuda") -> dict:
+    """Phase 16: (a) the recorded cells on `device` at their recorded
+    shapes against `examples/out/`, (b) every twin's `main` on `device`
+    against the same argv on the CPU.  On the card, each recorded cell
+    runs in a spawned process of its own and the CPU side of (b) in one
+    more, all started first, while this process runs (b) on the card:
+    the cells are host-bound (a DAG round under EQUIVOCATE launches
+    thousands of small operators), so one after another they would
+    take ~2 minutes.
+    Returns each part's rows, the phase's launches on `device` per
+    kernel and `vote_u8`'s by path."""
+    import concurrent.futures
+    import multiprocessing
+    import tempfile
+
+    import torch
+
+    from go_avalanche_tpu_torch.examples import recorded
+
+    on_card = torch.device(device).type == "cuda"
+    t_phase = time.perf_counter()
+    names = EXAMPLE_QUICK_CELLS if quick else recorded.CELLS
+    work = tempfile.mkdtemp(prefix="chip_smoke_examples_")
+    if on_card:
+        pool = concurrent.futures.ProcessPoolExecutor(
+            len(names) + 1, mp_context=multiprocessing.get_context("spawn"))
+        try:
+            cell_futures = [pool.submit(example_cell, n, device)
+                            for n in names]
+            cpu_future = pool.submit(example_mains, "cpu", work)
+            card_runs = example_mains(device, work)
+            cells = [f.result(timeout=EXAMPLE_TIMEOUT)
+                     for f in cell_futures]
+            cpu_runs = cpu_future.result(timeout=EXAMPLE_TIMEOUT)
+        finally:
+            pool.shutdown(cancel_futures=True)
+    else:
+        cells = [example_cell(n, device) for n in names]
+        card_runs = example_mains(device, work)
+        cpu_runs = example_mains("cpu", work)
+
+    total = dict.fromkeys(KERNEL_ROWS, 0)
+    paths = {"fast": 0, "any": 0}
+
+    def add(row: dict) -> None:
+        for k, v in row["launches"].items():
+            total[k] += v
+        for k, v in row["vote_u8_by_path"].items():
+            paths[k] += v
+
+    for row in cells:
+        if row["got"] != row["want"]:
+            raise AssertionError(f"(a) {row['cell']}: {row['got']} != the "
+                                 f"recorded {row['want']}")
+        if on_card:
+            if row["cell"] in EXAMPLE_NO_KERNEL_CELLS:
+                if any(row["launches"].values()):
+                    raise AssertionError(f"(a) {row['cell']} launched "
+                                         f"{row['launches']}; its ingest "
+                                         f"has no kernel")
+            elif row["launches"]["vote_u8"] == 0:
+                raise AssertionError(f"(a) {row['cell']} never launched "
+                                     f"vote_u8")
+        add(row)
+    clis = []
+    for got, want in zip(card_runs, cpu_runs):
+        study = got["study"]
+        if _uncompared_out(got["result"]) != _uncompared_out(want["result"]):
+            raise AssertionError(f"(b) {study}: {device} result != the "
+                                 f"CPU's:\n{got['result']}\n"
+                                 f"{want['result']}")
+        if any(want["launches"].values()):
+            raise AssertionError(f"(b) {study} launched {want['launches']} "
+                                 f"on the CPU")
+        if on_card:
+            if study in EXAMPLE_NO_KERNEL:
+                if any(got["launches"].values()):
+                    raise AssertionError(f"(b) {study} launched "
+                                         f"{got['launches']}; its async "
+                                         f"rounds have no kernel")
+            elif got["launches"]["vote_u8"] == 0:
+                raise AssertionError(f"(b) {study} never launched vote_u8")
+        add(got)
+        clis.append({"study": study, "seconds": got["seconds"],
+                     "cpu_seconds": want["seconds"],
+                     "launches": got["launches"],
+                     "vote_u8_by_path": got["vote_u8_by_path"]})
+    return {"cells": cells, "clis": clis, "launches": total,
+            "launches_by_ingest_path": paths,
+            "wall_s": time.perf_counter() - t_phase}
+
+
 def _empty_cache(device) -> None:
     import torch
 
     if torch.device(device).type == "cuda":
         torch.cuda.empty_cache()
+
+
+# ------------------------------------------------------ phases 7-14: lanes
+
+# Phases 7-14 are bound by the host: their rounds launch hundreds of
+# small operators each, and the card waits between them (PERF.md §5).
+# One after another they took 773 s of the script's 910.0 (NVIDIA H100
+# 80GB HBM3, 700.00 W; PERF.md §6), and a slower host pushed the whole
+# script past its 1200 s limit.  So they run in three lanes at once,
+# each lane its phases one after another: the first lane in this
+# process, the others each in a spawned process.  Every phase keeps its
+# shapes and gates; each lane counts its own launches and memory.
+# Phase 8 is split in two (config 5's 2 x 4165 rounds, then the rest).
+# The lanes are chosen so that their memory peaks fit the card together
+# (~28 GiB phases 9 and 10, one after the other in one lane; ~12-14 GiB
+# config 6 and the mesh; under 1 GiB config 5) and that the two phases
+# with processes of their own (9's CPU replays, 13's ranks) are in
+# different lanes.  Phases 15 (~26 GiB) and 16 follow, alone.
+LANE_PHASES = {           # name -> (function, keyword arguments)
+    "baselines": (run_baselines, {}),
+    "streaming_config5": (run_streaming, {"parts": ("config5",)}),
+    "streaming": (run_streaming, {"parts": STREAM_PARTS[1:]}),
+    "async": (run_async, {}),
+    "adversary": (run_adversary, {}),
+    "obs": (run_obs, {}),
+    "host": (run_host, {}),
+    "mesh": (run_mesh, {}),
+    "resources": (run_resources, {}),
+}
+LANES = (("streaming_config5", "obs", "host"),          # this process
+         ("async", "adversary"),
+         ("baselines", "streaming", "resources", "mesh"))
+LANE_TIMEOUT = 900        # seconds a lane may take
+LANE_THREADS = 2          # torch threads in a spawned lane
+
+
+def run_lane(names, quick: bool = False, device="cuda") -> dict:
+    """The phases `names` of `LANE_PHASES`, one after another: each
+    phase's result and seconds."""
+    out = {}
+    for name in names:
+        fn, kwargs = LANE_PHASES[name]
+        t0 = time.perf_counter()
+        result = fn(quick=quick, device=device, **kwargs)
+        _empty_cache(device)
+        out[name] = (result, time.perf_counter() - t0)
+    return out
+
+
+def _lane_main(names, quick: bool, device, conn) -> None:
+    """A spawned lane: loads the kernels phase 2 built (so that no phase
+    counts a first load), runs its phases and sends ``(True, results)``
+    or ``(False, traceback)``.  SIGTERM exits through the phases'
+    `finally` blocks, which stop their own processes."""
+    import signal
+    import traceback
+
+    import torch
+
+    from go_avalanche_tpu_torch import _build
+
+    signal.signal(signal.SIGTERM, lambda *_: sys.exit(143))
+    try:
+        torch.set_num_threads(LANE_THREADS)
+        if torch.device(device).type == "cuda":
+            for name in SOURCES:
+                _build.load(name)
+        sent = (True, run_lane(names, quick, device))
+    except BaseException:
+        sent = (False, traceback.format_exc())
+    conn.send(sent)
+    conn.close()
+
+
+class Lane:
+    """`names` run by `_lane_main` in a spawned process; `result()`
+    waits for them, `stop()` ends the process if it still runs."""
+
+    def __init__(self, names, quick: bool = False, device="cuda"):
+        import multiprocessing
+
+        ctx = multiprocessing.get_context("spawn")
+        self.names = names
+        self.deadline = time.monotonic() + LANE_TIMEOUT
+        self.conn, child = ctx.Pipe(duplex=False)
+        self.proc = ctx.Process(target=_lane_main,
+                                args=(names, quick, device, child))
+        self.proc.start()
+        child.close()
+
+    def result(self) -> dict:
+        wait = max(0.0, self.deadline - time.monotonic())
+        if not self.conn.poll(wait):
+            raise TimeoutError(f"lane {self.names} did not end within "
+                               f"{LANE_TIMEOUT} s")
+        try:
+            ok, out = self.conn.recv()
+        except EOFError:
+            self.proc.join(30)
+            raise RuntimeError(f"lane {self.names} exited with code "
+                               f"{self.proc.exitcode} and no result"
+                               ) from None
+        self.proc.join(30)
+        if not ok:
+            raise RuntimeError(f"lane {self.names} failed:\n{out}")
+        return out
+
+    def stop(self) -> None:
+        if self.proc.is_alive():
+            self.proc.terminate()
+            self.proc.join(60)
+        if self.proc.is_alive():
+            self.proc.kill()
+            self.proc.join()
+
+
+def run_lanes(lanes=LANES, quick: bool = False, device="cuda") -> dict:
+    """Every lane at once, the first in this process: each phase's
+    result and seconds, and the lanes' wall seconds under "lanes"."""
+    t0 = time.perf_counter()
+    spawned = [Lane(names, quick, device) for names in lanes[1:]]
+    try:
+        out = run_lane(lanes[0], quick, device)
+        for lane in spawned:
+            out.update(lane.result())
+    finally:
+        for lane in spawned:
+            lane.stop()
+    out["lanes"] = (None, time.perf_counter() - t0)
+    return out
 
 
 KERNEL_ROWS = {          # name -> (source, the TPU kernel it replaces)
@@ -4104,6 +4659,15 @@ def main() -> int:
         return 2
 
     # 1. device
+    t_script = time.perf_counter()
+    seconds = {}
+    clock = [t_script]
+
+    def lap(name: str) -> None:
+        now = time.perf_counter()
+        seconds[name] = now - clock[0]
+        clock[0] = now
+
     card = card_label()
     print(card, flush=True)
     label = {"card": card, "torch": torch.__version__,
@@ -4122,6 +4686,7 @@ def main() -> int:
               "ptxas": [ln.strip() for ln in b.log.splitlines()
                         if "registers" in ln or "spill" in ln]})
     emit({"phase": "build", "wall_seconds": time.perf_counter() - t0})
+    lap("device_build")
 
     if "--config6-full-depth" in sys.argv[1:]:
         emit({"phase": "config6_full_depth", **run_config6_full_depth(),
@@ -4135,18 +4700,21 @@ def main() -> int:
     # the DAG path's shape (the flagship's is checked in phase 6)
     worst = {"megakernel": check_kernel_cases(),
              **check_ingest_cases(INGEST_SHAPES + ((DAG_NODES, DAG_TXS),))}
+    lap("kernels")
 
     # 4. main path at full width
     main_path = run_main_path(FLAGSHIP_NODES, FLAGSHIP_TXS, TIMED_ROUNDS)
     emit({"phase": "main", "nodes": FLAGSHIP_NODES, "txs": FLAGSHIP_TXS,
           "k": 8, **main_path, **label})
     torch.cuda.empty_cache()
+    lap("main")
 
     # 5. the DAG baseline to settlement
     dag_run = run_dag(DAG_NODES, DAG_TXS)
     emit({"phase": "dag", "nodes": DAG_NODES, "txs": DAG_TXS, **dag_run,
           **label})
     torch.cuda.empty_cache()
+    lap("dag")
 
     # 6. each kernel alone at the main path's shape
     timing = {"megakernel": time_megakernel(FLAGSHIP_NODES, FLAGSHIP_TXS)}
@@ -4155,40 +4723,54 @@ def main() -> int:
     for name, row in timing.items():
         emit({"phase": "timing", "kernel": name, "nodes": FLAGSHIP_NODES,
               "txs": FLAGSHIP_TXS, **row, **label})
+    lap("timing")
 
-    # 7. BASELINE configs 0, 1, 3 and 4
-    baselines = run_baselines()
-    for name, row in baselines["configs"].items():
-        emit({"phase": "baselines", "config": name, **row, **label})
-    emit({"phase": "baselines", "launches": baselines["launches"],
-          "launches_by_ingest_path": baselines["launches_by_ingest_path"],
-          **label})
-    torch.cuda.empty_cache()
     # the ingest kernels' general path alone at Snowball's [1000, 1]
+    # (phase 7's timing), before the lanes load the card
     for name in ("vote_u8", "vote_swar"):
         row = time_ingest(name, 1000, 1)
         worst[name] = max(worst[name], row["max_abs_err"])
         emit({"phase": "timing", "kernel": name, "nodes": 1000, "txs": 1,
               **row, **label})
     torch.cuda.empty_cache()
+    lap("timing_1000x1")
+
+    # 7-14 in three lanes at once (LANES); each phase's seconds are its
+    # own lane's
+    laned = run_lanes()
+    for name, (_, sec) in laned.items():
+        seconds[name] = sec
+    clock[0] = time.perf_counter()
+
+    # 7. BASELINE configs 0, 1, 3 and 4
+    baselines = laned["baselines"][0]
+    for name, row in baselines["configs"].items():
+        emit({"phase": "baselines", "config": name, **row, **label})
+    emit({"phase": "baselines", "launches": baselines["launches"],
+          "launches_by_ingest_path": baselines["launches_by_ingest_path"],
+          **label})
 
     # 8. the streaming schedulers, traffic and the node registry
-    streaming = run_streaming()
-    for row in streaming["parts"]:
-        emit({"phase": "streaming", **row, **label})
-    emit({"phase": "streaming", "launches": streaming["launches"],
-          "launches_by_ingest_path": streaming["launches_by_ingest_path"],
-          **label})
-    torch.cuda.empty_cache()
+    streaming = [laned[k][0] for k in ("streaming_config5", "streaming")]
+    for part in streaming:
+        for row in part["parts"]:
+            emit({"phase": "streaming", **row, **label})
+    emit({"phase": "streaming",
+          "launches": {k: sum(p["launches"][k] for p in streaming)
+                       for k in KERNEL_ROWS},
+          "launches_by_ingest_path": {
+              k: {path: sum(p["launches_by_ingest_path"][k][path]
+                            for p in streaming)
+                  for path in ("fast", "any")}
+              for k in ("vote_u8", "vote_swar")}, **label})
 
     # 9. the async query ring
-    for part, row in run_async().items():
+    for part, row in laned["async"][0].items():
         for r in (row if isinstance(row, list) else [row]):
             emit({"phase": "async", "part": part, **r, **label})
 
     # 10. the adaptive adversary and the Monte-Carlo fleet
-    t0 = time.perf_counter()
-    adversary = run_adversary()
+    adversary = laned["adversary"][0]
     for part in ("sync", "async", "records", "fleet"):
         rows = adversary[part]["rows"]
         for r in (rows if isinstance(rows, list) else [rows]):
@@ -4196,36 +4778,31 @@ def main() -> int:
                   "part_wall_s": adversary[part]["wall_s"], **label})
     emit({"phase": "adversary", "launches": adversary["launches"],
           "launches_by_ingest_path": adversary["launches_by_ingest_path"],
-          "wall_s": time.perf_counter() - t0, **label})
-    torch.cuda.empty_cache()
+          "wall_s": laned["adversary"][1], **label})
 
     # 11. the flight recorder; its launches stay out of the kernels line
-    t0 = time.perf_counter()
-    observed = run_obs()
+    observed = laned["obs"][0]
     for part in ("flagship", "dag", "recovery", "fleet", "schedulers"):
         rows = observed[part]["rows"]
         for r in (rows if isinstance(rows, list) else [rows]):
             emit({"phase": "obs", "part": part, **r,
                   "part_wall_s": observed[part]["wall_s"], **label})
     emit({"phase": "obs", "launches": observed["launches"],
-          "wall_s": time.perf_counter() - t0, **label})
-    torch.cuda.empty_cache()
+          "wall_s": laned["obs"][1], **label})
 
     # 12. the host surfaces: the CLI, a killed and resumed chunked run,
     # the Connector
-    t0 = time.perf_counter()
-    host = run_host()
+    host = laned["host"][0]
     for part in ("cli", "resume", "connector"):
         for r in host[part]["rows"]:
             emit({"phase": "host", "part": part, **r,
                   "part_wall_s": host[part]["wall_s"], **label})
     emit({"phase": "host", "launches": host["launches"],
-          "wall_s": time.perf_counter() - t0, **label})
-    torch.cuda.empty_cache()
+          "wall_s": laned["host"][1], **label})
 
     # 13. the sharded drivers on one card: NCCL world 1, gloo ranks
     # sharing it, the JAX package's records, the fleet, the smoke
-    mesh = run_mesh()
+    mesh = laned["mesh"][0]
     for part in ("flagship", "contract", "records", "fleet", "smoke",
                  "streaming"):
         rows = mesh[part]
@@ -4237,7 +4814,7 @@ def main() -> int:
 
     # 14. the resource and tracing plane: footprints against the
     # allocator, determinism replays, phase timers, --report-memory
-    resources = run_resources()
+    resources = laned["resources"][0]
     for row in resources["engines"]:
         emit({"phase": "resources", "part": "engine", **row, **label})
     emit({"phase": "resources", "part": "spans", **resources["spans"],
@@ -4267,6 +4844,22 @@ def main() -> int:
     emit({"phase": "audit", "launches": audited["launches"],
           "records_s": audited["records_s"],
           "wall_s": audited["wall_s"], **label})
+    torch.cuda.empty_cache()
+    lap("audit")
+
+    # 16. the protocol studies on their twins: the recorded cells, each
+    # twin's main on the card against the CPU
+    examples = run_examples()
+    for row in examples["cells"]:
+        emit({"phase": "examples", "part": "recorded", **row, **label})
+    for row in examples["clis"]:
+        emit({"phase": "examples", "part": "cli", **row, **label})
+    emit({"phase": "examples", "launches": examples["launches"],
+          "launches_by_ingest_path": examples["launches_by_ingest_path"],
+          "wall_s": examples["wall_s"], **label})
+    lap("examples")
+    emit({"phase": "seconds", "phases": seconds,
+          "total_s": time.perf_counter() - t_script, **label})
 
     emit({"kernels": [{
         "name": name,
@@ -4278,7 +4871,8 @@ def main() -> int:
                      + host["launches"][name]
                      + mesh["launches"][name]
                      + resources["launches"][name]
-                     + audited["launches"][name]),
+                     + audited["launches"][name]
+                     + examples["launches"][name]),
         "max_abs_err": max(worst[name], timing[name]["max_abs_err"]),
         "ms": timing[name]["ms"],
         "plain_ms": timing[name]["plain_ms"],

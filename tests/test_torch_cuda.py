@@ -18,6 +18,7 @@ import torch
 
 from go_avalanche_tpu_torch.config import (AdversaryStrategy, AvalancheConfig,
                                            VoteMode)
+from go_avalanche_tpu_torch.examples import recorded
 from go_avalanche_tpu_torch.models import avalanche as av
 from go_avalanche_tpu_torch.models import dag
 from go_avalanche_tpu_torch import prng
@@ -840,3 +841,19 @@ def test_flagship_audit_on_the_card_is_clean(cuda):
         assert failures == []
         assert rec.kernels == program.kernels
         assert rec.debug_syncs == []
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", recorded.CELLS)
+def test_recorded_study_cell_on_the_card(name, cuda):
+    """`chip_smoke.py` phase 16 (a): a recorded cell of `examples/out/`
+    reproduced on the card at its recorded shape, through `vote_u8` (the
+    quorum-dial safety cell on its first seed); the skip semantics
+    ingests through the plain engines, by the reference's design."""
+    before = pv.launches["vote_u8"]
+    row = recorded.replay(name, device="cuda", n_seeds=1)
+    assert row["got"] == row["want"], row
+    if name == "churn_skip":
+        assert pv.launches["vote_u8"] == before
+    else:
+        assert pv.launches["vote_u8"] > before

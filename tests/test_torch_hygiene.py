@@ -61,7 +61,14 @@ MODULES = ["go_avalanche_tpu_torch", "go_avalanche_tpu_torch.config",
            "go_avalanche_tpu_torch.analysis.retrace",
            "go_avalanche_tpu_torch.analysis.lint",
            "go_avalanche_tpu_torch.analysis.cli",
-           "go_avalanche_tpu_torch.connector.go_fixtures"]
+           "go_avalanche_tpu_torch.connector.go_fixtures",
+           "go_avalanche_tpu_torch.examples.recorded"]
+STUDIES = ("adversary_atlas", "basic_preconsensus", "capacity_planning",
+           "churn_tolerance", "committee_scaling", "equivocation_threshold",
+           "family_curves", "fault_scenarios", "finality_curves",
+           "oppose_scaling", "quorum_dial", "retire_cap_tradeoff",
+           "window_scaling")
+MODULES += [f"go_avalanche_tpu_torch.examples.{s}" for s in STUDIES]
 
 
 def _forbidden(module: str) -> bool:
@@ -229,3 +236,48 @@ def test_single_decree_entry_points_default_to_cuda():
         family.slush_run(family.slush_init(key, 8, device="cpu"))
     with pytest.raises(RuntimeError, match="cuda"):
         family.snowflake_run(family.snowflake_init(key, 8, device="cpu"))
+
+
+def test_every_study_has_a_twin():
+    scripts = {p.stem for p in (REPO / "examples").glob("*.py")}
+    twins = {p.stem for p in (PORT / "examples").glob("*.py")
+             if not p.stem.startswith("_")} - {"recorded"}
+    assert scripts == twins == set(STUDIES)
+
+
+class _Parsed(Exception):
+    pass
+
+
+@pytest.mark.parametrize("study", STUDIES)
+def test_study_twins_default_to_cuda(study, monkeypatch):
+    """Each twin's `main` defaults to the card, raises without one, and
+    writes its artifact nowhere under the JAX package's `examples/`."""
+    import argparse
+    import importlib
+
+    module = importlib.import_module(f"go_avalanche_tpu_torch.examples."
+                                     f"{study}")
+    parse = argparse.ArgumentParser.parse_args
+    seen = {}
+
+    def capture(self, args=None, namespace=None):
+        seen["args"] = parse(self, args, namespace)
+        raise _Parsed
+
+    monkeypatch.setattr(argparse.ArgumentParser, "parse_args", capture)
+    with pytest.raises(_Parsed):
+        module.main([])
+    args = seen["args"]
+    assert args.device == "cuda"
+    for flag in ("json_out", "out"):
+        path = getattr(args, flag, None)
+        if path is not None:
+            resolved = Path(path).resolve()
+            assert REPO / "examples" not in resolved.parents, (flag, path)
+            assert PORT / "examples" / "out" in resolved.parents
+    monkeypatch.setattr(argparse.ArgumentParser, "parse_args", parse)
+    if torch.cuda.is_available():
+        pytest.skip("this machine has a GPU: the default device works")
+    with pytest.raises(RuntimeError, match="cuda"):
+        module.main([])
