@@ -45,7 +45,7 @@ from typing import NamedTuple, Optional, Tuple
 
 import torch
 
-from go_avalanche_tpu_torch import prng, stake
+from go_avalanche_tpu_torch import prng, stake, sync
 from go_avalanche_tpu_torch.config import (AvalancheConfig, DEFAULT_CONFIG,
                                            VoteMode)
 from go_avalanche_tpu_torch.obs import sink as obs_sink
@@ -428,10 +428,11 @@ def all_settled(state: AvalancheSimState,
 def run(state: AvalancheSimState, cfg: AvalancheConfig = DEFAULT_CONFIG,
         max_rounds: int = 2000, device="cuda") -> AvalancheSimState:
     """Run on `device` until the network settles or `max_rounds`; reads
-    one scalar back per round to decide whether to go on."""
+    the round and the settled flag back before each round to decide
+    whether to go on (`sync.read`)."""
     state = to_device(state, device)
-    while int(state.round) < max_rounds and not bool(all_settled(state,
-                                                                 cfg)):
+    while (sync.read(state.round) < max_rounds
+           and not sync.read(all_settled(state, cfg))):
         state = round_step(state, cfg)[0]
     return state
 

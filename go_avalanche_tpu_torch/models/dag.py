@@ -31,7 +31,7 @@ from typing import NamedTuple, Optional, Tuple
 
 import torch
 
-from go_avalanche_tpu_torch import prng
+from go_avalanche_tpu_torch import prng, sync
 from go_avalanche_tpu_torch.config import AvalancheConfig, DEFAULT_CONFIG
 from go_avalanche_tpu_torch.models import avalanche as av
 from go_avalanche_tpu_torch.obs import sink as obs_sink
@@ -102,53 +102,54 @@ def init(
     `conflict_set`; `set_size` (with `n_sets`) claims the
     ``arange(T) // set_size`` layout, and both are checked.
     """
-    dev = av._device(device)
-    conflict_set = torch.as_tensor(conflict_set).to(dev, torch.int32)
-    n_txs = conflict_set.shape[0]
-    layout = torch.arange(n_txs, device=dev)
-    if n_sets is None:
-        if set_size is not None:
-            raise ValueError(
-                "set_size override requires n_sets (pass both, or "
-                "neither for host-side detection)")
-        n_sets = int(conflict_set.max()) + 1
-        # Fast-path detection: the fixed-capacity contiguous partition.
-        if n_txs % n_sets == 0:
-            c = n_txs // n_sets
-            if bool((conflict_set == layout // c).all()):
-                set_size = c
-    elif set_size is not None:
-        if n_txs % set_size or n_sets != n_txs // set_size:
-            raise ValueError(
-                f"set_size={set_size} with n_sets={n_sets} does not "
-                f"tile {n_txs} txs")
-        if not bool((conflict_set == layout // set_size).all()):
-            raise ValueError(
-                f"set_size={set_size} claims the contiguous "
-                f"arange(T) // set_size layout, but conflict_set is "
-                f"partitioned differently — pass n_sets alone for an "
-                f"arbitrary partition")
-    else:
-        max_set = int(conflict_set.max())
-        if max_set >= n_sets:
-            raise ValueError(
-                f"n_sets={n_sets} undercounts conflict_set (max set "
-                f"id {max_set}) — txs in sets >= {n_sets} would be "
-                f"silently dropped by every segment reduction")
-    if init_pref is None:
-        # The first member of each set, by a deterministic min (a
-        # scatter of duplicate indices has no order on CUDA); an empty
-        # set keeps 0, as in the reference.
-        first_of_set = torch.zeros(n_sets, dtype=torch.int64, device=dev)
-        first_of_set = first_of_set.scatter_reduce(
-            0, conflict_set.long(), layout, "amin", include_self=False)
-        init_pref = torch.zeros(n_txs, dtype=torch.bool, device=dev)
-        init_pref[first_of_set] = True
-    base = av.init(key, n_nodes, n_txs, cfg, init_pref=init_pref,
-                   scores=scores, track_finality=track_finality,
-                   device=dev)
-    return DagSimState(base=base, conflict_set=conflict_set, n_sets=n_sets,
-                       set_size=set_size)
+    with annotate("init"):
+        dev = av._device(device)
+        conflict_set = torch.as_tensor(conflict_set).to(dev, torch.int32)
+        n_txs = conflict_set.shape[0]
+        layout = torch.arange(n_txs, device=dev)
+        if n_sets is None:
+            if set_size is not None:
+                raise ValueError(
+                    "set_size override requires n_sets (pass both, or "
+                    "neither for host-side detection)")
+            n_sets = sync.read(conflict_set.max()) + 1
+            # Fast-path detection: the fixed-capacity contiguous partition.
+            if n_txs % n_sets == 0:
+                c = n_txs // n_sets
+                if sync.read((conflict_set == layout // c).all()):
+                    set_size = c
+        elif set_size is not None:
+            if n_txs % set_size or n_sets != n_txs // set_size:
+                raise ValueError(
+                    f"set_size={set_size} with n_sets={n_sets} does not "
+                    f"tile {n_txs} txs")
+            if not sync.read((conflict_set == layout // set_size).all()):
+                raise ValueError(
+                    f"set_size={set_size} claims the contiguous "
+                    f"arange(T) // set_size layout, but conflict_set is "
+                    f"partitioned differently — pass n_sets alone for an "
+                    f"arbitrary partition")
+        else:
+            max_set = sync.read(conflict_set.max())
+            if max_set >= n_sets:
+                raise ValueError(
+                    f"n_sets={n_sets} undercounts conflict_set (max set "
+                    f"id {max_set}) — txs in sets >= {n_sets} would be "
+                    f"silently dropped by every segment reduction")
+        if init_pref is None:
+            # The first member of each set, by a deterministic min (a
+            # scatter of duplicate indices has no order on CUDA); an empty
+            # set keeps 0, as in the reference.
+            first_of_set = torch.zeros(n_sets, dtype=torch.int64, device=dev)
+            first_of_set = first_of_set.scatter_reduce(
+                0, conflict_set.long(), layout, "amin", include_self=False)
+            init_pref = torch.zeros(n_txs, dtype=torch.bool, device=dev)
+            init_pref[first_of_set] = True
+        base = av.init(key, n_nodes, n_txs, cfg, init_pref=init_pref,
+                       scores=scores, track_finality=track_finality,
+                       device=dev)
+        return DagSimState(base=base, conflict_set=conflict_set,
+                           n_sets=n_sets, set_size=set_size)
 
 
 def preferred_in_set(confidence: torch.Tensor, conflict_set: torch.Tensor,
@@ -196,6 +197,12 @@ def round_step(
     """One conflicted-network round: responses vote conflict-set
     preference, and a set that finalized on a node freezes its rivals
     there."""
+    with annotate("round"):
+        return _round(state, cfg)
+
+
+def _round(state: DagSimState, cfg: AvalancheConfig
+           ) -> Tuple[DagSimState, av.SimTelemetry]:
     if cfg.round_engine != "phased":
         raise ValueError(
             "round_engine 'megakernel' is wired for the dense avalanche "
@@ -204,11 +211,13 @@ def round_step(
             "knob would be inert here")
     base = state.base
     n, t = base.records.votes.shape
-    k_sample, k_byz, k_drop, k_churn, k_next = prng.split(base.key, 5)
+    with annotate("key_split"):
+        k_sample, k_byz, k_drop, k_churn, k_next = prng.split(base.key, 5)
     confidence = base.records.confidence
 
-    fin = vr.has_finalized(confidence, cfg)
-    fin_acc = fin & vr.is_accepted(confidence)
+    with annotate("finality"):
+        fin = vr.has_finalized(confidence, cfg)
+        fin_acc = fin & vr.is_accepted(confidence)
 
     with annotate("poll_mask"):
         # A set is settled for a node once any member finalized accepted.
@@ -227,13 +236,14 @@ def round_step(
     with annotate("sample_peers"):
         peers, self_draw = draw_peers(k_sample, cfg, base.latency_weight,
                                       base.alive, n)
-    lie = adversary.lie_mask(k_byz, peers, base.byzantine, cfg)
-    responded = base.alive[peers.long()]
-    if self_draw is not None:
-        responded &= ~self_draw
-    if cfg.drop_probability > 0.0:
-        responded &= ~prng.bernoulli(k_drop, cfg.drop_probability,
-                                     tuple(peers.shape))
+    with annotate("responses"):
+        lie = adversary.lie_mask(k_byz, peers, base.byzantine, cfg)
+        responded = base.alive[peers.long()]
+        if self_draw is not None:
+            responded &= ~self_draw
+        if cfg.drop_probability > 0.0:
+            responded &= ~prng.bernoulli(k_drop, cfg.drop_probability,
+                                         tuple(peers.shape))
 
     # Responses: yes iff the tx is the peer's preferred member of its set.
     with annotate("gather_prefs"):
@@ -277,38 +287,42 @@ def round_step(
             votes_applied = (popcount8(consider_pack).to(torch.int32)
                              * polled).sum()
 
-    fin_after = vr.has_finalized(records.confidence, cfg)
-    newly_final = fin_after & ~fin
-    finalized_at = av.stamp_finality(base.finalized_at, newly_final,
-                                     base.round)
+    with annotate("finality"):
+        fin_after = vr.has_finalized(records.confidence, cfg)
+        newly_final = fin_after & ~fin
+        finalized_at = av.stamp_finality(base.finalized_at, newly_final,
+                                         base.round)
 
-    alive = base.alive
-    if cfg.churn_probability > 0.0:
-        alive = alive ^ prng.bernoulli(k_churn, cfg.churn_probability, (n,))
-    alive = inflight.apply_churn_bursts(alive, cfg, base.round, k_churn)
+    with annotate("telemetry"):
+        alive = base.alive
+        if cfg.churn_probability > 0.0:
+            alive = alive ^ prng.bernoulli(k_churn, cfg.churn_probability,
+                                           (n,))
+        alive = inflight.apply_churn_bursts(alive, cfg, base.round, k_churn)
 
-    zero = torch.zeros((), dtype=torch.int32, device=peers.device)
-    rt = inflight.ring_telemetry(ring, cfg, base.round)
-    cut = (inflight.partition_cut(cfg, base.round, 0, peers, n,
-                                  base.fault_params)
-           if async_round else None)
-    telemetry = av.SimTelemetry(
-        polls=av._count(polled),
-        votes_applied=votes_applied.to(torch.int32),
-        flips=av._count(changed & ~newly_final),
-        finalizations=av._count(newly_final),
-        admissions=zero,
-        deliveries=rt.deliveries,
-        expiries=rt.expiries,
-        ring_occupancy=rt.occupancy,
-        partition_blocked=zero if cut is None else av._count(cut),
-        gossip_writes=zero,
-    )
-    obs_sink.emit_round(cfg, base.round, telemetry)
-    new_base = base._replace(
-        records=records, alive=alive, finalized_at=finalized_at,
-        round=base.round + 1, key=k_next, inflight=ring,
-        trace=obs_trace.write_round(base.trace, cfg, base.round, telemetry))
+        zero = torch.zeros((), dtype=torch.int32, device=peers.device)
+        rt = inflight.ring_telemetry(ring, cfg, base.round)
+        cut = (inflight.partition_cut(cfg, base.round, 0, peers, n,
+                                      base.fault_params)
+               if async_round else None)
+        telemetry = av.SimTelemetry(
+            polls=av._count(polled),
+            votes_applied=votes_applied.to(torch.int32),
+            flips=av._count(changed & ~newly_final),
+            finalizations=av._count(newly_final),
+            admissions=zero,
+            deliveries=rt.deliveries,
+            expiries=rt.expiries,
+            ring_occupancy=rt.occupancy,
+            partition_blocked=zero if cut is None else av._count(cut),
+            gossip_writes=zero,
+        )
+        obs_sink.emit_round(cfg, base.round, telemetry)
+        new_base = base._replace(
+            records=records, alive=alive, finalized_at=finalized_at,
+            round=base.round + 1, key=k_next, inflight=ring,
+            trace=obs_trace.write_round(base.trace, cfg, base.round,
+                                        telemetry))
     return state._replace(base=new_base), telemetry
 
 
@@ -323,26 +337,30 @@ def settled(state: DagSimState,
             cfg: AvalancheConfig = DEFAULT_CONFIG) -> torch.Tensor:
     """True when a member finalized accepted for every set on every live
     node."""
-    confidence = state.base.records.confidence
-    fin_acc = vr.has_finalized(confidence, cfg) & vr.is_accepted(confidence)
-    alive = state.base.alive[:, None]
-    if state.set_size is not None:
-        n, t = fin_acc.shape
-        done = fin_acc.reshape(n, t // state.set_size,
-                               state.set_size).any(dim=2)        # [N, S]
-    else:
-        done = _segment(fin_acc.to(torch.uint8), state.conflict_set,
-                        state.n_sets, "amax") > 0                # [N, S]
-    return (done | ~alive).all()
+    with annotate("settled"):
+        confidence = state.base.records.confidence
+        with annotate("finality"):
+            fin_acc = (vr.has_finalized(confidence, cfg)
+                       & vr.is_accepted(confidence))
+        alive = state.base.alive[:, None]
+        if state.set_size is not None:
+            n, t = fin_acc.shape
+            done = fin_acc.reshape(n, t // state.set_size,
+                                   state.set_size).any(dim=2)        # [N, S]
+        else:
+            done = _segment(fin_acc.to(torch.uint8), state.conflict_set,
+                            state.n_sets, "amax") > 0                # [N, S]
+        return (done | ~alive).all()
 
 
 def run(state: DagSimState, cfg: AvalancheConfig = DEFAULT_CONFIG,
         max_rounds: int = 2000, device="cuda") -> DagSimState:
     """Run on `device` until every conflict set resolved on every live
-    node, or `max_rounds`; reads one scalar back per round."""
+    node, or `max_rounds`; reads the round and `settled` back before
+    each round, counted in `sync.reads`."""
     state = to_device(state, device)
-    while (int(state.base.round) < max_rounds
-           and not bool(settled(state, cfg))):
+    while (sync.read(state.base.round) < max_rounds
+           and not sync.read(settled(state, cfg))):
         state = round_step(state, cfg)[0]
     return state
 

@@ -24,7 +24,7 @@ from typing import NamedTuple, Tuple
 
 import torch
 
-from go_avalanche_tpu_torch import prng
+from go_avalanche_tpu_torch import prng, sync
 from go_avalanche_tpu_torch.config import AvalancheConfig, DEFAULT_CONFIG
 from go_avalanche_tpu_torch.models.avalanche import _device
 from go_avalanche_tpu_torch.ops import adversary
@@ -208,9 +208,10 @@ def snowflake_run(state: SnowflakeState,
                   cfg: AvalancheConfig = DEFAULT_CONFIG,
                   max_rounds: int = 10_000, device="cuda") -> SnowflakeState:
     """Run on `device` until every live node accepted or `max_rounds`;
-    reads one scalar back per round to decide whether to go on."""
+    reads the round and the pending flag back before each round to
+    decide whether to go on (`sync.read`)."""
     state = to_device(state, device)
-    while (int(state.round) < max_rounds
-           and bool(((state.accepted_at < 0) & state.alive).any())):
+    while (sync.read(state.round) < max_rounds
+           and sync.read(((state.accepted_at < 0) & state.alive).any())):
         state = snowflake_round(state, cfg)[0]
     return state

@@ -29,7 +29,7 @@ from typing import NamedTuple, Optional, Tuple
 
 import torch
 
-from go_avalanche_tpu_torch import prng
+from go_avalanche_tpu_torch import prng, sync
 from go_avalanche_tpu_torch.config import (AvalancheConfig, DEFAULT_CONFIG,
                                            VoteMode)
 from go_avalanche_tpu_torch.models.avalanche import _device, move_leaves
@@ -232,10 +232,11 @@ def live_unfinished(state: SnowballState,
 def run(state: SnowballState, cfg: AvalancheConfig = DEFAULT_CONFIG,
         max_rounds: int = 1000, device="cuda") -> SnowballState:
     """Run on `device` until every live node finalized or `max_rounds`;
-    reads one scalar back per round to decide whether to go on."""
+    reads the round and the pending flag back before each round to
+    decide whether to go on (`sync.read`)."""
     state = to_device(state, device)
-    while int(state.round) < max_rounds and bool(live_unfinished(state,
-                                                                 cfg)):
+    while (sync.read(state.round) < max_rounds
+           and sync.read(live_unfinished(state, cfg))):
         state = round_step(state, cfg)[0]
     return state
 

@@ -183,8 +183,9 @@ def _settled_set_slots(state: StreamingDagState,
     n, w = base.records.votes.shape
     c = set_capacity(state)
     s_w = w // c
-    fin = vr.has_finalized(base.records.confidence, cfg)
-    fin_acc = fin & vr.is_accepted(base.records.confidence)
+    with annotate("finality"):
+        fin = vr.has_finalized(base.records.confidence, cfg)
+        fin_acc = fin & vr.is_accepted(base.records.confidence)
     node_set_done = fin_acc.reshape(n, s_w, c).any(dim=2)        # [N, S_w]
     rival_settled = node_set_done.repeat_interleave(c, dim=1) & ~fin_acc
     pending = (base.added & base.alive[:, None] & base.valid[None, :]
@@ -299,7 +300,8 @@ def _retire_and_refill(state: StreamingDagState, cfg: AvalancheConfig,
 
     # --- retire: member outcomes at the retiring sets' rows (s_b = drop).
     conf = base.records.confidence
-    fin_acc = vr.has_finalized(conf, cfg) & vr.is_accepted(conf)
+    with annotate("finality"):
+        fin_acc = vr.has_finalized(conf, cfg) & vr.is_accepted(conf)
     accept_votes = (fin_acc & base.added).sum(dim=0, dtype=torch.int32)
     n_live = base.alive.sum(dtype=torch.int32).clamp_min(1)
     accepted = accept_votes * 2 > n_live
@@ -371,30 +373,37 @@ def step(state: StreamingDagState, cfg: AvalancheConfig = DEFAULT_CONFIG
          ) -> Tuple[StreamingDagState, StreamingDagTelemetry]:
     """Arrive (traffic mode), retire/refill at set granularity, then one
     conflict round."""
+    with annotate("stream_step"):
+        return _step(state, cfg)
+
+
+def _step(state: StreamingDagState, cfg: AvalancheConfig
+          ) -> Tuple[StreamingDagState, StreamingDagTelemetry]:
     round_val = state.dag.base.round
-    arrivals = torch.zeros((), dtype=torch.int32,
-                           device=state.slot_set.device)
+    arrivals = None
     if state.traffic is not None:
-        new_traffic, arrivals = tf.arrive(
-            state.traffic, cfg, round_val,
-            (state.slot_set != NO_SET).sum(dtype=torch.int32),
-            state.slot_set.shape[0])
+        with annotate("arrivals"):
+            new_traffic, arrivals = tf.arrive(
+                state.traffic, cfg, round_val,
+                (state.slot_set != NO_SET).sum(dtype=torch.int32),
+                state.slot_set.shape[0])
         state = state._replace(traffic=new_traffic)
     with annotate("retire_refill"):
         state, retired = _retire_and_refill(state, cfg)
     new_dag, round_tel = dag_model.round_step(state.dag, inner_round_config(cfg))
-    tel = StreamingDagTelemetry(
-        round=round_tel,
-        retired_sets=retired,
-        occupied_sets=(state.slot_set != NO_SET).sum(dtype=torch.int32),
-        backlog_left=state.backlog.score.shape[0] - state.next_idx,
-        traffic=(None if state.traffic is None
-                 else tf.traffic_telemetry(state.traffic, arrivals)),
-    )
-    obs_sink.emit_round(cfg, round_val, tel)
-    new_dag = new_dag._replace(base=new_dag.base._replace(
-        trace=obs_trace.write_round(new_dag.base.trace, cfg, round_val,
-                                    tel)))
+    with annotate("telemetry"):
+        tel = StreamingDagTelemetry(
+            round=round_tel,
+            retired_sets=retired,
+            occupied_sets=(state.slot_set != NO_SET).sum(dtype=torch.int32),
+            backlog_left=state.backlog.score.shape[0] - state.next_idx,
+            traffic=(None if state.traffic is None
+                     else tf.traffic_telemetry(state.traffic, arrivals)),
+        )
+        obs_sink.emit_round(cfg, round_val, tel)
+        new_dag = new_dag._replace(base=new_dag.base._replace(
+            trace=obs_trace.write_round(new_dag.base.trace, cfg, round_val,
+                                        tel)))
     return state._replace(dag=new_dag), tel
 
 

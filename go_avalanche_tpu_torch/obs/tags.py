@@ -41,6 +41,18 @@ PORT_SPANS = (
     "retire_refill",      # a streaming scheduler's retire + refill step
     "metrics_tap",        # the in-loop telemetry tap (obs/sink.py)
     "trace_write",        # one trace-plane row write (obs/trace.py)
+    # The conflict DAG round and the streaming step, whole: with the
+    # spans above, every line of them that launches device work runs in
+    # a named child of `round` / `stream_step`.
+    "round",              # models/dag.round_step, outermost
+    "stream_step",        # models/streaming_dag.step, outermost
+    "key_split",          # the round's threefry key split
+    "responses",          # lie draw, responded, self-draw and drop masks
+    "finality",           # has_finalized tests and the finality stamp
+    "telemetry",          # churn, telemetry sums, tap and trace write
+    "arrivals",           # a streaming step's traffic arrivals
+    "settled",            # models/dag.settled
+    "init",               # models/dag.init, its host reads included
 )
 
 

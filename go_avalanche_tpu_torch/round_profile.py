@@ -3,11 +3,13 @@
     python -m go_avalanche_tpu_torch.round_profile [CASE ...]
 
 For each case (all by default; a CASE argument keeps the cases whose
-name contains it) it builds the state, runs two warm-up rounds, traces
-ten more under `torch.profiler` and prints one JSON line with the
-numbers below.  The cases: the flagship round (`workload.flagship_state`,
-16384 x 16384, k=8) on the megakernel, and phased with the u8 and the
-swar32 ingest kernel; the same three with the flight recorder on
+name contains it) it builds the state, runs two warm-up rounds, then
+from the state they reach runs ten rounds untraced, ten inside a
+`utils/tracing.span_log` and ten under `torch.profiler`, and prints one
+JSON line with the numbers below.  The cases: the flagship round
+(`workload.flagship_state`, 16384 x 16384, k=8) on the megakernel, and
+phased with the u8 and the swar32 ingest kernel; the same three with
+the flight recorder on
 ("... traced": `metrics_every=1` into an active `metrics_sink` and
 `trace_every=1` into the state's trace plane); the DAG baseline round
 (`workload.dag_baseline_state`, 10000 x 10000, 2-tx conflict sets) with
@@ -17,16 +19,24 @@ settles); and one step of BASELINE config 6 (`workload.northstar_state`,
 u8: retire/refill, then the DAG round; its first twelve steps, the first
 window's).  The untraced round times are `chip_smoke.py`'s.
 
+  pace_ms         host ms per round untraced, synchronised at the end
+  log_ms          the same inside the span log (its cost: log_ms -
+                  pace_ms)
+  log_host_ms     host ms per round inside each span by the span log, at
+                  the untraced pace (the host's own time there)
+  log_reads       counted host reads (`sync.reads`) per round
   traced_wall_ms  host ms per round inside the trace, synchronised
   busy_ms         device ms per round summed over kernels, copies, sets
   idle_share      1 - busy_ms / traced_wall_ms
   launches        device operations per round
-  spans           device ms per round under each `round_step` span; the
-                  rest ("other") is the key split, the finality tests,
-                  the response planes, the lifecycle and the telemetry
-  span_host_ms    host ms per round inside each span (Python and
-                  dispatch: the time the host spends there)
-  span_launches   device operations per round launched inside each span
+  spans           device ms per round launched inside each span and in
+                  no span nested in it (the DAG round's `round` and the
+                  streaming step's `stream_step` hold every other span);
+                  the rest ("other") is what no span holds
+  span_host_ms    host ms per round inside each span under the profiler
+                  (Python, dispatch and the profiler's own cost)
+  span_launches   device operations per round launched inside each span,
+                  nested spans included
   kernels         device ms per round of each of the port's own kernels
   top_kernels     the ten device operations with the most time per round
 
@@ -41,6 +51,7 @@ an NVIDIA GPU: without one it exits non-zero and prints no result.
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import json
 import subprocess
@@ -49,6 +60,7 @@ import tempfile
 import time
 from pathlib import Path
 
+import numpy as np
 import torch
 from torch.autograd import DeviceType
 from torch.profiler import ProfilerActivity, profile
@@ -58,6 +70,7 @@ from go_avalanche_tpu_torch.models import avalanche as av
 from go_avalanche_tpu_torch.models import dag
 from go_avalanche_tpu_torch.models import streaming_dag
 from go_avalanche_tpu_torch.obs.tags import PHASE_SPANS, PORT_SPANS
+from go_avalanche_tpu_torch.utils import tracing
 
 ROUNDS = 10
 TAP_ROUNDS = 20
@@ -65,9 +78,9 @@ TAP_REPS = 2
 # Every span `utils/tracing.annotate` accepts (`obs/tags.py`).
 SPANS = PHASE_SPANS + PORT_SPANS
 # The port's kernels, by a part of their symbol, and the span that
-# launches each.  A kernel launched through ctypes has no aten op above
-# it, so the profiler counts its device time under no span; it is added
-# to its span here.  Each kernel matches exactly one key:
+# launches each.  A kernel launched through ctypes may have no host op
+# above it that the profiler records; where no span holds its launch, it
+# is added to its span here.  Each kernel matches exactly one key:
 # `vote_u8_kernel<` / `vote_swar_kernel<` are the ingest kernels' fast
 # path (one symbol per k and consider-pack form), `..._kernel_any` their
 # general path.
@@ -127,17 +140,57 @@ CASES = {
 }
 
 
-def _span_launches(prof) -> dict:
-    """Device operations launched inside each span, summed over the
-    span's nested host ops."""
-    def launched(event):
-        return len(getattr(event, "kernels", ())) + sum(
-            launched(c) for c in event.cpu_children)
-    out = {}
-    for e in prof.events():
-        if e.name in SPANS and e.device_type == DeviceType.CPU:
-            out[e.name] = out.get(e.name, 0) + launched(e)
-    return out
+def _by_span(prof) -> tuple:
+    """``(device us by span, launches by span, unplaced ops)`` from the
+    profiler's raw events.  A device operation belongs to the spans whose
+    host range holds the start of the host op that launched it (its
+    linked correlation id): its time to the innermost of them (so each
+    span's time is its own, nested spans apart), a launch to each.
+    `unplaced` lists ``(name, us)`` of the operations no span holds."""
+    launched_at, ranges, device = {}, [], []
+    for e in prof.profiler.kineto_results.events():
+        kind = e.device_type()
+        if kind == DeviceType.CPU and e.linked_correlation_id() == 0:
+            launched_at[e.correlation_id()] = e.start_ns()
+            if e.name() in SPANS:
+                ranges.append((e.name(), e.start_ns(), e.end_ns()))
+        elif kind == DeviceType.CUDA and not e.is_user_annotation():
+            device.append((e.name(), (e.end_ns() - e.start_ns()) / 1e3,
+                           e.linked_correlation_id()))
+    at = np.asarray([launched_at.get(c, np.nan) for *_, c in device],
+                    dtype=np.float64)
+    owner = np.full(len(device), -1)
+    launches = {}
+    # Longest first, so an inner span's ops end up as its own.
+    ranges.sort(key=lambda r: r[1] - r[2])
+    for i, (name, start, end) in enumerate(ranges):
+        inside = (at >= start) & (at < end)
+        owner[inside] = i
+        launches[name] = launches.get(name, 0) + int(inside.sum())
+    own_us = {}
+    unplaced = []
+    for (name, us, _), i in zip(device, owner):
+        if i < 0:
+            unplaced.append((name, us))
+        else:
+            span = ranges[i][0]
+            own_us[span] = own_us.get(span, 0.0) + us
+    return own_us, launches, unplaced
+
+
+def paced_ms(step, state, cfg, rounds: int, log: bool = False) -> tuple:
+    """``(ms per round, span log or None)`` of `rounds` rounds from
+    `state`, untraced, from the first launch to a synchronise after the
+    last; with `log`, inside a `span_log` that never waits for the
+    card."""
+    torch.cuda.synchronize()
+    with (tracing.span_log() if log else contextlib.nullcontext()) as spans:
+        t0 = time.perf_counter()
+        for _ in range(rounds):
+            state = step(state, cfg)[0]
+        torch.cuda.synchronize()
+        ms = (time.perf_counter() - t0) * 1e3 / rounds
+    return ms, spans
 
 
 def profile_case(case: str) -> dict:
@@ -148,6 +201,9 @@ def profile_case(case: str) -> dict:
             for _ in range(2):
                 state = step(state, cfg)[0]
             torch.cuda.synchronize()
+            # Each stretch starts from this state: the rounds are pure.
+            pace, _ = paced_ms(step, state, cfg, rounds)
+            logged, log = paced_ms(step, state, cfg, rounds, log=True)
 
             with profile(activities=[ProfilerActivity.CPU,
                                      ProfilerActivity.CUDA]) as prof:
@@ -165,27 +221,34 @@ def profile_case(case: str) -> dict:
     busy_ms = sum(r.self_device_time_total for r in device_rows) / 1e3
     span_rows = [r for r in rows
                  if r.key in SPANS and r.device_type == DeviceType.CPU]
-    spans = {r.key: r.device_time_total / 1e3 / rounds for r in span_rows}
+    own_us, launches, unplaced = _by_span(prof)
+    spans = {k: us / 1e3 / rounds for k, us in own_us.items()}
     kernels = {}
     for r in device_rows:
-        for name, launched_in in PORT_KERNELS.items():
+        for name in PORT_KERNELS:
             if name in r.key:
                 ms = r.self_device_time_total / 1e3 / rounds
                 kernels[name] = kernels.get(name, 0.0) + ms
-                spans[launched_in] = spans.get(launched_in, 0.0) + ms
+    for op, us in unplaced:
+        for name, launched_in in PORT_KERNELS.items():
+            if name in op:
+                spans[launched_in] = (spans.get(launched_in, 0.0)
+                                      + us / 1e3 / rounds)
     spans["other"] = busy_ms / rounds - sum(spans.values())
     top = sorted(device_rows, key=lambda r: -r.self_device_time_total)[:10]
     out = {
         "case": case, "nodes": nodes, "txs": txs,
-        "k": cfg.k, "rounds": rounds, "traced_wall_ms": wall_ms,
+        "k": cfg.k, "rounds": rounds, "pace_ms": pace, "log_ms": logged,
+        "log_host_ms": {k: v * 1e3 / rounds for k, v in log.totals.items()},
+        "log_reads": sum(r.reads for r in log.rows if r.parent < 0) / rounds,
+        "traced_wall_ms": wall_ms,
         "busy_ms": busy_ms / rounds,
         "idle_share": 1.0 - (busy_ms / rounds) / wall_ms,
         "launches": sum(r.count for r in device_rows) / rounds,
         "spans": spans,
         "span_host_ms": {r.key: r.cpu_time_total / 1e3 / rounds
                          for r in span_rows},
-        "span_launches": {k: v / rounds
-                          for k, v in _span_launches(prof).items()},
+        "span_launches": {k: v / rounds for k, v in launches.items()},
         "kernels": kernels,
         "top_kernels": [{"name": r.key[:100], "per_round": r.count / rounds,
                          "ms": r.self_device_time_total / 1e3 / rounds}

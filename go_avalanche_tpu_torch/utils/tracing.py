@@ -5,10 +5,17 @@
                           Chrome trace per run, as
                           `tensorboard_trace_handler` writes it);
   * `annotate(name)`    — a named phase span: `torch.profiler.
-                          record_function` under the profiler, a wall
-                          timer under `collect_phase_times`.  Names come
-                          from `obs/tags.PHASE_SPANS` (the reference's)
-                          and `obs/tags.PORT_SPANS` (the port's own);
+                          record_function` under the profiler, a row of
+                          the active `span_log`, both under both, and
+                          one shared no-op context when neither is
+                          active.  Names come from `obs/tags.PHASE_SPANS`
+                          (the reference's) and `obs/tags.PORT_SPANS`
+                          (the port's own);
+  * `span_log()`        — a host-side log of every span of the enclosed
+                          block: name, parent row, start and end on the
+                          profiler's clock, host reads (`sync.reads`)
+                          inside; `collect_phase_times()` is its
+                          synchronising form, summed by span;
   * `TelemetryRecorder` — accumulates per-round telemetry on the device
                           and derives the run's totals and votes/s on
                           the host, in the reference's dtypes;
@@ -26,15 +33,29 @@ from __future__ import annotations
 
 import contextlib
 import time
-from typing import Callable, Dict, Iterator, List, Optional
+from typing import Callable, Dict, Iterator, List, NamedTuple, Optional
 
 import numpy as np
 import torch
 
-# Active `collect_phase_times` accumulator, or None (the default: spans
-# are profiler ranges only).  Module-level, as the reference's: the
-# annotated code needs no handle to the collector.
-_PHASE_SINK: Optional[Dict[str, float]] = None
+from go_avalanche_tpu_torch import sync
+
+# The active `span_log`, or None (the default: spans are profiler ranges
+# under a profiler, no-ops otherwise).  Module-level, as the reference's
+# phase sink: the annotated code needs no handle to the log.
+_PHASE_SINK: Optional["SpanLog"] = None
+
+# `annotate`'s names, `obs/tags`' registry as one frozenset, filled on the
+# first call: obs/ imports this module for its own spans, so the registry
+# cannot be imported while this module loads.
+_SPAN_NAMES: frozenset = frozenset()
+
+# What `annotate` returns with no profiler and no log active: one shared
+# context that does nothing (a `record_function` costs ~15 us even then).
+_OFF = contextlib.nullcontext()
+
+# True while any torch profiler (kineto, or `emit_nvtx`) records.
+_profiler_enabled = torch.autograd._profiler_enabled
 
 
 @contextlib.contextmanager
@@ -52,27 +73,35 @@ def trace(log_dir: str, device="cuda") -> Iterator[None]:
         yield
 
 
+def _load_span_names() -> frozenset:
+    global _SPAN_NAMES
+    from go_avalanche_tpu_torch.obs.tags import PHASE_SPANS, PORT_SPANS
+    _SPAN_NAMES = frozenset(PHASE_SPANS + PORT_SPANS)
+    return _SPAN_NAMES
+
+
 def annotate(name: str):
-    """A named phase span (a context manager): a profiler range, or a
-    wall timer inside `collect_phase_times`.
+    """A named phase span (a context manager): a profiler range under a
+    profiler, a row of the active `span_log` (and a profiler range too,
+    under both), else the shared no-op `_OFF`.
 
     `name` must be one of `obs/tags.PHASE_SPANS` or `PORT_SPANS`: the
     span strings are the join key between the profiler timeline,
-    `round_profile.py`'s per-span device time and the wall timers, so an
+    `round_profile.py`'s per-span device time and the span log, so an
     ad-hoc spelling would mint a phase row nothing else joins against.
     """
-    # Imported here: obs/ imports this module for its own spans.
-    from go_avalanche_tpu_torch.obs.tags import PHASE_SPANS, PORT_SPANS
-
-    if name not in PHASE_SPANS and name not in PORT_SPANS:
+    if name not in (_SPAN_NAMES or _load_span_names()):
+        from go_avalanche_tpu_torch.obs.tags import PHASE_SPANS
         raise ValueError(
             f"unknown phase span {name!r}: annotate() names are the "
             f"canonical obs.tags.PHASE_SPANS "
             f"({', '.join(PHASE_SPANS)}) — register a new phase there "
             f"(one spelling) before annotating with it")
     if _PHASE_SINK is not None:
-        return _TimedPhase(name)
-    return torch.profiler.record_function(name)
+        return _LoggedSpan(_PHASE_SINK, name)
+    if _profiler_enabled():
+        return torch.profiler.record_function(name)
+    return _OFF
 
 
 def _quiesce() -> None:
@@ -83,41 +112,110 @@ def _quiesce() -> None:
         torch.cuda.synchronize()
 
 
-class _TimedPhase:
-    """annotate()'s span under `collect_phase_times`: quiesce, time,
-    accumulate."""
+class SpanRow(NamedTuple):
+    """One span of a `SpanLog`."""
 
-    def __init__(self, name: str) -> None:
-        self._name = name
+    name: str
+    parent: int      # row of the enclosing span of the log, -1 at the top
+    start_ns: int    # Unix-epoch ns, the clock of the profiler's events
+    end_ns: int      # -1 while the span is open
+    reads: int       # `sync.reads` at exit less at entry
 
-    def __enter__(self) -> "_TimedPhase":
-        _quiesce()
-        self._t0 = time.perf_counter()
+
+class SpanLog:
+    """The spans of one `span_log` block, in the order they opened.
+
+    Times are `time.perf_counter_ns` plus one Unix-epoch offset taken
+    when the log opens, so they fall on the clock of `torch.profiler`'s
+    events and a log and a trace of the same run join span for span.
+    Rows stay in memory until read; spans nest as a stack (one thread).
+    """
+
+    def __init__(self, synchronize: bool = False) -> None:
+        self.synchronize = synchronize
+        self.totals: Dict[str, float] = {}   # seconds by span name
+        self._rows: List[list] = []
+        self._stack: List[tuple] = []        # (row, sync.reads at entry)
+        self._epoch_ns = time.time_ns() - time.perf_counter_ns()
+
+    @property
+    def rows(self) -> List[SpanRow]:
+        return [SpanRow(*r) for r in self._rows]
+
+    def _enter(self, name: str) -> None:
+        if self.synchronize:
+            _quiesce()
+        row = len(self._rows)
+        parent = self._stack[-1][0] if self._stack else -1
+        self._rows.append([name, parent,
+                           time.perf_counter_ns() + self._epoch_ns, -1, 0])
+        self._stack.append((row, sync.reads))
+
+    def _exit(self) -> None:
+        if self.synchronize:
+            _quiesce()
+        end = time.perf_counter_ns() + self._epoch_ns
+        row, reads = self._stack.pop()
+        entry = self._rows[row]
+        entry[3], entry[4] = end, sync.reads - reads
+        self.totals[entry[0]] = (self.totals.get(entry[0], 0.0)
+                                 + (end - entry[2]) / 1e9)
+
+
+class _LoggedSpan:
+    """annotate()'s span under a `span_log`: a log row around a profiler
+    range when a profiler records too."""
+
+    __slots__ = ("_log", "_name", "_range")
+
+    def __init__(self, log: SpanLog, name: str) -> None:
+        self._log, self._name, self._range = log, name, None
+
+    def __enter__(self) -> "_LoggedSpan":
+        self._log._enter(self._name)
+        if _profiler_enabled():
+            self._range = torch.profiler.record_function(self._name)
+            self._range.__enter__()
         return self
 
     def __exit__(self, *exc) -> bool:
-        _quiesce()
-        if _PHASE_SINK is not None:
-            dt = time.perf_counter() - self._t0
-            _PHASE_SINK[self._name] = _PHASE_SINK.get(self._name, 0.0) + dt
+        if self._range is not None:
+            self._range.__exit__(*exc)
+        self._log._exit()
         return False
 
 
 @contextlib.contextmanager
+def span_log(synchronize: bool = False) -> Iterator[SpanLog]:
+    """Log every `annotate` span of the enclosed block into the yielded
+    `SpanLog`; nesting restores the outer log on exit.
+
+    Without `synchronize` the log never waits for the card, so a row's
+    time is the host's own at the real pace; with it each span boundary
+    waits for the card, so the spans time the device work they launched.
+    """
+    global _PHASE_SINK
+    log = SpanLog(synchronize)
+    prev, _PHASE_SINK = _PHASE_SINK, log
+    try:
+        yield log
+        if synchronize:
+            _quiesce()  # un-annotated tail work completes before the
+    finally:            # caller's surrounding timer stops
+        _PHASE_SINK = prev
+
+
+@contextlib.contextmanager
 def collect_phase_times() -> Iterator[Dict[str, float]]:
-    """Collect wall seconds per `annotate` span for the enclosed block.
+    """Collect wall seconds per `annotate` span for the enclosed block:
+    `span_log(synchronize=True)`'s totals.
 
     Yields the accumulating ``{span name: seconds}`` dict; nesting
     restores the outer collector on exit.  Each span boundary waits for
     the card, so the spans time the device work they launched.
     """
-    global _PHASE_SINK
-    prev, _PHASE_SINK = _PHASE_SINK, {}
-    try:
-        yield _PHASE_SINK
-        _quiesce()  # un-annotated tail work completes before the caller's
-    finally:        # surrounding timer stops
-        _PHASE_SINK = prev
+    with span_log(synchronize=True) as log:
+        yield log.totals
 
 
 class TelemetryRecorder:

@@ -48,9 +48,9 @@ def test_op_histogram_of_a_flagship_round_is_deterministic():
     step, state = _flagship_step()
     first = drift.op_histogram(step, state)
     assert first == drift.op_histogram(step, state)
-    # dispatched operators only on the CPU (the spans of `annotate` are
-    # the profiler's operators)
-    assert {k.split(".")[0] for k in first} == {"aten", "profiler"}
+    # dispatched operators only on the CPU (with no profiler active, the
+    # spans of `annotate` dispatch no profiler operator)
+    assert {k.split(".")[0] for k in first} == {"aten"}
     assert first["aten.index"] >= 1       # the one peer gather
     assert sum(first.values()) > 100
 
