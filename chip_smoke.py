@@ -15,23 +15,30 @@ package is missing.  Phases, each printing JSON lines:
                PyTorch version on the same inputs, bit for bit, over the
                shapes and configs below (the two ingest kernels also
                with a ragged T, both consider-pack forms and at the DAG
-               path's 10000 x 10000, each on both its paths);
+               path's 10000 x 10000, each on both its paths; the two
+               exchange kernels, `prefs_pack` with sets of 2 and
+               `vote_packs` with k = 8, under FLIP and OPPOSE_MAJORITY
+               at the DAG baseline's 10000 x 10000, config 6's 100000 x
+               2048 and a ragged 333 x 2082);
   4. main    — the flagship round (16384 nodes x 16384 txs, k=8,
                `workload.flagship_state`, the reference bench's) through
                `models.avalanche.init` / `round_step`: the megakernel,
                phased-u8 (ingest kernel 1) and phased-swar32 (kernel 2)
                trajectories leaf-equal, timed rounds, and the launch
-               counts of the kernels during that run; the timed
+               counts of the kernels during that run (`vote_packs` once
+               a phased round, `prefs_pack` never); the timed
                rounds inside `analysis.retrace.CompileCounter`, which
                must count 0 (no kernel library built or loaded there);
   5. dag     — the DAG baseline (10000 nodes x 10000 txs in 2-tx
                conflict sets, `workload.dag_baseline_state`) through
                `models.dag.run` to settlement and `run_scan`, on both
                ingest engines: leaf-equal, timed, compared with the
-               reference's recorded result, launch counts;
+               reference's recorded result, launch counts (each
+               exchange kernel once a round, no plain route);
   6. timing  — each kernel alone at the main path's shape, against its
                plain version and its bound, the timed launches guarded
-               as phase 4's are;
+               as phase 4's are; the exchange kernels at phase 3's two
+               full shapes, under FLIP and OPPOSE_MAJORITY;
   7. baselines — BASELINE configs 0, 1, 3 and 4 (`workload.config*`)
                through `avalanche.run`, `snowball.run` and `dag.run` on
                both ingest engines, config 4 also on the megakernel:
@@ -57,10 +64,12 @@ package is missing.  Phases, each printing JSON lines:
                host reads;
   9. async   — the in-flight query ring (`ops/inflight.py`, plain
                PyTorch by the reference's design: it launches none of
-               the kernels).  Latency 0 at 16384 x 16384 on the walk,
-               walk_earlyout and coalesced engines, 3 rounds leaf-equal
-               to the synchronous round on phased-u8 and phased-swar32
-               (which launch the two ingest kernels); the reference
+               the round kernels; its deliveries gather through
+               `vote_packs` on the card).  Latency 0 at 16384 x 16384
+               on the walk, walk_earlyout and coalesced engines, 3
+               rounds leaf-equal to the synchronous round on phased-u8
+               and phased-swar32 (which launch the two ingest
+               kernels); the reference
                bench's `flagship_async` (latency 2, ring depth 7, 10
                rounds) and `flagship_faults` (a 50/50 partition over
                rounds [5, 10), a +2 latency spike over [12, 15); 18
@@ -265,8 +274,14 @@ config 6 at full width and full depth (500,000 sets, ~8313 rounds,
 recorded result, printing progress to stderr.
 
 The second-to-last line is the kernels summary, the last line
-``{"ok": true, "device": {...}}``.  Any failure raises and exits
-non-zero.  Imports nothing of JAX or of the JAX package.
+``{"ok": true, "device": {...}}``.  `read_launches` and the phases'
+checks count the round kernels (the megakernel and the two ingest
+kernels, one launch a round on their engines); the exchange kernels,
+which run inside the phased and DAG rounds, are counted by
+`read_exchange` and held to the rounds in phases 4 and 5, and their
+rows of the kernels line count those two phases' launches.  Any failure
+raises and exits non-zero.  Imports nothing of JAX or of the JAX
+package.
 """
 
 from __future__ import annotations
@@ -283,7 +298,7 @@ HBM_BYTES_PER_S = 3.35e12       # H100 SXM device memory rate
 INT_OPS_PER_S = 1.67e13
 TIMED_ROUNDS = 20
 PHASED_TIMED_ROUNDS = 3
-SOURCES = ("megakernel", "vote_u8", "vote_swar")
+SOURCES = ("megakernel", "vote_u8", "vote_swar", "exchange")
 # The megakernel: one thread per 16 columns, 256 a block, so 1184 and
 # 2080 leave the last block of a row part empty.
 KERNEL_SHAPES = ((2048, 2048), (1000, 1184), (333, 2080))
@@ -310,6 +325,14 @@ INGEST_CASES = {                # config knobs, consider-pack form, masked
     "k5_w6_q4_score1": (dict(k=5, window=6, quorum=4, finalization_score=1),
                         "plane", True),
 }
+# The exchange kernels: the DAG baseline's 10000 x 10000 and config 6's
+# 100000 nodes x a 1024-set window of 2-tx sets (the two benchmark
+# cells' shapes), timed in phase 6; 333 x 2082 (T % 8 != 0) takes each
+# kernel's general path.  Sets of 2 and k = 8 throughout.
+EXCHANGE_SHAPES = ((10_000, 10_000), (100_000, 2048))
+EXCHANGE_CHECK_SHAPES = EXCHANGE_SHAPES + ((333, 2082),)
+EXCHANGE_STRATEGIES = ("flip", "oppose_majority")
+EXCHANGE_SET_SIZE = 2
 # The reference's recorded DAG baseline (benchmarks/results.json, the
 # "avalanche DAG (10000 nodes, 10000-tx UTXO conflict graph)" row).
 DAG_REFERENCE = {"rounds": 17, "sets_resolved_fraction": 1.0,
@@ -537,6 +560,123 @@ def check_kernel_cases(device="cuda") -> int:
     return worst
 
 
+def exchange_config(strategy: str):
+    """The exchange kernels' config: a fifth of the draws lie, by
+    `strategy`."""
+    from go_avalanche_tpu_torch.config import (AdversaryStrategy,
+                                               AvalancheConfig)
+
+    return AvalancheConfig(byzantine_fraction=0.2,
+                           adversary_strategy=AdversaryStrategy(strategy))
+
+
+def random_exchange_inputs(n: int, t: int, cfg, device, seed: int):
+    """One DAG round's exchange inputs: ``(confidence, peers, responded,
+    lie)``.  Half the int16 confidence words come from a few values (0,
+    1, 0x7FFF, 0x8000, 0xFFFF as u16) so that sets hold ties and words
+    the int16 reads as negative; peers, responded and lie draws as the
+    round makes them (a draw lies with the config's byzantine
+    fraction)."""
+    import torch
+
+    g = torch.Generator(device=device).manual_seed(seed)
+    few = torch.tensor([0, 1, 0x7FFF, -0x8000, -1], dtype=torch.int16,
+                       device=device)
+    confidence = torch.where(
+        torch.rand((n, t), generator=g, device=device) < 0.5,
+        few[random_ints(g, 0, len(few), (n, t))],
+        random_ints(g, -0x8000, 0x8000, (n, t), torch.int16))
+    return (confidence, random_ints(g, 0, n, (n, cfg.k), torch.int32),
+            torch.rand((n, cfg.k), generator=g, device=device) < 0.85,
+            torch.rand((n, cfg.k), generator=g, device=device)
+            < cfg.byzantine_fraction)
+
+
+def plain_prefs_pack(confidence, cfg) -> tuple:
+    """`prefs_pack`'s plain version: the packed preferred-in-set plane
+    of sets of `EXCHANGE_SET_SIZE`, and the minority colours under
+    OPPOSE_MAJORITY (else the all-False ``[T]`` the kernel's wrapper
+    hands on)."""
+    import torch
+
+    from go_avalanche_tpu_torch.config import AdversaryStrategy
+    from go_avalanche_tpu_torch.models import dag
+    from go_avalanche_tpu_torch.ops import adversary
+    from go_avalanche_tpu_torch.ops.bitops import pack_bool_plane
+
+    prefs = dag.preferred_in_set_fixed(confidence, EXCHANGE_SET_SIZE)
+    if cfg.adversary_strategy is AdversaryStrategy.OPPOSE_MAJORITY:
+        minority = adversary.minority_plane(prefs)
+    else:
+        minority = torch.zeros(prefs.shape[1], dtype=torch.bool,
+                               device=prefs.device)
+    return pack_bool_plane(prefs), minority
+
+
+def exchange_calls(n: int, t: int, strategy: str, device, seed: int):
+    """kernel -> (kernel call, plain call) of the two exchange kernels
+    on one set of `random_exchange_inputs`; `vote_packs` gathers the
+    plain `prefs_pack`'s plane and colours."""
+    from go_avalanche_tpu_torch.ops import exchange
+
+    cfg = exchange_config(strategy)
+    confidence, peers, responded, lie = random_exchange_inputs(
+        n, t, cfg, device, seed)
+    packed, minority = plain_prefs_pack(confidence, cfg)
+    votes = (packed, peers, responded, lie)
+    return {
+        "prefs_pack": (
+            lambda: exchange.prefs_pack(confidence, EXCHANGE_SET_SIZE, cfg),
+            lambda: plain_prefs_pack(confidence, cfg)),
+        "vote_packs": (
+            lambda: exchange.vote_packs(*votes, cfg, minority, t),
+            lambda: exchange.fused_vote_packs(*votes, None, cfg, minority,
+                                              t)),
+    }
+
+
+def planes_max_abs_err(got, want) -> int:
+    """Largest integer difference over two tuples of planes of the
+    same shapes (0 = equal)."""
+    import torch
+
+    err = 0
+    for a, b in zip(got, want, strict=True):
+        if a.shape != b.shape:
+            raise AssertionError(f"shapes differ: {tuple(a.shape)} != "
+                                 f"{tuple(b.shape)}")
+        err = max(err, int((a.to(torch.int32) - b.to(torch.int32))
+                           .abs().max()))
+    return err
+
+
+def check_exchange_cases(shapes, device="cuda") -> dict:
+    """Phase 3, exchange kernels: each against its plain version at
+    every shape in `shapes` under each of `EXCHANGE_STRATEGIES`; returns
+    each kernel's largest error (must be 0)."""
+    import torch
+
+    worst = {"prefs_pack": 0, "vote_packs": 0}
+    for n, t in shapes:
+        for strategy in EXCHANGE_STRATEGIES:
+            calls = exchange_calls(n, t, strategy, device, n + t)
+            for name, (kernel, plain) in calls.items():
+                got = kernel()
+                _synchronize(device)
+                err = planes_max_abs_err(got, plain())
+                emit({"phase": "kernel_check", "kernel": name,
+                      "shape": [n, t], "case": strategy,
+                      "max_abs_err": err, "tolerance": 0})
+                if err:
+                    raise AssertionError(f"{name} disagrees with its plain "
+                                         f"version at {(n, t)} {strategy}: "
+                                         f"max_abs_err {err}")
+                worst[name] = max(worst[name], err)
+            del calls
+            _empty_cache(device)
+    return worst
+
+
 def assert_states_equal(a, b, where: str) -> None:
     import torch
 
@@ -558,13 +698,16 @@ def assert_telemetry_equal(a, b, where: str) -> None:
 
 
 def reset_launches() -> None:
-    from go_avalanche_tpu_torch.ops import megakernel
+    from go_avalanche_tpu_torch.ops import exchange, megakernel
     from go_avalanche_tpu_torch.ops import pallas_vote as pv
 
     megakernel.launches = 0
     for name in pv.launches:
         pv.launches[name] = 0
         pv.path_launches[name] = {"fast": 0, "any": 0}
+    for name in exchange.launches:
+        exchange.launches[name] = 0
+        exchange.plain_routes[name] = 0
 
 
 def read_launches() -> dict:
@@ -572,6 +715,25 @@ def read_launches() -> dict:
     from go_avalanche_tpu_torch.ops import pallas_vote as pv
 
     return {"megakernel": megakernel.launches, **pv.launches}
+
+
+def read_exchange() -> dict:
+    """The exchange kernels' launches, and the calls on card tensors
+    that took the plain path instead."""
+    from go_avalanche_tpu_torch.ops import exchange
+
+    return {"launches": dict(exchange.launches),
+            "plain_routes": dict(exchange.plain_routes)}
+
+
+def check_exchange(where: str, want: dict) -> dict:
+    """`read_exchange`, which must count `want` launches and no plain
+    route."""
+    got = read_exchange()
+    if got != {"launches": want, "plain_routes": dict.fromkeys(want, 0)}:
+        raise AssertionError(f"{where}: exchange {got}, want {want} "
+                             f"launches and no plain route")
+    return got["launches"]
 
 
 def read_path_launches() -> dict:
@@ -634,13 +796,19 @@ def run_main_path(n: int, t: int, timed_rounds: int, device="cuda") -> dict:
     if launches != rounds:
         raise AssertionError(f"launches {launches} != rounds per engine "
                              f"{rounds}")
+    # The phased rounds gather through `vote_packs` on the card; the
+    # megakernel gathers inside its own launch.
+    phased = rounds["vote_u8"] + rounds["vote_swar"]
+    exchange_launches = check_exchange("main", {
+        "prefs_pack": 0,
+        "vote_packs": phased if torch.device(device).type == "cuda" else 0})
     state = states["megakernel"]
     if int(state.round) != 3 + 2 + timed_rounds:
         raise AssertionError("round counter did not advance per round")
     if int(state.records.votes.sum()) == 0:
         raise AssertionError("no vote reached the windows")
-    return {"launches": launches, "rounds": rounds,
-            "timed_compiles": compiles,
+    return {"launches": launches, "exchange_launches": exchange_launches,
+            "rounds": rounds, "timed_compiles": compiles,
             "round_ms": round_ms,
             "phased_u8_round_ms": phased_ms["vote_u8"],
             "phased_swar32_round_ms": phased_ms["vote_swar"],
@@ -716,6 +884,11 @@ def run_dag(n: int, t: int, device="cuda") -> dict:
     if {name: launches[name] for name in cfgs} != expect or launches[
             "megakernel"]:
         raise AssertionError(f"dag launches {launches} != {expect}")
+    # One of each exchange kernel a round on the card.
+    each = (sum(expect.values()) if torch.device(device).type == "cuda"
+            else 0)
+    exchange_launches = check_exchange("dag", {"prefs_pack": each,
+                                               "vote_packs": each})
 
     final = finals["vote_u8"]
     if not bool(dag.settled(final, u8_cfg)):
@@ -735,6 +908,7 @@ def run_dag(n: int, t: int, device="cuda") -> dict:
     tel = scans["vote_u8"][1]
     return {**result, "reference": DAG_REFERENCE,
             "ms_per_round": ms_per_round, "launches": launches,
+            "exchange_launches": exchange_launches,
             "polls": int(tel.polls.sum()),
             "finalizations": int(tel.finalizations.sum()),
             "peak_mem_gib": torch.cuda.max_memory_allocated() / 2**30}
@@ -1037,6 +1211,63 @@ def time_ingest(name: str, n: int, t: int, device="cuda") -> dict:
             "symbol": symbol, "plain_ms": plain_ms,
             "bound_ms": bound_ms, "bound_by": bound_by,
             "timed_compiles": compiles}
+
+
+def exchange_bound(kernel: str, n: int, t: int, k: int, oppose: bool):
+    """(bound_ms, bound_by) of one exchange launch with sets of 2.
+    `prefs_pack` reads the int16 confidence once and writes the packed
+    plane (and under OPPOSE_MAJORITY adds into the int32 ``[T]``
+    counts); `vote_packs` reads the peer, responded and lie draws and the
+    packed plane once (its k gathers hit the L2, which holds the plane
+    at these shapes), the bool ``[T]`` colours under OPPOSE_MAJORITY,
+    and writes the uint8 yes pack and the consider byte."""
+    t8 = -(-t // 8)
+    if kernel == "prefs_pack":
+        nbytes = n * t * 2 + n * t8 + (4 * t if oppose else 0)
+    else:
+        nbytes = n * t8 + n * k * (4 + 1 + 1) + n * t + n + (
+            t if oppose else 0)
+    return nbytes / HBM_BYTES_PER_S * 1e3, "bytes"
+
+
+def time_exchange(n: int, t: int, device="cuda") -> list:
+    """Phase 6, exchange kernels: each alone at ``n x t`` under each of
+    `EXCHANGE_STRATEGIES`, checked against and timed beside its plain
+    version, one row each.  `ms` is CUDA events around back-to-back
+    wrapper calls (with `prefs_pack`'s all-False placeholder or its
+    zeroed counts); `device_ms` the profiler's device time of the
+    kernel's symbol."""
+    import torch
+
+    rows = []
+    for strategy in EXCHANGE_STRATEGIES:
+        calls = exchange_calls(n, t, strategy, device, seed=3)
+        for name, (kernel, plain) in calls.items():
+            err = planes_max_abs_err(kernel(), plain())
+            if err:
+                raise AssertionError(f"{name} disagrees at {(n, t)} "
+                                     f"{strategy}: {err}")
+            for _ in range(3):
+                kernel()
+            kernel_ms, compiles = guarded_time_ms(
+                kernel, 20, f"phase 6's timed {name} launches")
+            symbols = device_ms_by_symbol(kernel, 20, f"{name}_kernel")
+            if len(symbols) != 1:
+                raise AssertionError(f"{name} at {(n, t)}: expected one "
+                                     f"kernel symbol in the trace, got "
+                                     f"{symbols}")
+            (symbol, device_ms), = symbols.items()
+            bound_ms, bound_by = exchange_bound(
+                name, n, t, 8, strategy == "oppose_majority")
+            rows.append({"kernel": name, "case": strategy,
+                         "max_abs_err": err, "ms": kernel_ms,
+                         "device_ms": device_ms, "symbol": symbol,
+                         "plain_ms": time_ms(plain, 3),
+                         "bound_ms": bound_ms, "bound_by": bound_by,
+                         "timed_compiles": compiles})
+        del calls
+        torch.cuda.empty_cache()
+    return rows
 
 
 # Phase 8's shapes.  Config 6 runs at full width (100000 nodes, a 1024-set
@@ -1521,8 +1752,8 @@ def run_rounds(start, cfg, n_rounds: int, steady_from: int = 0):
 def check_no_launches(where: str) -> dict:
     launches = read_launches()
     if any(launches.values()):
-        raise AssertionError(f"{where}: the async path launched kernels "
-                             f"{launches}; it has none by design")
+        raise AssertionError(f"{where}: the async path launched round "
+                             f"kernels {launches}; it has none by design")
     return launches
 
 
@@ -4644,6 +4875,12 @@ KERNEL_ROWS = {          # name -> (source, the TPU kernel it replaces)
 }
 
 
+# The exchange kernels, port-only (the JAX package's exchange is plain
+# XLA): name -> source.
+EXCHANGE_ROWS = {"prefs_pack": "go_avalanche_tpu_torch/csrc/exchange.cu",
+                 "vote_packs": "go_avalanche_tpu_torch/csrc/exchange.cu"}
+
+
 def main() -> int:
     import torch
 
@@ -4699,7 +4936,8 @@ def main() -> int:
     # 3. kernels against their plain versions, the ingest kernels also at
     # the DAG path's shape (the flagship's is checked in phase 6)
     worst = {"megakernel": check_kernel_cases(),
-             **check_ingest_cases(INGEST_SHAPES + ((DAG_NODES, DAG_TXS),))}
+             **check_ingest_cases(INGEST_SHAPES + ((DAG_NODES, DAG_TXS),)),
+             **check_exchange_cases(EXCHANGE_CHECK_SHAPES)}
     lap("kernels")
 
     # 4. main path at full width
@@ -4723,6 +4961,15 @@ def main() -> int:
     for name, row in timing.items():
         emit({"phase": "timing", "kernel": name, "nodes": FLAGSHIP_NODES,
               "txs": FLAGSHIP_TXS, **row, **label})
+    # the exchange kernels at the two benchmark cells' shapes; the kernels
+    # line takes config 6's FLIP row
+    for n, t in EXCHANGE_SHAPES:
+        for row in time_exchange(n, t):
+            emit({"phase": "timing", "nodes": n, "txs": t, **row, **label})
+            worst[row["kernel"]] = max(worst[row["kernel"]],
+                                       row["max_abs_err"])
+            if (n, t) == EXCHANGE_SHAPES[-1] and row["case"] == "flip":
+                timing[row["kernel"]] = {**row, "shape": [n, t]}
     lap("timing")
 
     # the ingest kernels' general path alone at Snowball's [1000, 1]
@@ -4879,7 +5126,22 @@ def main() -> int:
         "bound_ms": timing[name]["bound_ms"],
         "bound_by": timing[name]["bound_by"],
         "library_ms": None,
-    } for name, (source, replaces) in KERNEL_ROWS.items()]})
+    } for name, (source, replaces) in KERNEL_ROWS.items()] + [{
+        "name": name,
+        "route": "cuda",
+        "source": source,
+        "replaces": None,
+        "launches": (main_path["exchange_launches"][name]
+                     + dag_run["exchange_launches"][name]),
+        "max_abs_err": worst[name],
+        "shape": timing[name]["shape"],
+        "ms": timing[name]["ms"],
+        "device_ms": timing[name]["device_ms"],
+        "plain_ms": timing[name]["plain_ms"],
+        "bound_ms": timing[name]["bound_ms"],
+        "bound_by": timing[name]["bound_by"],
+        "library_ms": None,
+    } for name, source in EXCHANGE_ROWS.items()]})
     emit({"ok": True, "device": {"platform": "gpu",
                                  "kind": torch.cuda.get_device_name(0),
                                  "count": torch.cuda.device_count()}})

@@ -176,17 +176,36 @@ def ingest_kernel(cfg) -> str:
     return "vote_swar" if cfg.ingest_engine == "swar32" else "vote_u8"
 
 
-def round_kernels(cfg, trial_rounds: int = 1) -> Dict[str, int]:
+def round_kernels(cfg, trial_rounds: int = 1,
+                  dag: bool = False) -> Dict[str, int]:
     """The hand-written kernel launches a program makes in
     `trial_rounds` trial rounds: the megakernel once a round; the ingest
     kernel of `cfg.ingest_engine` once a round on the phased
-    synchronous round; nothing on the async ring or the absent-vote
-    skip, whose ingest is plain by the reference's design."""
+    synchronous round, and nothing on the async ring or the absent-vote
+    skip, whose ingest is plain by the reference's design.  Where
+    `ops/exchange` routes to its kernels on the card, besides: `vote_packs`
+    once for each exchange a round makes (one on the synchronous round,
+    one for each ring age on the walk engines, at most that under
+    `walk_earlyout`, none on the coalesced ring, which gathers its own
+    cube), and on a `dag` round over a contiguous partition `prefs_pack`
+    once."""
+    from go_avalanche_tpu_torch.ops import exchange
+
     if cfg.round_engine == "megakernel":
         return {"megakernel": trial_rounds}
-    if cfg.async_queries() or cfg.skip_absent_votes:
-        return {}
-    return {ingest_kernel(cfg): trial_rounds}
+    card = torch.device("cuda")
+    kernels: Dict[str, int] = {}
+    if dag and exchange.prefs_pack_route(card, cfg):
+        kernels["prefs_pack"] = trial_rounds
+    exchanges = 1
+    if cfg.async_queries():
+        exchanges = (0 if cfg.inflight_engine == "coalesced"
+                     else cfg.timeout_rounds() + 1)
+    if exchanges and exchange.vote_packs_route(card, cfg):
+        kernels["vote_packs"] = exchanges * trial_rounds
+    if not (cfg.async_queries() or cfg.skip_absent_votes):
+        kernels[ingest_kernel(cfg)] = trial_rounds
+    return kernels
 
 
 @dataclasses.dataclass
@@ -302,7 +321,7 @@ def pinned_program(name: str, workload: Optional[Dict] = None,
             what=name, step=lambda s: streaming_dag.step(s, cfg)[0],
             state=state, plane_elems=workload["nodes"]
             * workload["window_sets"] * workload["set_cap"],
-            kernels=round_kernels(cfg), donated=False)
+            kernels=round_kernels(cfg, dag=True), donated=False)
     if name not in PROGRAMS:
         raise ValueError(f"unknown program {name!r}; programs: "
                          f"{', '.join(PROGRAMS)}")
@@ -930,7 +949,7 @@ def _model_kernels(model: str, cfg, rounds: int = 1) -> Dict[str, int]:
     (slush, snowflake) ingest no vote window."""
     if model in ("slush", "snowflake"):
         return {}
-    return round_kernels(cfg, rounds)
+    return round_kernels(cfg, rounds, dag=model in ("dag", "streaming_dag"))
 
 
 def _plane_elems(args, cfg) -> int:

@@ -247,13 +247,21 @@ def _round(state: DagSimState, cfg: AvalancheConfig
 
     # Responses: yes iff the tx is the peer's preferred member of its set.
     with annotate("gather_prefs"):
-        if state.set_size is not None:
-            prefs = preferred_in_set_fixed(confidence, state.set_size)
+        prefs = None     # the unpacked plane, where the plain path makes it
+        if (state.set_size is not None
+                and exchange.prefs_pack_route(confidence.device, cfg)):
+            packed_prefs, minority_t = exchange.prefs_pack(
+                confidence, state.set_size, cfg)
         else:
-            prefs = preferred_in_set(confidence, state.conflict_set,
-                                     state.n_sets)
-        minority_t = adversary.minority_plane(prefs)
-        packed_prefs = pack_bool_plane(prefs)
+            if confidence.device.type == "cuda":
+                exchange.plain_routes["prefs_pack"] += 1
+            if state.set_size is not None:
+                prefs = preferred_in_set_fixed(confidence, state.set_size)
+            else:
+                prefs = preferred_in_set(confidence, state.conflict_set,
+                                         state.n_sets)
+            minority_t = adversary.minority_plane(prefs)
+            packed_prefs = pack_bool_plane(prefs)
         # The adaptive adversary's context: the split tally reads the
         # preferred-in-set plane (what responders say), the near-quorum
         # gate the pre-round windows.

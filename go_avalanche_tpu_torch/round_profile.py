@@ -88,7 +88,9 @@ PORT_KERNELS = {"mega_round_kernel": "fused_round",
                 "vote_u8_kernel<": "ingest_votes",
                 "vote_u8_kernel_any": "ingest_votes",
                 "vote_swar_kernel<": "ingest_votes",
-                "vote_swar_kernel_any": "ingest_votes"}
+                "vote_swar_kernel_any": "ingest_votes",
+                "prefs_pack_kernel": "gather_prefs",
+                "vote_packs_kernel": "gather_prefs"}
 
 
 def card_label() -> str:

@@ -60,6 +60,47 @@ def test_tables_are_the_references():
         assert program.kernels == audit.PINNED_KERNEL_BUDGET[name]
 
 
+KERNEL_BUDGETS = {   # name -> (config knobs, dag round, budget a round)
+    "phased": (dict(), False, {"vote_u8": 1, "vote_packs": 1}),
+    "swar32": (dict(ingest_engine="swar32"), False,
+               {"vote_swar": 1, "vote_packs": 1}),
+    "dag": (dict(), True, {"vote_u8": 1, "vote_packs": 1, "prefs_pack": 1}),
+    "megakernel": (dict(round_engine="megakernel"), False, {"megakernel": 1}),
+    "oppose": (dict(byzantine_fraction=0.2,
+                    adversary_strategy="oppose_majority"), True,
+               {"vote_u8": 1, "vote_packs": 1, "prefs_pack": 1}),
+    "equivocate": (dict(byzantine_fraction=0.2,
+                        adversary_strategy="equivocate"), True,
+                   {"vote_u8": 1, "prefs_pack": 1}),
+    "split_vote": (dict(byzantine_fraction=0.2,
+                        adversary_policy="split_vote"), True, {"vote_u8": 1}),
+    "legacy": (dict(fused_exchange=False), False, {"vote_u8": 1}),
+    "async_walk": (dict(audit._ASYNC_KW), True,
+                   {"vote_packs": 5, "prefs_pack": 1}),
+    "async_coalesced": (dict(audit._ASYNC_KW, inflight_engine="coalesced"),
+                        False, {}),
+}
+
+
+@pytest.mark.parametrize("name", sorted(KERNEL_BUDGETS))
+def test_round_kernels_budget_the_exchange_kernels(name):
+    """The exchange kernels' launches a round where `ops/exchange` routes
+    to them on the card: one `vote_packs` an exchange (the walk ring's
+    five ages under a 3 s timeout at 1 s steps), one `prefs_pack` a DAG
+    round; none under EQUIVOCATE, split_vote, the legacy engine, the
+    coalesced ring or the megakernel."""
+    from go_avalanche_tpu_torch.config import AdversaryStrategy, AvalancheConfig
+
+    knobs, dag, budget = KERNEL_BUDGETS[name]
+    if "adversary_strategy" in knobs:
+        knobs = dict(knobs, adversary_strategy=AdversaryStrategy(
+            knobs["adversary_strategy"]))
+    cfg = AvalancheConfig(**knobs)
+    assert audit.round_kernels(cfg, dag=dag) == budget
+    assert audit.round_kernels(cfg, 3, dag=dag) == {
+        k: 3 * v for k, v in budget.items()}
+
+
 @pytest.mark.parametrize("name", sorted(audit.PROGRAMS))
 def test_every_program_is_clean_at_its_audit_shape(name):
     assert audit.audit_program(name, device="cpu") == []

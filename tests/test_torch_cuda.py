@@ -22,6 +22,8 @@ from go_avalanche_tpu_torch.examples import recorded
 from go_avalanche_tpu_torch.models import avalanche as av
 from go_avalanche_tpu_torch.models import dag
 from go_avalanche_tpu_torch import prng
+from go_avalanche_tpu_torch.ops import adversary
+from go_avalanche_tpu_torch.ops import exchange as ex
 from go_avalanche_tpu_torch.ops import megakernel as mk
 from go_avalanche_tpu_torch.ops import pallas_vote as pv
 from go_avalanche_tpu_torch.ops import voterecord as vr
@@ -857,3 +859,172 @@ def test_recorded_study_cell_on_the_card(name, cuda):
         assert pv.launches["vote_u8"] == before
     else:
         assert pv.launches["vote_u8"] > before
+
+
+# ------------------------------------------------- the exchange kernels
+
+# (set size, T): T not a multiple of 8 where the set size allows, and the
+# DAG cell's 10,000 (9,999 for sets of 3).
+PACK_CASES = [(c, t) for c, ts in ((1, (13, 10000)), (2, (26, 10000)),
+                                   (3, (21, 9999)), (5, (35, 10000)),
+                                   (8, (40, 10000)), (16, (48, 10000)))
+              for t in ts]
+
+
+def _confidence(rng, n, t, device):
+    """u16 confidence words, half of them drawn from a few values (0, 1,
+    0x7FFF, 0x8000, 0xFFFF) so sets hold ties and words the int16 reads
+    as negative."""
+    words = np.where(rng.random((n, t)) < 0.5,
+                     rng.choice([0, 1, 0x7FFF, 0x8000, 0xFFFF], (n, t)),
+                     rng.integers(0, 0x10000, (n, t))).astype(np.uint16)
+    return torch.from_numpy(words.view(np.int16)).to(device)
+
+
+def _exchange_cfg(strategy: str, **kw) -> AvalancheConfig:
+    return AvalancheConfig(byzantine_fraction=0.2,
+                           adversary_strategy=AdversaryStrategy(strategy),
+                           **kw)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("strategy", ["flip", "oppose_majority"])
+@pytest.mark.parametrize("c,t", PACK_CASES)
+def test_prefs_pack_matches_plain_version(c, t, strategy, cuda):
+    """Bit for bit against ``pack_bool_plane(preferred_in_set_fixed)``;
+    under OPPOSE the minority colours against `minority_plane`, else an
+    all-False ``[T]``.  Odd N; a view 2 bytes into its storage takes the
+    general path."""
+    cfg = _exchange_cfg(strategy)
+    rng = np.random.default_rng(c * 100003 + t)
+    whole = _confidence(rng, 37, t + 1, cuda)
+    for conf in (whole[:, :t].contiguous(),
+                 whole.reshape(-1)[1:1 + 37 * t].reshape(37, t)):
+        before = ex.launches["prefs_pack"]
+        packed, minority = ex.prefs_pack(conf, c, cfg)
+        torch.cuda.synchronize()
+        assert ex.launches["prefs_pack"] == before + 1
+        prefs = dag.preferred_in_set_fixed(conf, c)
+        assert torch.equal(packed, pack_bool_plane(prefs))
+        if strategy == "oppose_majority":
+            assert torch.equal(minority, adversary.minority_plane(prefs))
+        else:
+            assert minority.shape == (t,) and not minority.any()
+
+
+@pytest.mark.cuda
+def test_prefs_pack_at_the_dag_cells_shape(cuda):
+    cfg = _exchange_cfg("oppose_majority")
+    conf = _confidence(np.random.default_rng(10), 10000, 10000, cuda)
+    packed, minority = ex.prefs_pack(conf, 2, cfg)
+    prefs = dag.preferred_in_set_fixed(conf, 2)
+    assert torch.equal(packed, pack_bool_plane(prefs))
+    assert torch.equal(minority, adversary.minority_plane(prefs))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("strategy", ["flip", "oppose_majority"])
+@pytest.mark.parametrize("k", [1, 3, 8])
+@pytest.mark.parametrize("n,t", [(37, 2048), (333, 10000), (5, 13)])
+def test_vote_packs_matches_plain_version(n, t, k, strategy, cuda):
+    """Against `fused_vote_packs`: self draws (draw 0), duplicate draws
+    (the last repeats the first), random lie and responded masks."""
+    cfg = _exchange_cfg(strategy, k=k, quorum=min(k, 7), window=8)
+    rng = np.random.default_rng(n * k + t)
+
+    def t_(a):
+        return torch.from_numpy(np.ascontiguousarray(a)).to(cuda)
+
+    peers = rng.integers(0, n, (n, k)).astype(np.int32)
+    peers[:, 0] = np.arange(n)
+    peers[:, -1] = peers[:, 0] if k > 1 else peers[:, -1]
+    args = (pack_bool_plane(t_(rng.random((n, t)) < 0.5)), t_(peers),
+            t_(rng.random((n, k)) < 0.8), t_(rng.random((n, k)) < 0.4))
+    minority = t_(rng.random(t) < 0.5)
+    before = ex.launches["vote_packs"]
+    got = ex.vote_packs(*args, cfg, minority, t)
+    torch.cuda.synchronize()
+    assert ex.launches["vote_packs"] == before + 1
+    want = ex.fused_vote_packs(*args, None, cfg, minority, t)
+    for g, w in zip(got, want):
+        assert g.shape == w.shape and torch.equal(g, w)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("strategy", ["flip", "oppose_majority"])
+@pytest.mark.parametrize("fixed", [True, False])
+def test_dag_rounds_kernel_route_match_plain_route(fixed, strategy, cuda,
+                                                   monkeypatch):
+    """20 DAG rounds through the exchange kernels against 20 through the
+    plain path on the card: every counter of every round and every leaf.
+    A contiguous partition launches both kernels a round, an arbitrary
+    one `vote_packs` alone."""
+    cfg = _exchange_cfg(strategy)
+    n, t = 301, 1000
+    cs = torch.arange(t, dtype=torch.int32) // 2
+    if not fixed:
+        cs = cs[torch.from_numpy(np.random.default_rng(2).permutation(t))]
+    state = dag.init(prng.key(5, cuda), n, cs.to(cuda), cfg, n_sets=t // 2,
+                     set_size=2 if fixed else None, device=cuda)
+    before = dict(ex.launches)
+    routed, rtel = state, []
+    for _ in range(20):
+        routed, tel = dag.round_step(routed, cfg)
+        rtel.append([int(x) for x in tel])
+    assert {k: ex.launches[k] - before[k] for k in before} == {
+        "prefs_pack": 20 if fixed else 0, "vote_packs": 20}
+    monkeypatch.setattr(ex, "vote_packs_route", lambda dev, c: False)
+    monkeypatch.setattr(ex, "prefs_pack_route", lambda dev, c: False)
+    plain, ptel = state, []
+    for _ in range(20):
+        plain, tel = dag.round_step(plain, cfg)
+        ptel.append([int(x) for x in tel])
+    assert rtel == ptel
+    for g, w in zip((*routed.base.records, routed.base.finalized_at,
+                     routed.base.alive, routed.base.key, routed.base.round),
+                    (*plain.base.records, plain.base.finalized_at,
+                     plain.base.alive, plain.base.key, plain.base.round)):
+        assert torch.equal(g, w)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("strategy", ["flip", "oppose_majority"])
+def test_exchange_kernels_read_under_gather_prefs(strategy, cuda):
+    """Under the profiler every exchange kernel of a DAG round is linked
+    to a host op that started inside the round's `gather_prefs` span:
+    the rule by which a span's device time is read
+    (`round_profile._by_span`).  A bare ctypes launch links to none."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    cfg = _exchange_cfg(strategy)
+    n, t, rounds = 301, 1000, 3
+    cs = (torch.arange(t, dtype=torch.int32) // 2).to(cuda)
+    state = dag.init(prng.key(5, cuda), n, cs, cfg, n_sets=t // 2,
+                     set_size=2, device=cuda)
+    state = dag.round_step(state, cfg)[0]     # builds and loads the kernels
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(rounds):
+            state = dag.round_step(state, cfg)[0]
+        torch.cuda.synchronize()
+    started, spans, kernels = {}, [], []
+    for e in prof.profiler.kineto_results.events():
+        if e.device_type() == DeviceType.CPU and e.linked_correlation_id() == 0:
+            started[e.correlation_id()] = e.start_ns()
+            if e.name() == "gather_prefs":
+                spans.append((e.start_ns(), e.end_ns()))
+        elif (e.device_type() == DeviceType.CUDA
+              and not e.is_user_annotation()
+              and ("prefs_pack_kernel" in e.name()
+                   or "vote_packs_kernel" in e.name())):
+            kernels.append((e.name(), e.linked_correlation_id()))
+    assert len(spans) == rounds
+    assert sum("prefs_pack_kernel" in name for name, _ in kernels) == rounds
+    assert sum("vote_packs_kernel" in name for name, _ in kernels) == rounds
+    for name, linked in kernels:
+        at = started.get(linked)
+        assert at is not None, f"{name[:60]} is linked to no host op"
+        assert any(lo <= at < hi for lo, hi in spans), (
+            f"{name[:60]} was launched outside gather_prefs")

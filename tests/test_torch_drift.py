@@ -56,19 +56,24 @@ def test_op_histogram_of_a_flagship_round_is_deterministic():
 
 
 def test_op_histogram_counts_kernel_launches(monkeypatch):
-    from go_avalanche_tpu_torch.ops import megakernel, pallas_vote
+    from go_avalanche_tpu_torch.ops import exchange, megakernel, pallas_vote
 
     monkeypatch.setitem(pallas_vote.launches, "vote_u8", 5)
     monkeypatch.setattr(megakernel, "launches", 2)
+    monkeypatch.setitem(exchange.launches, "vote_packs", 3)
+    monkeypatch.setitem(exchange.launches, "prefs_pack", 3)
 
     def step(x):
         pallas_vote.launches["vote_u8"] += 2
         megakernel.launches += 1
+        exchange.launches["vote_packs"] += 1
+        exchange.launches["prefs_pack"] += 1
         return x + 1
 
     hist = drift.op_histogram(step, torch.zeros(3))
     assert hist == {"aten.add": 1, "kernel:vote_u8": 2,
-                    "kernel:megakernel": 1}
+                    "kernel:megakernel": 1, "kernel:vote_packs": 1,
+                    "kernel:prefs_pack": 1}
 
 
 def test_op_recorder_marks_index_tensors_and_syncs():
