@@ -9,6 +9,8 @@ one is reused.  Nothing here runs at import.
 `compiles` counts the kernel libraries this process compiled or loaded
 anew: one for each `build` that ran nvcc, and one for each first `load`
 of a library that was already current (`analysis/retrace.py` reads it).
+`Launch` runs a loaded entry's call as a torch op, so that the profiler
+places its kernels under the span open around the call.
 """
 
 from __future__ import annotations
@@ -22,6 +24,8 @@ import subprocess
 import time
 from pathlib import Path
 from typing import NamedTuple
+
+import torch
 
 PACKAGE_DIR = Path(__file__).resolve().parent
 CSRC_DIR = PACKAGE_DIR / "csrc"
@@ -116,3 +120,15 @@ def check_arg(t, name: str, dtype, shape: tuple, device, align: int = 8
     if t.data_ptr() % align:
         raise ValueError(f"{name} must start on an {align}-byte boundary "
                          f"(the kernel reads whole words)")
+
+
+class Launch(torch.autograd.Function):
+    """A kernel's ctypes call as a torch op (one that differentiates
+    nothing): ``Launch.apply(entry, *args)`` returns ``entry(*args)``,
+    the C entry's status.  The profiler links a device kernel to the
+    innermost torch op open when it was launched, and a bare ctypes call
+    opens none: its kernels would lie under no span."""
+
+    @staticmethod
+    def forward(ctx, entry, *args) -> int:
+        return entry(*args)

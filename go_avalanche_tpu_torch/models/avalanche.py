@@ -34,8 +34,12 @@ read back to the host.
 
 The round's phases run under `utils/tracing.annotate` spans with the
 reference's names (poll_mask, sample_peers, gossip_admission,
-gather_prefs, fused_round / ingest_votes), so a profiler trace reads
-device time per phase (`round_profile.py`).
+gather_prefs, fused_round / ingest_votes), and the rest of it under the
+port's own (key_split, responses, finality, telemetry), all inside
+`round`, as in `models/dag.round_step`; `all_settled` runs under
+`settled`.  So every line of the round that launches device work runs
+in a named child of `round`, and a profiler trace reads device time per
+phase (`round_profile.py`).
 """
 
 from __future__ import annotations
@@ -280,10 +284,18 @@ def round_step(
     cfg: AvalancheConfig = DEFAULT_CONFIG,
 ) -> Tuple[AvalancheSimState, SimTelemetry]:
     """One network-wide poll / response / ingest round."""
-    n, t = state.records.votes.shape
-    k_sample, k_byz, k_drop, k_churn, k_next = prng.split(state.key, 5)
+    with annotate("round"):
+        return _round(state, cfg)
 
-    fin = vr.has_finalized(state.records.confidence, cfg)
+
+def _round(state: AvalancheSimState, cfg: AvalancheConfig
+           ) -> Tuple[AvalancheSimState, SimTelemetry]:
+    n, t = state.records.votes.shape
+    with annotate("key_split"):
+        k_sample, k_byz, k_drop, k_churn, k_next = prng.split(state.key, 5)
+
+    with annotate("finality"):
+        fin = vr.has_finalized(state.records.confidence, cfg)
 
     # --- GetInvsForNextPoll: live, valid, non-finalized, score-capped.
     with annotate("poll_mask"):
@@ -296,27 +308,26 @@ def round_step(
     with annotate("sample_peers"):
         peers, self_draw = draw_peers(k_sample, cfg, state.latency_weight,
                                       state.alive, n)
-    peers_l = peers.long()
-    lie = adversary.lie_mask(k_byz, peers, state.byzantine, cfg)
-    responded = state.alive[peers_l]
-    if self_draw is not None:
-        responded &= ~self_draw
-    if cfg.drop_probability > 0.0:
-        responded &= ~prng.bernoulli(k_drop, cfg.drop_probability,
-                                     tuple(peers.shape))
+    with annotate("responses"):
+        lie = adversary.lie_mask(k_byz, peers, state.byzantine, cfg)
+        responded = state.alive[peers.long()]
+        if self_draw is not None:
+            responded &= ~self_draw
+        if cfg.drop_probability > 0.0:
+            responded &= ~prng.bernoulli(k_drop, cfg.drop_probability,
+                                         tuple(peers.shape))
 
-    # --- adaptive adversary: one context from the pre-round records
-    # (None with the policy off) decides who lies, and whether a lie is
-    # silence instead.
-    pol = adversary.policy_ctx(cfg, state.records, state.byzantine,
-                               state.latency_weight)
-    lie, responded, withheld = adversary.apply_policy_issue(cfg, pol, lie,
-                                                            responded)
+        # --- adaptive adversary: one context from the pre-round records
+        # (None with the policy off) decides who lies, and whether a lie
+        # is silence instead.
+        pol = adversary.policy_ctx(cfg, state.records, state.byzantine,
+                                   state.latency_weight)
+        lie, responded, withheld = adversary.apply_policy_issue(
+            cfg, pol, lie, responded)
 
     # --- gossip-on-poll admission.
     added = state.added
-    zero = torch.zeros((), dtype=torch.int32, device=peers.device)
-    admissions = gossip_writes = zero
+    admissions = gossip_writes = None
     if cfg.gossip:
         with annotate("gossip_admission"):
             heard = exchange.gossip_heard(peers, polled.to(torch.uint8),
@@ -380,49 +391,55 @@ def round_step(
             votes_applied = ((err >= 0) & polled).sum()
 
     # --- lifecycle + telemetry.
-    fin_after = vr.has_finalized(records.confidence, cfg)
-    newly_final = fin_after & ~fin
-    finalized_at = stamp_finality(state.finalized_at, newly_final,
-                                  state.round)
+    with annotate("finality"):
+        fin_after = vr.has_finalized(records.confidence, cfg)
+        newly_final = fin_after & ~fin
+        finalized_at = stamp_finality(state.finalized_at, newly_final,
+                                      state.round)
 
-    alive = state.alive
-    if cfg.churn_probability > 0.0:
-        alive = alive ^ prng.bernoulli(k_churn, cfg.churn_probability, (n,))
-    alive = inflight.apply_churn_bursts(alive, cfg, state.round, k_churn)
+    with annotate("telemetry"):
+        alive = state.alive
+        if cfg.churn_probability > 0.0:
+            alive = alive ^ prng.bernoulli(k_churn, cfg.churn_probability,
+                                           (n,))
+        alive = inflight.apply_churn_bursts(alive, cfg, state.round, k_churn)
 
-    rt = inflight.ring_telemetry(ring, cfg, state.round)
-    cut = (inflight.partition_cut(cfg, state.round, 0, peers, n,
-                                  state.fault_params)
-           if async_round else None)
-    telemetry = SimTelemetry(
-        polls=_count(polled),
-        votes_applied=votes_applied.to(torch.int32),
-        flips=_count(changed & ~newly_final),
-        finalizations=_count(newly_final),
-        admissions=admissions,
-        deliveries=rt.deliveries,
-        expiries=rt.expiries,
-        ring_occupancy=rt.occupancy,
-        partition_blocked=zero if cut is None else _count(cut),
-        gossip_writes=gossip_writes,
-    )
-    obs_sink.emit_round(cfg, state.round, telemetry)
-    new_state = state._replace(
-        records=records, added=added, alive=alive,
-        finalized_at=finalized_at, round=state.round + 1, key=k_next,
-        inflight=ring,
-        trace=obs_trace.write_round(state.trace, cfg, state.round,
-                                    telemetry))
+        zero = torch.zeros((), dtype=torch.int32, device=peers.device)
+        rt = inflight.ring_telemetry(ring, cfg, state.round)
+        cut = (inflight.partition_cut(cfg, state.round, 0, peers, n,
+                                      state.fault_params)
+               if async_round else None)
+        telemetry = SimTelemetry(
+            polls=_count(polled),
+            votes_applied=votes_applied.to(torch.int32),
+            flips=_count(changed & ~newly_final),
+            finalizations=_count(newly_final),
+            admissions=zero if admissions is None else admissions,
+            deliveries=rt.deliveries,
+            expiries=rt.expiries,
+            ring_occupancy=rt.occupancy,
+            partition_blocked=zero if cut is None else _count(cut),
+            gossip_writes=zero if gossip_writes is None else gossip_writes,
+        )
+        obs_sink.emit_round(cfg, state.round, telemetry)
+        new_state = state._replace(
+            records=records, added=added, alive=alive,
+            finalized_at=finalized_at, round=state.round + 1, key=k_next,
+            inflight=ring,
+            trace=obs_trace.write_round(state.trace, cfg, state.round,
+                                        telemetry))
     return new_state, telemetry
 
 
 def all_settled(state: AvalancheSimState,
                 cfg: AvalancheConfig = DEFAULT_CONFIG) -> torch.Tensor:
     """True when no (live node, valid target) pair still needs polling."""
-    fin = vr.has_finalized(state.records.confidence, cfg)
-    pollable = (state.added & state.alive[:, None] & state.valid[None, :]
-                & ~fin)
-    return ~pollable.any()
+    with annotate("settled"):
+        with annotate("finality"):
+            fin = vr.has_finalized(state.records.confidence, cfg)
+        pollable = (state.added & state.alive[:, None]
+                    & state.valid[None, :] & ~fin)
+        return ~pollable.any()
 
 
 def run(state: AvalancheSimState, cfg: AvalancheConfig = DEFAULT_CONFIG,

@@ -33,8 +33,8 @@ CPU tensor, keeps the plain path, which is also what the kernels are
 held against on the card.  `launches` counts each kernel's launches and
 `plain_routes` the calls on CUDA tensors that took the plain path
 instead, so a run can show how often the kernels engaged.  Each ctypes
-call runs inside a torch op (`_Launch`), so that the profiler places
-the kernels' device time under the span open around the call.
+call runs inside a torch op (`_build.Launch`), so that the profiler
+places the kernels' device time under the span open around the call.
 """
 
 from __future__ import annotations
@@ -113,18 +113,6 @@ def prefs_pack_route(device: torch.device, cfg: AvalancheConfig) -> bool:
     return device.type == "cuda" and cfg.adversary_policy != "split_vote"
 
 
-class _Launch(torch.autograd.Function):
-    """A kernel's ctypes call as a torch op (one that differentiates
-    nothing).  The profiler links a device kernel to the innermost torch
-    op open when it was launched, and a bare ctypes call opens none: its
-    kernels would lie under no span, and `gather_prefs` would read none
-    of their time.  Returns the C entry's status."""
-
-    @staticmethod
-    def forward(ctx, name: str, *args) -> int:
-        return _kernel(name)(*args)
-
-
 @functools.lru_cache(maxsize=None)
 def _kernel(name: str):
     fn = getattr(_build.load("exchange"), name)
@@ -159,8 +147,8 @@ def prefs_pack(confidence: torch.Tensor, set_size: int,
     counts = (torch.zeros((t,), dtype=torch.int32, device=dev) if oppose
               else None)
     with torch.cuda.device(dev):
-        rc = _Launch.apply(
-            "prefs_pack", confidence.data_ptr(), packed.data_ptr(),
+        rc = _build.Launch.apply(
+            _kernel("prefs_pack"), confidence.data_ptr(), packed.data_ptr(),
             counts.data_ptr() if oppose else None, n, t, set_size,
             torch.cuda.current_stream(dev).cuda_stream)
     if rc != 0:
@@ -201,8 +189,8 @@ def vote_packs(packed_prefs: torch.Tensor, peers: torch.Tensor,
     yes_pack = torch.empty((n, t), dtype=torch.uint8, device=dev)
     consider = torch.empty((n,), dtype=torch.uint8, device=dev)
     with torch.cuda.device(dev):
-        rc = _Launch.apply(
-            "vote_packs", packed_prefs.data_ptr(), peers.data_ptr(),
+        rc = _build.Launch.apply(
+            _kernel("vote_packs"), packed_prefs.data_ptr(), peers.data_ptr(),
             responded.data_ptr(), lie.data_ptr(),
             minority_t.data_ptr() if oppose else None,
             yes_pack.data_ptr(), consider.data_ptr(), n, n_src, t, k,

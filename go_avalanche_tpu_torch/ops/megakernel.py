@@ -11,7 +11,9 @@ must start on 16-byte boundaries) or raises; on CPU tensors it runs
 own exchange and u8 ingest — which is also what the kernel is held
 against on the card.
 `launches` counts kernel launches, so a run can show that it went
-through the kernel.
+through the kernel.  The ctypes call runs inside a torch op
+(`_build.Launch`), so that the profiler places the kernel's device time
+under the round's `fused_round` span.
 """
 
 from __future__ import annotations
@@ -109,8 +111,8 @@ def _launch(records, packed_prefs, peers, responded, lie, minority_t, polled,
     changed = torch.empty((n, t), dtype=torch.bool, device=dev)
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
-        rc = _kernel()(
-            records.votes.data_ptr(), records.consider.data_ptr(),
+        rc = _build.Launch.apply(
+            _kernel(), records.votes.data_ptr(), records.consider.data_ptr(),
             records.confidence.data_ptr(), packed_prefs.data_ptr(),
             peers.data_ptr(), responded.data_ptr(), lie.data_ptr(),
             minority_bits.data_ptr(), polled.data_ptr(), votes.data_ptr(),

@@ -1028,3 +1028,75 @@ def test_exchange_kernels_read_under_gather_prefs(strategy, cuda):
         assert at is not None, f"{name[:60]} is linked to no host op"
         assert any(lo <= at < hi for lo, hi in spans), (
             f"{name[:60]} was launched outside gather_prefs")
+
+
+@pytest.mark.cuda
+def test_megakernel_reads_under_fused_round(cuda):
+    """Under the profiler the megakernel of every flat round is linked to
+    a host op that started inside the round's `fused_round` span, since
+    its ctypes call runs inside `_build.Launch`."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    cfg = AvalancheConfig(round_engine="megakernel", max_element_poll=256,
+                          byzantine_fraction=0.2)
+    n, t, rounds = 300, 1024, 3
+    key = prng.key(6, cuda)
+    state = av.init(key, n, t, cfg, device=cuda,
+                    init_pref=av.contested_init_pref_from_key(key, n, t))
+    state = av.round_step(state, cfg)[0]      # builds and loads the kernel
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(rounds):
+            state = av.round_step(state, cfg)[0]
+        torch.cuda.synchronize()
+    started, spans, kernels = {}, [], []
+    for e in prof.profiler.kineto_results.events():
+        if e.device_type() == DeviceType.CPU and e.linked_correlation_id() == 0:
+            started[e.correlation_id()] = e.start_ns()
+            if e.name() == "fused_round":
+                spans.append((e.start_ns(), e.end_ns()))
+        elif (e.device_type() == DeviceType.CUDA
+              and not e.is_user_annotation()
+              and "mega_round_kernel" in e.name()):
+            kernels.append((e.name(), e.linked_correlation_id()))
+    assert len(spans) == rounds and len(kernels) == rounds
+    for name, linked in kernels:
+        at = started.get(linked)
+        assert at is not None, f"{name[:60]} is linked to no host op"
+        assert any(lo <= at < hi for lo, hi in spans), (
+            f"{name[:60]} was launched outside fused_round")
+
+
+@pytest.mark.cuda
+def test_flat_megakernel_round_matches_the_benchmark_reference(cuda):
+    """The benchmark's pre-consensus cell at 256 x 256 with a binding
+    64-element poll cap, from a 50/50 split, to settlement on the card:
+    every plane and every round's counters equal to
+    `portbench/reference/avalanche.py`'s."""
+    from portbench import harness
+    from portbench.compare import (mismatched, rows_to_host,
+                                   telemetry_mismatches)
+    from portbench.drivers import preconsensus_settle
+    from portbench.reference import avalanche as ref_av
+
+    fields = {**harness.config_fields(
+        harness.load_cell("preconsensus16k-settle")), "max_element_poll": 64}
+    n = t = 256
+    program = preconsensus_settle.Port(fields, cuda)
+    words = harness.key_words(2**33 + 1, 1)
+    state = program.init(words, n, t)
+    rows = []
+    before = mk.launches
+    while not bool(program.settled(state)) and len(rows) < 2000:
+        state, tel = program.round(state)
+        rows.append(tel)
+    assert mk.launches - before == len(rows) > 0
+    ref, ref_rows = ref_av.run_settle(
+        torch.tensor(words, dtype=torch.int64, device=cuda), n, t, fields,
+        2000)
+    assert ref_av.settled(ref, fields)
+    assert mismatched(program.leaves(state), ref) == dict.fromkeys(ref, 0)
+    assert telemetry_mismatches(rows_to_host(rows),
+                                rows_to_host(ref_rows)) == 0

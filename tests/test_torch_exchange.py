@@ -257,7 +257,7 @@ def test_kernel_wrappers_refuse_before_any_launch():
 def test_kernel_calls_run_inside_a_torch_op(strategy, monkeypatch):
     """The profiler places a device kernel under the innermost torch op
     open when it was launched, and a bare ctypes call opens none: each
-    kernel's C entry runs inside `_Launch`, once a wrapper call, with
+    kernel's C entry runs inside `_build.Launch`, once a wrapper call, with
     its status checked (a stand-in entry on the CPU)."""
     import contextlib
     import types
@@ -285,7 +285,7 @@ def test_kernel_calls_run_inside_a_torch_op(strategy, monkeypatch):
                             torch.zeros(t, dtype=torch.bool), t)
     ops = [e.name() for e in prof.profiler.kineto_results.events()]
     assert entered == ["prefs_pack", "vote_packs"]
-    assert ops.count("_Launch") == 2
+    assert ops.count("Launch") == 2
     assert exchange.launches == {"prefs_pack": 1, "vote_packs": 1}
     monkeypatch.setattr(exchange, "_kernel", lambda name: lambda *args: 700)
     with pytest.raises(RuntimeError, match="CUDA error 700"):

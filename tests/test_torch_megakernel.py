@@ -123,6 +123,38 @@ def test_plain_path_does_not_count_launches():
     assert mk.launches == before
 
 
+def test_kernel_call_runs_inside_a_torch_op(monkeypatch):
+    """The profiler places a device kernel under the innermost torch op
+    open when it was launched, and a bare ctypes call opens none: the
+    kernel's C entry runs inside `_build.Launch`, once a launch, with its
+    status checked (a stand-in entry on the CPU)."""
+    import contextlib
+    import types
+
+    from torch.profiler import ProfilerActivity, profile
+
+    entered = []
+    monkeypatch.setattr(mk, "_kernel",
+                        lambda: lambda *args: entered.append(args) or 0)
+    monkeypatch.setattr(torch.cuda, "device",
+                        lambda dev: contextlib.nullcontext())
+    monkeypatch.setattr(torch.cuda, "current_stream",
+                        lambda dev: types.SimpleNamespace(cuda_stream=0))
+    _, tcfg = _configs({})
+    args = torch_args(make_inputs(np.random.default_rng(9), 8, 64, tcfg))
+    before = mk.launches
+    with profile(activities=[ProfilerActivity.CPU]) as prof:
+        mk._launch(*args, tcfg)
+    ops = [e.name() for e in prof.profiler.kineto_results.events()]
+    assert len(entered) == 1 and len(entered[0]) == 21
+    assert ops.count("Launch") == 1
+    assert mk.launches == before + 1
+    monkeypatch.setattr(mk, "_kernel", lambda: lambda *args: 700)
+    with pytest.raises(RuntimeError, match="CUDA error 700"):
+        mk._launch(*args, tcfg)
+    assert mk.launches == before + 1
+
+
 @pytest.mark.parametrize("plane", ["votes", "consider", "confidence",
                                    "polled"])
 def test_launch_rejects_record_planes_off_16_bytes(plane):

@@ -76,10 +76,10 @@ def test_collect_phase_times_times_the_round_spans_and_nests():
         state, _ = tav.round_step(state, cfg)
     wall = time.perf_counter() - t0
     assert set(inner) == {"fused_round"}        # not the outer's
-    assert set(outer) == {"poll_mask", "sample_peers", "gossip_admission",
-                          "gather_prefs", "ingest_votes", "trace_write"}
+    assert set(outer) == {"round"} | set(FLAT_CHILDREN) | {"trace_write"}
     assert all(v > 0 for v in outer.values())
-    assert sum(outer.values()) <= wall
+    children = sum(outer[name] for name in set(FLAT_CHILDREN))
+    assert children <= outer["round"] <= wall     # spans nest in round
     assert tracing._PHASE_SINK is None            # restored on exit
 
 
@@ -215,6 +215,18 @@ DAG_CHILDREN = ["key_split", "finality", "poll_mask", "sample_peers",
                 "telemetry"]
 
 
+FLAT_CHILDREN = ["key_split", "finality", "poll_mask", "sample_peers",
+                 "responses", "gossip_admission", "gather_prefs",
+                 "ingest_votes", "finality", "telemetry"]
+
+
+def _flat(n=16, t=32, **knobs):
+    cfg = AvalancheConfig(**KNOBS, **knobs)
+    key = torch.tensor([7, 8], dtype=torch.int64)
+    prior = tav.contested_init_pref_from_key(key, n, t)
+    return tav.init(key, n, t, cfg, init_pref=prior, device="cpu"), cfg
+
+
 def _dag(n=24, t=16, **knobs):
     cfg = AvalancheConfig(**KNOBS, **knobs)
     key = torch.tensor([3, 4], dtype=torch.int64)
@@ -269,6 +281,29 @@ def test_span_log_records_the_nesting_of_a_dag_round_and_a_stream_step():
     assert rows[inner].parent == 0 and _children(rows, inner) == DAG_CHILDREN
 
 
+@pytest.mark.parametrize("engine", ["phased", "megakernel"])
+def test_span_log_records_the_nesting_of_a_flat_round(engine):
+    gossip = engine == "phased"
+    state, cfg = _flat(round_engine=engine, gossip=gossip, trace_every=1)
+    state = tav.with_trace(state, cfg, 4)
+    with tracing.span_log() as log:
+        state, _ = tav.round_step(state, cfg)
+        tav.all_settled(state, cfg)
+    rows = log.rows
+    assert (rows[0].name, rows[0].parent) == ("round", -1)
+    want = [{"ingest_votes": "fused_round"}.get(name, name) if not gossip
+            else name for name in FLAT_CHILDREN
+            if gossip or name != "gossip_admission"]
+    assert _children(rows, 0) == want
+    telemetry = [i for i, r in enumerate(rows) if r.name == "telemetry"]
+    assert _children(rows, telemetry[0]) == ["trace_write"]
+    settled = [i for i, r in enumerate(rows) if r.name == "settled"]
+    assert rows[settled[0]].parent == -1
+    assert _children(rows, settled[0]) == ["finality"]
+    for r in rows:
+        assert r.end_ns >= r.start_ns > 0 and r.reads == 0
+
+
 def _kineto(prof):
     """``(name, start ns, end ns, is a span)`` of every host event of the
     profiler, on its Unix-epoch clock."""
@@ -282,12 +317,19 @@ def _kineto(prof):
     return out
 
 
-@pytest.mark.parametrize("which", ["dag_round", "stream_step"])
+@pytest.mark.parametrize("which", ["dag_round", "stream_step",
+                                   "flat_round", "flat_megakernel"])
 def test_every_op_of_the_round_runs_in_a_named_child_span(which):
     if which == "dag_round":
         state, cfg = _dag(trace_every=1, metrics_every=0)
         state = tdag.with_trace(state, cfg, 4)
         step, top = tdag.round_step, "round"
+    elif which.startswith("flat"):
+        engine = "phased" if which == "flat_round" else "megakernel"
+        state, cfg = _flat(round_engine=engine, trace_every=1,
+                           byzantine_fraction=0.25)
+        state = tav.with_trace(state, cfg, 4)
+        step, top = tav.round_step, "round"
     else:
         state, cfg = _stream(arrival_mode="poisson", arrival_rate=2.0)
         step, top = tsd.step, "stream_step"
