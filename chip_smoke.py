@@ -38,7 +38,9 @@ package is missing.  Phases, each printing JSON lines:
   6. timing  — each kernel alone at the main path's shape, against its
                plain version and its bound, the timed launches guarded
                as phase 4's are; the exchange kernels at phase 3's two
-               full shapes, under FLIP and OPPOSE_MAJORITY;
+               full shapes, under FLIP and OPPOSE_MAJORITY; the
+               scheduler kernels (`settle_scan`, `refill`) at config
+               6's 100000 x 2048 window, finality tracked and not;
   7. baselines — BASELINE configs 0, 1, 3 and 4 (`workload.config*`)
                through `avalanche.run`, `snowball.run` and `dag.run` on
                both ingest engines, config 4 also on the megakernel:
@@ -291,6 +293,7 @@ import dataclasses
 import json
 import sys
 import time
+from unittest import mock
 
 HBM_BYTES_PER_S = 3.35e12       # H100 SXM device memory rate
 # H100 SXM int32 rate outside the tensor cores: 132 SMs x 64 int32
@@ -298,7 +301,7 @@ HBM_BYTES_PER_S = 3.35e12       # H100 SXM device memory rate
 INT_OPS_PER_S = 1.67e13
 TIMED_ROUNDS = 20
 PHASED_TIMED_ROUNDS = 3
-SOURCES = ("megakernel", "vote_u8", "vote_swar", "exchange")
+SOURCES = ("megakernel", "vote_u8", "vote_swar", "exchange", "scheduler")
 # The megakernel: one thread per 16 columns, 256 a block, so 1184 and
 # 2080 leave the last block of a row part empty.
 KERNEL_SHAPES = ((2048, 2048), (1000, 1184), (333, 2080))
@@ -333,6 +336,9 @@ EXCHANGE_SHAPES = ((10_000, 10_000), (100_000, 2048))
 EXCHANGE_CHECK_SHAPES = EXCHANGE_SHAPES + ((333, 2082),)
 EXCHANGE_STRATEGIES = ("flip", "oppose_majority")
 EXCHANGE_SET_SIZE = 2
+# The scheduler kernels at config 6's window (100000 nodes x 1024 sets of
+# 2), timed in phase 6 with finality tracking on and off.
+SCHEDULER_SHAPE = (100_000, 2048)
 # The reference's recorded DAG baseline (benchmarks/results.json, the
 # "avalanche DAG (10000 nodes, 10000-tx UTXO conflict graph)" row).
 DAG_REFERENCE = {"rounds": 17, "sets_resolved_fraction": 1.0,
@@ -698,7 +704,7 @@ def assert_telemetry_equal(a, b, where: str) -> None:
 
 
 def reset_launches() -> None:
-    from go_avalanche_tpu_torch.ops import exchange, megakernel
+    from go_avalanche_tpu_torch.ops import exchange, megakernel, scheduler
     from go_avalanche_tpu_torch.ops import pallas_vote as pv
 
     megakernel.launches = 0
@@ -708,6 +714,9 @@ def reset_launches() -> None:
     for name in exchange.launches:
         exchange.launches[name] = 0
         exchange.plain_routes[name] = 0
+    for name in scheduler.launches:
+        scheduler.launches[name] = 0
+        scheduler.plain_routes[name] = 0
 
 
 def read_launches() -> dict:
@@ -734,6 +743,27 @@ def check_exchange(where: str, want: dict) -> dict:
         raise AssertionError(f"{where}: exchange {got}, want {want} "
                              f"launches and no plain route")
     return got["launches"]
+
+
+def read_scheduler() -> dict:
+    """The scheduler kernels' launches, and the calls on card tensors
+    that took the plain path instead."""
+    from go_avalanche_tpu_torch.ops import scheduler
+
+    return {"launches": dict(scheduler.launches),
+            "plain_routes": dict(scheduler.plain_routes)}
+
+
+def scheduler_want(device, scans: int, refills: int,
+                   plain_refills: int = 0) -> dict:
+    """`read_scheduler`'s count after `scans` settle tests and `refills`
+    dense refills through the kernels and `plain_refills` retire-cap
+    column rewrites: on CPU tensors nothing is counted."""
+    on_card = torch_device_type(device) == "cuda"
+    return {"launches": {"settle_scan": scans if on_card else 0,
+                         "refill": refills if on_card else 0},
+            "plain_routes": {"settle_scan": 0,
+                             "refill": plain_refills if on_card else 0}}
 
 
 def read_path_launches() -> dict:
@@ -1230,6 +1260,28 @@ def exchange_bound(kernel: str, n: int, t: int, k: int, oppose: bool):
     return nbytes / HBM_BYTES_PER_S * 1e3, "bytes"
 
 
+def timed_kernel_row(name: str, where: str, kernel, plain, err: int) -> dict:
+    """Phase 6's row of one kernel call that equals its plain version
+    (`err`, the largest difference, must be 0): `ms` by CUDA events
+    around 20 back-to-back wrapper calls, `device_ms` the profiler's
+    device time of the kernel's one symbol, `plain_ms` the plain call's
+    time."""
+    if err:
+        raise AssertionError(f"{name} disagrees at {where}: {err}")
+    for _ in range(3):
+        kernel()
+    kernel_ms, compiles = guarded_time_ms(
+        kernel, 20, f"phase 6's timed {name} launches")
+    symbols = device_ms_by_symbol(kernel, 20, f"{name}_kernel")
+    if len(symbols) != 1:
+        raise AssertionError(f"{name} at {where}: expected one kernel "
+                             f"symbol in the trace, got {symbols}")
+    (symbol, device_ms), = symbols.items()
+    return {"kernel": name, "max_abs_err": err, "ms": kernel_ms,
+            "device_ms": device_ms, "symbol": symbol,
+            "plain_ms": time_ms(plain, 3), "timed_compiles": compiles}
+
+
 def time_exchange(n: int, t: int, device="cuda") -> list:
     """Phase 6, exchange kernels: each alone at ``n x t`` under each of
     `EXCHANGE_STRATEGIES`, checked against and timed beside its plain
@@ -1243,28 +1295,103 @@ def time_exchange(n: int, t: int, device="cuda") -> list:
     for strategy in EXCHANGE_STRATEGIES:
         calls = exchange_calls(n, t, strategy, device, seed=3)
         for name, (kernel, plain) in calls.items():
-            err = planes_max_abs_err(kernel(), plain())
-            if err:
-                raise AssertionError(f"{name} disagrees at {(n, t)} "
-                                     f"{strategy}: {err}")
-            for _ in range(3):
-                kernel()
-            kernel_ms, compiles = guarded_time_ms(
-                kernel, 20, f"phase 6's timed {name} launches")
-            symbols = device_ms_by_symbol(kernel, 20, f"{name}_kernel")
-            if len(symbols) != 1:
-                raise AssertionError(f"{name} at {(n, t)}: expected one "
-                                     f"kernel symbol in the trace, got "
-                                     f"{symbols}")
-            (symbol, device_ms), = symbols.items()
             bound_ms, bound_by = exchange_bound(
                 name, n, t, 8, strategy == "oppose_majority")
-            rows.append({"kernel": name, "case": strategy,
-                         "max_abs_err": err, "ms": kernel_ms,
-                         "device_ms": device_ms, "symbol": symbol,
-                         "plain_ms": time_ms(plain, 3),
-                         "bound_ms": bound_ms, "bound_by": bound_by,
-                         "timed_compiles": compiles})
+            rows.append({**timed_kernel_row(
+                name, f"{(n, t)} {strategy}", kernel, plain,
+                planes_max_abs_err(kernel(), plain())),
+                "case": strategy, "bound_ms": bound_ms,
+                "bound_by": bound_by})
+        del calls
+        torch.cuda.empty_cache()
+    return rows
+
+
+def scheduler_bound(kernel: str, n: int, w: int, tracked: bool):
+    """(bound_ms, bound_by) of one scheduler launch: `settle_scan` reads
+    each record's 2 B confidence and 1 B `added` once and writes a byte
+    a set and a word a column; `refill` reads and writes each record's
+    votes, consider, confidence and `added` (5 B) and its 4 B stamp
+    where finality is tracked, and reads three bool ``[W]`` masks."""
+    if kernel == "settle_scan":
+        nbytes = n * w * 3 + n + w + w // 2 + 4 * w
+    else:
+        nbytes = 2 * n * w * (9 if tracked else 5) + 3 * w
+    return nbytes / HBM_BYTES_PER_S * 1e3, "bytes"
+
+
+def scheduler_calls(n: int, w: int, tracked: bool, device, seed: int):
+    """kernel -> (kernel call, plain call) of the two scheduler kernels
+    on one random window of 2-tx sets: counters drawn across the whole
+    range and around the finalization score, both preferences, 90% of
+    records added, every tenth node dead, a tenth of the columns
+    invalid, a third of the slots taken and two thirds occupied after."""
+    import torch
+
+    from go_avalanche_tpu_torch.config import AvalancheConfig
+    from go_avalanche_tpu_torch.models import streaming_dag as sdg
+    from go_avalanche_tpu_torch.ops import scheduler
+    from go_avalanche_tpu_torch.ops import voterecord as vr
+
+    g = torch.Generator(device=device).manual_seed(seed)
+    cfg = AvalancheConfig()
+    counter = torch.where(
+        torch.rand((n, w), generator=g, device=device) < 0.5,
+        random_ints(g, 0, 0x8000, (n, w)),
+        random_ints(g, cfg.finalization_score - 4,
+                    cfg.finalization_score + 4, (n, w)))
+    conf = ((counter << 1) | random_ints(g, 0, 2, (n, w))).to(torch.int16)
+    added = torch.rand((n, w), generator=g, device=device) < 0.9
+    alive = torch.arange(n, device=device) % 10 != 0
+    valid = torch.rand(w, generator=g, device=device) < 0.9
+    records = vr.VoteRecordState(random_ints(g, 0, 256, (n, w), torch.uint8),
+                                 random_ints(g, 0, 256, (n, w), torch.uint8),
+                                 conf)
+    fin_at = (random_ints(g, -1, 500, (n, w), torch.int32) if tracked
+              else None)
+    slots = torch.rand(w // 2, generator=g, device=device)
+    take = (slots < 1 / 3).repeat_interleave(2)
+    occupied = (slots < 2 / 3).repeat_interleave(2)
+    pref = torch.rand(w, generator=g, device=device) < 0.5
+    scan = (conf, added, alive, valid, 2, cfg)
+    refill = (records, added, fin_at, take, occupied, pref)
+    return {"settle_scan": (lambda: scheduler.settle_scan(*scan),
+                            lambda: sdg.settle_scan_plain(*scan)),
+            "refill": (lambda: scheduler.refill(*refill),
+                       lambda: sdg.refill_plain(*refill))}
+
+
+def flat_planes(out) -> tuple:
+    """A kernel's outputs as a flat tuple of tensors, None as a zero."""
+    import torch
+
+    if out is None:
+        return (torch.zeros(1),)
+    if isinstance(out, tuple):
+        return tuple(p for o in out for p in flat_planes(o))
+    return (out,)
+
+
+def time_scheduler(n: int, w: int, device="cuda") -> list:
+    """Phase 6, scheduler kernels: each alone at ``n x w``, with finality
+    tracking on and off, checked bit for bit against and timed beside
+    its plain version, one `timed_kernel_row` each (`ms` includes the
+    wrapper's zeroed or fresh outputs)."""
+    import torch
+
+    rows = []
+    for tracked in (True, False):
+        calls = scheduler_calls(n, w, tracked, device, seed=5)
+        for name, (kernel, plain) in calls.items():
+            if name == "settle_scan" and not tracked:
+                continue        # the scan reads no stamp
+            bound_ms, bound_by = scheduler_bound(name, n, w, tracked)
+            rows.append({**timed_kernel_row(
+                name, str((n, w)), kernel, plain,
+                planes_max_abs_err(flat_planes(kernel()),
+                                   flat_planes(plain()))),
+                "tracked": tracked, "bound_ms": bound_ms,
+                "bound_by": bound_by})
         del calls
         torch.cuda.empty_cache()
     return rows
@@ -1304,6 +1431,17 @@ def assert_trees_equal(a, b, where: str) -> None:
         assert_trees_equal(x, y, f"{where}.{field}")
 
 
+def counting(fn):
+    """`fn`, counting its calls in `.calls`; unlike a mock it keeps no
+    arguments (here, whole states on the card)."""
+    def counted(*args, **kwargs):
+        counted.calls += 1
+        return fn(*args, **kwargs)
+
+    counted.calls = 0
+    return counted
+
+
 class StreamPart:
     """One part of phase 8: launch counts, host reads and peak memory
     from its start, and the rounds each engine ran."""
@@ -1328,9 +1466,12 @@ class StreamPart:
         self.ms_per_round[engine] = ms / max(rounds, 1)
         return out
 
-    def close(self, expect: dict, totals: dict) -> dict:
+    def close(self, expect: dict, totals: dict,
+              scheduler: dict = None) -> dict:
         """Check the launches against the rounds each kernel's engine
-        ran (`expect`: kernel -> rounds) and add them to `totals`."""
+        ran (`expect`: kernel -> rounds) and the scheduler kernels'
+        counts against `scheduler` (`scheduler_want`; none launched
+        where it is None), and add them to `totals`."""
         import torch
 
         from go_avalanche_tpu_torch import sync
@@ -1341,6 +1482,12 @@ class StreamPart:
         if launches != want:
             raise AssertionError(f"{self.name}: launches {launches} != "
                                  f"rounds per kernel {want}")
+        sched = read_scheduler()
+        if scheduler is None:
+            scheduler = scheduler_want("cpu", 0, 0)
+        if sched != scheduler:
+            raise AssertionError(f"{self.name}: scheduler kernels {sched} "
+                                 f"!= {scheduler}")
         path = ingest_path(self.txs)
         want_paths = {k: {"fast": 0, "any": 0, path: want[k]}
                       for k in ("vote_u8", "vote_swar")}
@@ -1352,9 +1499,12 @@ class StreamPart:
         for kernel, by in paths.items():
             for key, n in by.items():
                 totals["by_path"][kernel][key] += n
+        for kernel, n in sched["launches"].items():
+            totals["scheduler"][kernel] += n
         return {"part": self.name, "rounds_per_engine": self.rounds,
                 "ms_per_round": self.ms_per_round, "launches": launches,
                 "launches_by_ingest_path": paths, "ingest_path": path,
+                "scheduler": sched,
                 "host_reads": sync.reads,
                 "peak_mem_gib": torch.cuda.max_memory_allocated() / 2**30}
 
@@ -1382,7 +1532,8 @@ def run_streaming(quick: bool = False, device="cuda",
     reference = workload.REFERENCE_QUICK if quick else workload.REFERENCE
     totals = {"launches": {"vote_u8": 0, "vote_swar": 0, "megakernel": 0},
               "by_path": {k: {"fast": 0, "any": 0}
-                          for k in ("vote_u8", "vote_swar")}}
+                          for k in ("vote_u8", "vote_swar")},
+              "scheduler": {"settle_scan": 0, "refill": 0}}
     engines = {"u8": "vote_u8", "swar32": "vote_swar"}
     todo, parts = parts, []
     n5, b5, w5 = workload.config5_shape(quick)
@@ -1424,12 +1575,14 @@ def run_streaming(quick: bool = False, device="cuda",
         w6 = star["window_sets"] * star["set_cap"]
         part = StreamPart("config6", w6)
         finals = {}
-        for engine, ecfg in phased(cfg).items():
-            finals[engine] = part.run(
-                engine, lambda s, c: (lambda f: (f, sync.read(
-                    f.dag.base.round)))(sdg.run_chunked(
-                        s, c, max_rounds=STREAM_MAX_ROUNDS, chunk=256,
-                        device=device)), start, ecfg)
+        with mock.patch.object(sdg, "drained",
+                               counting(sdg.drained)) as drained:
+            for engine, ecfg in phased(cfg).items():
+                finals[engine] = part.run(
+                    engine, lambda s, c: (lambda f: (f, sync.read(
+                        f.dag.base.round)))(sdg.run_chunked(
+                            s, c, max_rounds=STREAM_MAX_ROUNDS, chunk=256,
+                            device=device)), start, ecfg)
         assert_trees_equal(finals["u8"], finals["swar32"],
                            "config6 u8 vs swar32")
         summary = sdg.resolution_summary(finals["u8"])
@@ -1444,9 +1597,16 @@ def run_streaming(quick: bool = False, device="cuda",
                                f"unchanged",
                   "rounds": int(finals["u8"].dag.base.round), **summary}
         check_result("config6", result, want)
+        # One settle test and one refill a step, a settle test for each
+        # read of `drained`, and a dense harvest a run.
+        steps, n_runs = sum(part.rounds.values()), len(finals)
+        sched = scheduler_want(device, steps + drained.calls + n_runs,
+                               steps + n_runs)
         parts.append({**result, "reference": want,
+                      "drained_calls": drained.calls,
                       **part.close({engines[e]: r
-                                    for e, r in part.rounds.items()}, totals)})
+                                    for e, r in part.rounds.items()}, totals,
+                                   sched)})
         del start, finals
         torch.cuda.empty_cache()
 
@@ -1458,22 +1618,32 @@ def run_streaming(quick: bool = False, device="cuda",
                 "retire_cap": dataclasses.replace(
                     cfg, stream_retire_cap=star["window_sets"])}
         finals = {}
-        for name, rcfg in runs.items():
-            finals[name] = part.run(
-                name, lambda s, c: (lambda f: (f, sync.read(
-                    f.dag.base.round)))(sdg.run(
-                        s, c, max_rounds=STREAM_MAX_ROUNDS, device=device)),
-                start, rcfg)
+        with mock.patch.object(sdg, "drained",
+                               counting(sdg.drained)) as drained:
+            for name, rcfg in runs.items():
+                finals[name] = part.run(
+                    name, lambda s, c: (lambda f: (f, sync.read(
+                        f.dag.base.round)))(sdg.run(
+                            s, c, max_rounds=STREAM_MAX_ROUNDS,
+                            device=device)),
+                    start, rcfg)
         assert_trees_equal(finals["dense"], finals["retire_cap"],
                            "retire cap vs dense")
         cap_rounds = -(-shape["cap_sets"] // star["window_sets"]) * WAVE_ROUNDS
         if part.rounds["dense"] != cap_rounds:
             raise AssertionError(f"retire-cap check: {part.rounds} rounds, "
                                  f"expected {cap_rounds}")
+        # The capped steps rewrite their columns plainly; both runs end
+        # in a dense harvest.
+        steps = sum(part.rounds.values())
         parts.append({"backlog_sets": shape["cap_sets"],
                       "stream_retire_cap": star["window_sets"],
-                      **part.close({"vote_u8": sum(part.rounds.values())},
-                                   totals)})
+                      "drained_calls": drained.calls,
+                      **part.close({"vote_u8": steps}, totals,
+                                   scheduler_want(
+                                       device, steps + drained.calls + 2,
+                                       part.rounds["dense"] + 2,
+                                       part.rounds["retire_cap"]))})
         del start, finals
         torch.cuda.empty_cache()
 
@@ -1603,7 +1773,8 @@ def run_streaming(quick: bool = False, device="cuda",
                       **part.close({"vote_u8": n_rounds, "vote_swar": n_rounds,
                                     "megakernel": n_rounds}, totals)})
     return {"parts": parts, "launches": totals["launches"],
-            "launches_by_ingest_path": totals["by_path"]}
+            "launches_by_ingest_path": totals["by_path"],
+            "scheduler_launches": totals["scheduler"]}
 
 
 def run_config6_full_depth(device="cuda") -> dict:
@@ -4136,7 +4307,9 @@ def resource_engine(n: int, t: int, name: str, device) -> dict:
 
 def resource_phase_times(n: int, t: int, device) -> dict:
     """Phase 14 (c): `collect_phase_times` over phased-u8 rounds: wall
-    ms per span, each span's boundary waiting for the card."""
+    ms per span, each span's boundary waiting for the card.  The flat
+    round's children lie within its `round` span, and that within the
+    rounds' wall."""
     from go_avalanche_tpu_torch import workload
     from go_avalanche_tpu_torch.models import avalanche as av
     from go_avalanche_tpu_torch.utils import tracing
@@ -4150,15 +4323,18 @@ def resource_phase_times(n: int, t: int, device) -> dict:
             state = av.round_step(state, cfg)[0]
     wall_ms = (time.perf_counter() - t0) * 1e3 / RESOURCE_PHASE_ROUNDS
     span_ms = {k: v * 1e3 / RESOURCE_PHASE_ROUNDS for k, v in spans.items()}
-    want = {"poll_mask", "sample_peers", "gather_prefs", "ingest_votes"}
-    if set(span_ms) != want:
+    children = {"key_split", "finality", "poll_mask", "sample_peers",
+                "responses", "gather_prefs", "ingest_votes", "telemetry"}
+    if set(span_ms) != {"round"} | children:
         raise AssertionError(f"phase spans {sorted(span_ms)} != "
-                             f"{sorted(want)}")
-    if sum(span_ms.values()) > wall_ms:
-        raise AssertionError(f"the spans' sum {sum(span_ms.values())} ms "
-                             f"exceeds the rounds' wall {wall_ms} ms")
+                             f"{sorted({'round'} | children)}")
+    children_ms = sum(span_ms[name] for name in children)
+    if not children_ms <= span_ms["round"] <= wall_ms:
+        raise AssertionError(f"the round's children {children_ms} ms, its "
+                             f"span {span_ms['round']} ms and the rounds' "
+                             f"wall {wall_ms} ms do not nest")
     return {"rounds": RESOURCE_PHASE_ROUNDS, "span_ms": span_ms,
-            "spans_sum_ms": sum(span_ms.values()),
+            "spans_sum_ms": children_ms,
             "round_wall_ms": wall_ms}
 
 
@@ -4879,6 +5055,10 @@ KERNEL_ROWS = {          # name -> (source, the TPU kernel it replaces)
 # XLA): name -> source.
 EXCHANGE_ROWS = {"prefs_pack": "go_avalanche_tpu_torch/csrc/exchange.cu",
                  "vote_packs": "go_avalanche_tpu_torch/csrc/exchange.cu"}
+# The scheduler kernels, port-only (the JAX package's scheduler is plain
+# XLA): name -> source.
+SCHEDULER_ROWS = {"settle_scan": "go_avalanche_tpu_torch/csrc/scheduler.cu",
+                  "refill": "go_avalanche_tpu_torch/csrc/scheduler.cu"}
 
 
 def main() -> int:
@@ -4970,6 +5150,15 @@ def main() -> int:
                                        row["max_abs_err"])
             if (n, t) == EXCHANGE_SHAPES[-1] and row["case"] == "flip":
                 timing[row["kernel"]] = {**row, "shape": [n, t]}
+    # the scheduler kernels at config 6's window; the kernels line takes
+    # the rows with finality tracked, as config 6 runs
+    n, w = SCHEDULER_SHAPE
+    for row in time_scheduler(n, w):
+        emit({"phase": "timing", "nodes": n, "window": w, **row, **label})
+        worst[row["kernel"]] = max(worst.get(row["kernel"], 0),
+                                   row["max_abs_err"])
+        if row["tracked"]:
+            timing[row["kernel"]] = {**row, "shape": [n, w]}
     lap("timing")
 
     # the ingest kernels' general path alone at Snowball's [1000, 1]
@@ -5005,6 +5194,9 @@ def main() -> int:
     emit({"phase": "streaming",
           "launches": {k: sum(p["launches"][k] for p in streaming)
                        for k in KERNEL_ROWS},
+          "scheduler_launches": {
+              k: sum(p["scheduler_launches"][k] for p in streaming)
+              for k in SCHEDULER_ROWS},
           "launches_by_ingest_path": {
               k: {path: sum(p["launches_by_ingest_path"][k][path]
                             for p in streaming)
@@ -5141,7 +5333,21 @@ def main() -> int:
         "bound_ms": timing[name]["bound_ms"],
         "bound_by": timing[name]["bound_by"],
         "library_ms": None,
-    } for name, source in EXCHANGE_ROWS.items()]})
+    } for name, source in EXCHANGE_ROWS.items()] + [{
+        "name": name,
+        "route": "cuda",
+        "source": source,
+        "replaces": None,
+        "launches": sum(p["scheduler_launches"][name] for p in streaming),
+        "max_abs_err": worst[name],
+        "shape": timing[name]["shape"],
+        "ms": timing[name]["ms"],
+        "device_ms": timing[name]["device_ms"],
+        "plain_ms": timing[name]["plain_ms"],
+        "bound_ms": timing[name]["bound_ms"],
+        "bound_by": timing[name]["bound_by"],
+        "library_ms": None,
+    } for name, source in SCHEDULER_ROWS.items()]})
     emit({"ok": True, "device": {"platform": "gpu",
                                  "kind": torch.cuda.get_device_name(0),
                                  "count": torch.cuda.device_count()}})

@@ -208,6 +208,24 @@ def round_kernels(cfg, trial_rounds: int = 1,
     return kernels
 
 
+def scheduler_kernels(cfg, set_size: int, steps: int = 1,
+                      sharded: bool = False) -> Dict[str, int]:
+    """The streaming DAG scheduler's kernel launches in `steps` steps
+    where `ops/scheduler` routes to them on the card: `refill` once a
+    step unless the retire cap rewrites columns instead, and
+    `settle_scan` once for a set size it takes, except on the sharded
+    driver, whose settled test is its own."""
+    from go_avalanche_tpu_torch.ops import scheduler
+
+    card = torch.device("cuda")
+    kernels: Dict[str, int] = {}
+    if not sharded and scheduler.settle_scan_route(card, set_size):
+        kernels["settle_scan"] = steps
+    if cfg.stream_retire_cap is None and scheduler.refill_route(card):
+        kernels["refill"] = steps
+    return kernels
+
+
 @dataclasses.dataclass
 class Program:
     """One program to audit: ``step(state)`` is one round (returning
@@ -321,7 +339,9 @@ def pinned_program(name: str, workload: Optional[Dict] = None,
             what=name, step=lambda s: streaming_dag.step(s, cfg)[0],
             state=state, plane_elems=workload["nodes"]
             * workload["window_sets"] * workload["set_cap"],
-            kernels=round_kernels(cfg, dag=True), donated=False)
+            kernels={**round_kernels(cfg, dag=True),
+                     **scheduler_kernels(cfg, workload["set_cap"])},
+            donated=False)
     if name not in PROGRAMS:
         raise ValueError(f"unknown program {name!r}; programs: "
                          f"{', '.join(PROGRAMS)}")
@@ -774,11 +794,15 @@ def sharded_program(driver: str, label: str, cfg, state, mesh, declared,
     mod = driver_module(driver)
     _, place, make_step = _DRIVER_MODULES[driver]
     step = getattr(mod, make_step)(mesh, cfg)
+    kernels = round_kernels(cfg)
+    if driver == "streaming_dag":
+        kernels.update(scheduler_kernels(cfg, state.dag.set_size,
+                                         sharded=True))
     return Program(
         what=f"sharded:{driver}[{label}]", step=lambda b: step(b)[0],
         state=copy_state(getattr(mod, place)(state, mesh)),
         plane_elems=plane_elems,
-        kernels=round_kernels(cfg), mesh=mesh, collectives=declared)
+        kernels=kernels, mesh=mesh, collectives=declared)
 
 
 def audit_sharded(driver: str, device="cuda") -> List[str]:
@@ -922,7 +946,7 @@ def audit_run_sim(args, cfg, state=None, step=None, driver=None,
         return audit(Program(
             what=f"{what}@fleet{args.fleet}" + ("-mesh" if sharded else ""),
             step=program, state=keys, plane_elems=args.nodes * args.txs,
-            host_reads=None, kernels=_model_kernels(args.model, cfg,
+            host_reads=None, kernels=_model_kernels(args, cfg,
                                                     args.max_rounds),
             exact_kernels=False, donated=False,
             mesh=fleet_mesh if sharded else None,
@@ -933,23 +957,28 @@ def audit_run_sim(args, cfg, state=None, step=None, driver=None,
         return audit(Program(
             what=what, step=lambda b: step(b)[0], state=copy_state(state),
             plane_elems=plane, host_reads=None,
-            kernels=_model_kernels(args.model, cfg), exact_kernels=False,
+            kernels=_model_kernels(args, cfg), exact_kernels=False,
             mesh=mesh,
             collectives=driver_module(driver).DECLARED_COLLECTIVES))[0]
     return audit(Program(
         what=what, step=lambda s: step(s, cfg)[0], state=copy_state(state),
         plane_elems=plane,
         callbacks=1 if cfg.metrics_every > 0 else 0, host_reads=None,
-        kernels=_model_kernels(args.model, cfg), exact_kernels=False,
+        kernels=_model_kernels(args, cfg), exact_kernels=False,
         donated=args.model == "avalanche"))[0]
 
 
-def _model_kernels(model: str, cfg, rounds: int = 1) -> Dict[str, int]:
-    """A model's kernel budget for `rounds` rounds: the family models
-    (slush, snowflake) ingest no vote window."""
-    if model in ("slush", "snowflake"):
+def _model_kernels(args, cfg, rounds: int = 1) -> Dict[str, int]:
+    """The run's model's kernel budget for `rounds` rounds: the family
+    models (slush, snowflake) ingest no vote window; the streaming DAG's
+    scheduler adds its own."""
+    if args.model in ("slush", "snowflake"):
         return {}
-    return round_kernels(cfg, rounds, dag=model in ("dag", "streaming_dag"))
+    kernels = round_kernels(cfg, rounds,
+                            dag=args.model in ("dag", "streaming_dag"))
+    if args.model == "streaming_dag":
+        kernels.update(scheduler_kernels(cfg, args.conflict_size, rounds))
+    return kernels
 
 
 def _plane_elems(args, cfg) -> int:

@@ -178,10 +178,11 @@ def op_class(func) -> str:
 
 def kernel_launches() -> Dict[str, int]:
     """The launch counters of every hand-written kernel, by name."""
-    from go_avalanche_tpu_torch.ops import exchange, megakernel, pallas_vote
+    from go_avalanche_tpu_torch.ops import (exchange, megakernel, pallas_vote,
+                                            scheduler)
 
     return {**pallas_vote.launches, "megakernel": megakernel.launches,
-            **exchange.launches}
+            **exchange.launches, **scheduler.launches}
 
 
 def kernel_delta(before: Dict[str, int]) -> Dict[str, int]:

@@ -40,7 +40,7 @@ from go_avalanche_tpu_torch.models.backlog import (EMPTY_SCORE, NO_TX,
                                                    set_drop, stack_tree)
 from go_avalanche_tpu_torch.obs import sink as obs_sink
 from go_avalanche_tpu_torch.obs import trace as obs_trace
-from go_avalanche_tpu_torch.ops import inflight
+from go_avalanche_tpu_torch.ops import inflight, scheduler
 from go_avalanche_tpu_torch.ops import voterecord as vr
 from go_avalanche_tpu_torch.utils.tracing import annotate
 
@@ -175,23 +175,48 @@ def init(key: torch.Tensor, n_nodes: int, window_sets: int,
     )
 
 
-def _settled_set_slots(state: StreamingDagState,
-                       cfg: AvalancheConfig) -> torch.Tensor:
-    """bool [S_w]: occupied set-slots with no (live node, member) pair
-    still pollable — the round's pollable mask, per set."""
-    base = state.dag.base
-    n, w = base.records.votes.shape
-    c = set_capacity(state)
-    s_w = w // c
+def settle_scan_plain(confidence: torch.Tensor, added: torch.Tensor,
+                      alive: torch.Tensor, valid: torch.Tensor,
+                      set_size: int, cfg: AvalancheConfig
+                      ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """``(pending_set, accept_votes)`` of the window over the contiguous
+    ``arange(W) // set_size`` partition: bool ``[S_w]``, some live node
+    holds an added, unfinalized record of a valid member and no member
+    of the set finalized accepted at that node (the round's pollable
+    mask, per set); int32 ``[W]``, the nodes whose added record
+    finalized accepted.  The plain version of `scheduler.settle_scan`."""
+    n, w = confidence.shape
+    s_w = w // set_size
     with annotate("finality"):
-        fin = vr.has_finalized(base.records.confidence, cfg)
-        fin_acc = fin & vr.is_accepted(base.records.confidence)
-    node_set_done = fin_acc.reshape(n, s_w, c).any(dim=2)        # [N, S_w]
-    rival_settled = node_set_done.repeat_interleave(c, dim=1) & ~fin_acc
-    pending = (base.added & base.alive[:, None] & base.valid[None, :]
-               & ~fin & ~rival_settled)
-    pending_set = pending.reshape(n, s_w, c).any(dim=2).any(dim=0)
-    return (state.slot_set != NO_SET) & ~pending_set
+        fin = vr.has_finalized(confidence, cfg)
+        fin_acc = fin & vr.is_accepted(confidence)
+    # A member finalized accepted settles its rivals at that node; the
+    # member itself is finalized, so ~fin leaves it out already.
+    node_set_done = fin_acc.reshape(n, s_w, set_size).any(dim=2)  # [N, S_w]
+    pending = (added & alive[:, None] & valid[None, :] & ~fin).reshape(
+        n, s_w, set_size) & ~node_set_done[:, :, None]
+    pending_set = pending.any(dim=2).any(dim=0)
+    accept_votes = (fin_acc & added).sum(dim=0, dtype=torch.int32)
+    return pending_set, accept_votes
+
+
+def _settle_scan(state: StreamingDagState, cfg: AvalancheConfig
+                 ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """``(settled, accept_votes)``: bool ``[S_w]``, occupied set-slots
+    with no (live node, member) pair still pollable, and
+    `settle_scan_plain`'s ``[W]`` counts — by the `settle_scan` kernel
+    where `scheduler.settle_scan_route` holds."""
+    base = state.dag.base
+    c = set_capacity(state)
+    args = (base.records.confidence, base.added, base.alive, base.valid, c,
+            cfg)
+    if scheduler.settle_scan_route(base.added.device, c):
+        pending_set, accept_votes = scheduler.settle_scan(*args)
+    else:
+        if base.added.device.type == "cuda":
+            scheduler.plain_routes["settle_scan"] += 1
+        pending_set, accept_votes = settle_scan_plain(*args)
+    return (state.slot_set != NO_SET) & ~pending_set, accept_votes
 
 
 def _first_true(mask: torch.Tensor, size: int) -> torch.Tensor:
@@ -214,6 +239,8 @@ def refill_planes(base, settled: torch.Tensor, take: torch.Tensor,
     s_w, c = pref_rows.shape
     take_w = take.repeat_interleave(c)                           # [W]
     if k_slots is not None:
+        if take_w.device.type == "cuda":
+            scheduler.plain_routes["refill"] += 1
         # Columns of the slots that change (retire or admit).  The
         # reference pads the slot list with s_w, whose columns its
         # scatter drops; here a pad entry repeats the first listed slot
@@ -248,16 +275,31 @@ def refill_planes(base, settled: torch.Tensor, take: torch.Tensor,
         if finalized_at is not None:   # stamps reset at admitted columns
             finalized_at = fill_cols(finalized_at, -1)
         return records, added, finalized_at
-    fresh = vr.init_state(pref_rows.reshape(w)[None, :])
+    args = (base.records, base.added, base.finalized_at, take_w,
+            occupied_after_w, pref_rows.reshape(w))
+    if scheduler.refill_route(take_w.device):
+        return scheduler.refill(*args)
+    return refill_plain(*args)
+
+
+def refill_plain(records: vr.VoteRecordState, added: torch.Tensor,
+                 finalized_at: Optional[torch.Tensor], take_w: torch.Tensor,
+                 occupied_after_w: torch.Tensor,
+                 fresh_pref: torch.Tensor) -> tuple:
+    """``(records, added, finalized_at)`` after a dense refill: `take_w`
+    columns seed fresh records with `fresh_pref` (bool ``[W]``) on every
+    node and reset their stamps, and `added` clears outside
+    `occupied_after_w`.  The plain version of `scheduler.refill`."""
+    fresh = vr.init_state(fresh_pref[None, :])
 
     def fill(plane, fresh_plane):
         return torch.where(take_w[None, :], fresh_plane, plane)
 
     records = vr.VoteRecordState(*(fill(p, f) for p, f in
-                                   zip(base.records, fresh)))
+                                   zip(records, fresh)))
     # Admission seeds every node; retired slots clear.
-    added = take_w[None, :] | (base.added & occupied_after_w[None, :])
-    return records, added, av.reset_finality(base.finalized_at, take_w)
+    added = take_w[None, :] | (added & occupied_after_w[None, :])
+    return records, added, av.reset_finality(finalized_at, take_w)
 
 
 def _retire_and_refill(state: StreamingDagState, cfg: AvalancheConfig,
@@ -273,7 +315,7 @@ def _retire_and_refill(state: StreamingDagState, cfg: AvalancheConfig,
     c = set_capacity(state)
     s_w = w // c
     s_b = state.backlog.score.shape[0]
-    settled = _settled_set_slots(state, cfg)
+    settled, accept_votes = _settle_scan(state, cfg)
     empty = state.slot_set == NO_SET
     cap = cfg.stream_retire_cap
     sparse = refill and cap is not None
@@ -299,10 +341,6 @@ def _retire_and_refill(state: StreamingDagState, cfg: AvalancheConfig,
             cfg, lat, torch.where(settled, members, 0)))
 
     # --- retire: member outcomes at the retiring sets' rows (s_b = drop).
-    conf = base.records.confidence
-    with annotate("finality"):
-        fin_acc = vr.has_finalized(conf, cfg) & vr.is_accepted(conf)
-    accept_votes = (fin_acc & base.added).sum(dim=0, dtype=torch.int32)
     n_live = base.alive.sum(dtype=torch.int32).clamp_min(1)
     accepted = accept_votes * 2 > n_live
     row_idx = torch.where(settled, state.slot_set, s_b)
@@ -413,7 +451,7 @@ def drained(state: StreamingDagState,
     settled (one device bool)."""
     exhausted = state.next_idx >= state.backlog.score.shape[0]
     occupied = state.slot_set != NO_SET
-    return exhausted & ~(occupied & ~_settled_set_slots(state, cfg)).any()
+    return exhausted & ~(occupied & ~_settle_scan(state, cfg)[0]).any()
 
 
 def run(state: StreamingDagState, cfg: AvalancheConfig = DEFAULT_CONFIG,

@@ -123,7 +123,7 @@ def _local_settled_sets(state: StreamingDagState, cfg: AvalancheConfig,
                         c: int) -> torch.Tensor:
     """Bool ``[s_w_local]``: occupied set-slots with no (live node,
     member) pair pollable on any node shard — the dense
-    `_settled_set_slots` with its node-axis `any` a psum."""
+    `streaming_dag.settle_scan_plain` with its node-axis `any` a psum."""
     base = state.dag.base
     n_local, w_local = base.records.votes.shape
     s_w_local = w_local // c

@@ -90,7 +90,9 @@ PORT_KERNELS = {"mega_round_kernel": "fused_round",
                 "vote_swar_kernel<": "ingest_votes",
                 "vote_swar_kernel_any": "ingest_votes",
                 "prefs_pack_kernel": "gather_prefs",
-                "vote_packs_kernel": "gather_prefs"}
+                "vote_packs_kernel": "gather_prefs",
+                "settle_scan_kernel": "retire_refill",
+                "refill_kernel": "retire_refill"}
 
 
 def card_label() -> str:
